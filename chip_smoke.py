@@ -12,12 +12,21 @@ Phases, in order; any failure raises and exits non-zero:
    the one-call PyTorch yardstick where there is one, and the card's bound;
    then a small training run with the kernels against the plain path, and
    the full-size aggregation (spmm) checked for bit-reproducibility;
-4. the slice: full-graph i-EXACT GraphSAGE training (arxiv-like at full
+   (the fused matmul-quant pair at the rp_ratio-0 slice's layer shapes
+   is also held against the quant kernels and timed beside its two-pass
+   spelling);
+4. slice 1: full-graph i-EXACT GraphSAGE training (arxiv-like at full
    size, hidden 256-256, INT2, G=256, RP 8, VM) through ``train_gnn`` on
    the card, with launch counts, the live stash against the byte ledger, a
    falling finite loss and a bit-identical repeated step; then one profiled
    step (device time per kernel, idle share);
-5. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+5. slice 2: the same SAGE without RP, ``fused="auto"``, where every layer
+   runs the fused pair: the same checks, with 3 fused launches a step and
+   none of the unfused quant or RP kernels, then 2 epochs with
+   ``fused="off"`` from the same weights (losses within rtol 1e-3, equal
+   stash bytes, epoch times and peak memory side by side) and one
+   profiled step;
+6. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX; without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -153,6 +162,83 @@ def check_rp(torch, rk, ref, rpmod, flush, gen) -> dict:
     return rows
 
 
+FUSED_LAYERS = ((256, 256), (512, 256), (512, 40))   # slice 2: (D, N)
+
+
+def check_fused(torch, fk, qk, ref, levels, flush, gen) -> dict:
+    """matmul_quant / dequant_matmul at the rp_ratio-0 slice's three layer
+    shapes.  The forward's stash must be bit-equal to the plain version and
+    to the quant_pack kernel on the same x, its y within 2e-4 of cuBLAS;
+    the backward within 1e-4 * (|x_hat|^T |g|) elementwise of the plain
+    version (a long row sum in another order) and bit-identical from call
+    to call.  Timed beside the plain version, the product alone in one
+    torch.matmul (library_ms), and the two-pass spelling each replaces
+    (unfused_ms: cuBLAS + quant_pack, or dequant_unpack + cuBLAS)."""
+    log(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
+        f"cudnn {torch.backends.cudnn.allow_tf32}")
+    rows, G = {}, 256
+    for d, n in FUSED_LAYERS:
+        x = torch.randn((N_NODES, d), device="cuda", generator=gen) * 1.7
+        w = torch.randn((d, n), device="cuda", generator=gen) / d ** 0.5
+        g = torch.randn((N_NODES, n), device="cuda", generator=gen) / 400
+        tag = f"{N_NODES}x{d}@{d}x{n}"
+        y, *stash = fk.matmul_quant(x, w, 2, 99, levels, group_size=G)
+        y_p, *stash_p = ref.matmul_quantize_packed(x, w, 2, 99, levels,
+                                                   group_size=G)
+        stash_q = qk.quant_pack(x.reshape(-1, G), 2, 99, levels)
+        torch.cuda.synchronize()
+        for a, b, c in zip(stash, stash_p, stash_q):
+            if not (torch.equal(a, b) and torch.equal(a, c)):
+                raise AssertionError(f"matmul_quant {tag}: stash not "
+                                     "bit-equal to the plain version and "
+                                     "quant_pack")
+        torch.testing.assert_close(y, y_p, rtol=2e-4, atol=2e-4)
+        y_err = float((y - y_p).abs().max())
+        dw = fk.dequant_matmul(*stash, g, 2, G, d, levels)
+        again = fk.dequant_matmul(*stash, g, 2, G, d, levels)
+        dw_p = ref.dequant_matmul_packed(*stash_p, g, 2, G, d, levels)
+        x_hat = ref.dequantize_packed(*stash_p, 2, G, levels).reshape(-1, d)
+        scale = x_hat.abs().T @ g.abs()
+        dw_err = float((dw - dw_p).abs().max())
+        if not torch.equal(dw, again):
+            raise AssertionError(f"dequant_matmul {tag}: two calls differ")
+        if not bool(((dw - dw_p).abs() <= 1e-4 * scale).all()):
+            raise AssertionError(f"dequant_matmul {tag}: outside 1e-4 of "
+                                 f"|x_hat|^T|g| (max abs err {dw_err})")
+        nb = N_NODES * d // G
+        stash_bytes = nb * (G * 2 // 8) + 8 * nb
+        flops = 2 * N_NODES * d * n
+        # forward: x and w read, y and the stash written; the product plus
+        # ~18 operations an element to quantize (as check_quant counts)
+        f_bound = bound(4 * (N_NODES * d + d * n + N_NODES * n) + stash_bytes,
+                        flops + 18 * N_NODES * d)
+        # backward: the stash and g read, dw written; the product plus ~4
+        # operations an element to dequantize
+        b_bound = bound(stash_bytes + 4 * (N_NODES * n + d * n),
+                        flops + 4 * N_NODES * d)
+        f = dict(ms=time_ms(torch, lambda: fk.matmul_quant(x, w, 2, 99, levels, group_size=G), flush),
+                 plain_ms=time_ms(torch, lambda: ref.matmul_quantize_packed(x, w, 2, 99, levels, group_size=G), flush),
+                 library_ms=time_ms(torch, lambda: torch.matmul(x, w), flush),
+                 unfused_ms=time_ms(torch, lambda: (torch.matmul(x, w), qk.quant_pack(x.reshape(-1, G), 2, 99, levels)), flush),
+                 bound_ms=f_bound[0], bound_by=f_bound[1], max_abs_err=y_err,
+                 flops=flops)
+        b = dict(ms=time_ms(torch, lambda: fk.dequant_matmul(*stash, g, 2, G, d, levels), flush),
+                 plain_ms=time_ms(torch, lambda: ref.dequant_matmul_packed(*stash_p, g, 2, G, d, levels), flush),
+                 library_ms=time_ms(torch, lambda: torch.matmul(x_hat.T, g), flush),
+                 unfused_ms=time_ms(torch, lambda: torch.matmul(qk.dequant_unpack(*stash, 2, G, levels).reshape(-1, d).T, g), flush),
+                 bound_ms=b_bound[0], bound_by=b_bound[1], max_abs_err=dw_err,
+                 flops=flops, scratch_bytes=fk.scratch_nbytes(N_NODES, d, n),
+                 splits=fk.splits(N_NODES, d, n)[0])
+        log(f"matmul_quant   {tag}: stash bit-equal, y max abs err {y_err}; {f}")
+        log(f"dequant_matmul {tag}: bit-identical repeat, max abs err "
+            f"{dw_err}; {b}")
+        rows[("matmul_quant", tag)] = f
+        rows[("dequant_matmul", tag)] = b
+        del x, w, g, y, y_p, stash, stash_p, stash_q, dw, again, dw_p, x_hat
+        del scale
+    return rows
+
+
 def check_spmm(torch, g, flush, gen) -> None:
     """The aggregation at full size (not a TPU kernel, a library call): the
     port's segment-sum spmm must give the same bits on every call.
@@ -234,6 +320,77 @@ def profile_step(torch, g, cfg, model) -> None:
         log(f"  {ms:9.3f} ms  x{count:<4d} {key[:100]}")
 
 
+FUSED = ("matmul_quant", "dequant_matmul")
+#: Slice 2's live stash per layer (graph/analysis.saved_bytes_per_layer at
+#: 169,343 nodes, SAGE 128 -> 256 -> 256 -> 40, INT2, G=256, no RP).
+RP0_LEDGER = [17_611_676, 29_804_372, 24_385_396]
+
+
+def slice_rp0(torch, g, cfg, model0, wrappers, saved_bytes_per_layer) -> dict:
+    """Slice 2: the same SAGE without RP, fused="auto", where every layer
+    is eligible for the fused pair.  Five epochs and two one-epoch repeats
+    with the counts set to 0 just before and read just after; then two
+    epochs with fused="off" from the same weights as the two-pass
+    reference; then one profiled step.  Returns the launch counts."""
+    from repro_torch.graph.train import train_gnn
+
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = train_gnn(g, cfg, n_epochs=EPOCHS, seed=0, params=model0,
+                    fused="auto")
+    rep_a = train_gnn(g, cfg, n_epochs=1, seed=0, params=model0, fused="auto")
+    rep_b = train_gnn(g, cfg, n_epochs=1, seed=0, params=model0, fused="auto")
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    peak = torch.cuda.max_memory_allocated()
+    steps = EPOCHS + 2
+    log(f"[rp0 fused=auto] launches over {steps} steps: {launches}")
+    for name, n in launches.items():
+        want = 3 * steps if name in FUSED else 0
+        if n != want:
+            raise AssertionError(f"[rp0] {name}: {n} launches, expected "
+                                 f"{want}")
+    for epoch, loss, ms in res["history"]:
+        log(f"[rp0 fused=auto] epoch {epoch}: loss {loss!r} {ms:.3f} ms")
+    log(f"[rp0 fused=auto] val_acc {res['val_acc']} test_acc "
+        f"{res['test_acc']} max_memory_allocated {peak} bytes")
+    ledger = [r["compressed_bytes"]
+              for r in saved_bytes_per_layer(cfg, g.n_feats, g.n_nodes)]
+    log(f"[rp0] live stash bytes per layer {res['stash_bytes']} ledger "
+        f"{ledger}")
+    if not res["stash_bytes"] == ledger == RP0_LEDGER:
+        raise AssertionError("[rp0] live stash bytes differ from the ledger")
+    losses = [h[1] for h in res["history"]]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"[rp0] losses not finite and falling: {losses}")
+    same = (rep_a["history"][0][1] == rep_b["history"][0][1]
+            == res["history"][0][1]
+            and all(torch.equal(p, q) for p, q in
+                    zip(rep_a["model"].parameters(),
+                        rep_b["model"].parameters())))
+    if not same:
+        raise AssertionError("[rp0] repeated step is not bit-identical")
+    log("[rp0] repeated step: loss and params bit-identical")
+
+    torch.cuda.reset_peak_memory_stats()
+    off = train_gnn(g, cfg, n_epochs=2, seed=0, params=model0, fused="off")
+    torch.cuda.synchronize()
+    off_peak = torch.cuda.max_memory_allocated()
+    for epoch, loss, ms in off["history"]:
+        log(f"[rp0 fused=off] epoch {epoch}: loss {loss!r} {ms:.3f} ms")
+    log(f"[rp0 fused=off] max_memory_allocated {off_peak} bytes")
+    a, b = losses[:2], [h[1] for h in off["history"]]
+    if not all(math.isclose(x, y, rel_tol=1e-3) for x, y in zip(a, b)):
+        raise AssertionError(f"[rp0] fused losses {a} vs unfused {b}")
+    if off["stash_bytes"] != res["stash_bytes"]:
+        raise AssertionError(f"[rp0] unfused stash {off['stash_bytes']}")
+    log(f"[rp0] fused=off within rtol 1e-3 of fused=auto: {a} vs {b}; "
+        "stash bytes equal")
+    profile_step(torch, g, cfg, res["model"])
+    return {name: launches[name] for name in FUSED}
+
+
 def main() -> int:
     import torch
 
@@ -248,6 +405,7 @@ def main() -> int:
     from repro_torch.graph.models import GNN, GNNConfig
     from repro_torch.graph.train import train_gnn
     from repro_torch.kernels import build, ref
+    from repro_torch.kernels import fused_matmul as fk
     from repro_torch.kernels import quant_blockwise as qk
     from repro_torch.kernels import rp_matmul as rk
 
@@ -274,11 +432,15 @@ def main() -> int:
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
     rows = check_quant(torch, qk, ref, comp.levels(), flush, gen)
     rows.update(check_rp(torch, rk, ref, rpmod, flush, gen))
+    comp0 = CompressionConfig(bits=2, group_size=256, rp_ratio=0, vm=True)
+    cfg0 = GNNConfig(arch="sage", hidden=(256, 256), n_classes=40,
+                     compression=comp0)
+    rows.update(check_fused(torch, fk, qk, ref, comp0.levels(), flush, gen))
     small_cfg = GNNConfig(arch="sage", hidden=(64, 64), n_classes=40,
                           compression=comp)
     check_small_training(torch, train_gnn, small_cfg, arxiv_like(scale=0.004))
 
-    # 4. the slice
+    # 4. slice 1 (RP 8); slice 2 (no RP, fused) follows its profile
     t0 = time.perf_counter()
     g = arxiv_like(scale=1.0)
     log(f"arxiv-like: {g.n_nodes} nodes, {g.n_edges} edges, built in "
@@ -289,7 +451,7 @@ def main() -> int:
     del flush
     model0 = GNN(cfg, g.n_feats, generator=torch.Generator().manual_seed(0))
     wrappers = (qk.quant_pack, qk.dequant_unpack, rk.rp_project,
-                rk.irp_project)
+                rk.irp_project, fk.matmul_quant, fk.dequant_matmul)
     for w in wrappers:
         w.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -308,9 +470,9 @@ def main() -> int:
     steps = EPOCHS + 2
     log(f"launches over {steps} steps: {launches}")
     for name, n in launches.items():
-        if n != 3 * steps:
-            raise AssertionError(f"{name}: {n} launches, expected "
-                                 f"{3 * steps} (3 per step)")
+        want = 0 if name in FUSED else 3 * steps   # RP 8: nothing fuses
+        if n != want:
+            raise AssertionError(f"{name}: {n} launches, expected {want}")
     ledger = [r["compressed_bytes"]
               for r in saved_bytes_per_layer(cfg, g.n_feats, g.n_nodes)]
     log(f"live stash bytes per layer {res['stash_bytes']} ledger {ledger}")
@@ -328,8 +490,10 @@ def main() -> int:
         raise AssertionError("repeated step is not bit-identical")
     log("repeated step: loss and params bit-identical")
     profile_step(torch, g, cfg, res["model"])
+    launches.update(slice_rp0(torch, g, cfg0, model0, wrappers,
+                              saved_bytes_per_layer))
 
-    # 5. results
+    # 6. results
     sources = {"quant_pack": ("src/repro_torch/csrc/quant_blockwise.cu",
                               "src/repro/kernels/quant_blockwise.py:62"),
                "dequant_unpack": ("src/repro_torch/csrc/quant_blockwise.cu",
@@ -337,11 +501,17 @@ def main() -> int:
                "rp_project": ("src/repro_torch/csrc/rp_matmul.cu",
                               "src/repro/kernels/rp_matmul.py:24"),
                "irp_project": ("src/repro_torch/csrc/rp_matmul.cu",
-                               "src/repro/kernels/rp_matmul.py:24")}
+                               "src/repro/kernels/rp_matmul.py:24"),
+               "matmul_quant": ("src/repro_torch/csrc/fused_matmul.cu",
+                                "src/repro/kernels/fused_matmul.py:80"),
+               "dequant_matmul": ("src/repro_torch/csrc/fused_matmul.cu",
+                                  "src/repro/kernels/fused_matmul.py:156")}
     # one row per kernel: its largest main-path shape (VM for quant)
     main_tag = {"quant_pack": "42336x256 vm", "dequant_unpack": "42336x256 vm",
                 "rp_project": f"{N_NODES}x512->64",
-                "irp_project": f"{N_NODES}x64->512"}
+                "irp_project": f"{N_NODES}x64->512",
+                "matmul_quant": f"{N_NODES}x512@512x256",
+                "dequant_matmul": f"{N_NODES}x512@512x256"}
     kernels = []
     for name, (source, replaces) in sources.items():
         row = rows[(name, main_tag[name])]
@@ -352,7 +522,9 @@ def main() -> int:
                                if n == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "shape": main_tag[name]})
+            "library_ms": row["library_ms"], "shape": main_tag[name],
+            **({"unfused_ms": row["unfused_ms"]} if "unfused_ms" in row
+               else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -72,26 +72,34 @@ def supports_fused(shape, bits: int, group_size: int, levels=None) -> bool:
 
 def route_fused(fused: str, impl: str, shape, bits: int, group_size: int,
                 levels=None, rp_ratio: int = 0, device="cpu") -> str | None:
-    """Concrete impl of the fused matmul-quant pair, or None for the
-    unfused two-pass spelling.
+    """Concrete impl of the fused matmul-quant pair for tensors on
+    ``device``, or None for the unfused two-pass spelling.
 
-    The port has no fused kernels yet: ``"auto"`` always declines, and
-    ``"on"`` raises ``ValueError`` on an ineligible config (as the
-    reference does) and ``NotImplementedError`` on an eligible one."""
+    The reference's decisions: ``"off"`` never fuses.  ``"on"`` raises
+    ``ValueError`` on an ineligible config (see :func:`fused_unsupported`)
+    or on ``rp_ratio > 1``, and otherwise returns the concrete impl:
+    ``"torch"`` on the CPU (the plain composition, the same bits) and
+    ``"cuda"`` on the card.  ``"auto"`` fuses only on the kernel path: an
+    eligible layer with ``rp_ratio <= 1`` on a CUDA device gets ``"cuda"``,
+    everything else None (on the card the unfused spelling still runs the
+    quant kernels; on the CPU ``"auto"`` declines, as the reference's
+    ``"auto"`` does off the TPU)."""
     if fused not in VALID_FUSED:
         raise ValueError(f"fused={fused!r} not in {VALID_FUSED}")
-    resolve_impl(impl, device)
-    if fused != "on":
+    concrete = resolve_impl(impl, device)
+    if fused == "off":
         return None
     reason = fused_unsupported(shape, bits, group_size, levels)
     if reason is None and rp_ratio > 1:
         reason = (f"rp_ratio={rp_ratio} projects before quantization; the "
                   "fused epilogue quantizes the matmul operand itself")
-    if reason is not None:
-        raise ValueError(f"fused='on' cannot run this config: {reason}")
-    raise NotImplementedError(
-        "fused='on': the fused matmul-quant kernels (reference "
-        "kernels/fused_matmul.py) are ported in the next slice of the port")
+    if fused == "on":
+        if reason is not None:
+            raise ValueError(f"fused='on' cannot run this config: {reason}")
+        return concrete
+    if reason is not None or concrete != "cuda":
+        return None
+    return concrete
 
 
 def route_rp(impl: str, device="cpu") -> str:
@@ -143,3 +151,19 @@ def irp(x, seed: int, d_in: int, *, impl: str = "auto"):
     r = x.shape[-1]
     out = ops.irp_project(x.reshape(-1, r), seed, d_in, impl=impl)
     return out.reshape(*x.shape[:-1], d_in)
+
+
+def matmul_quantize(x2d, w, bits: int, seed: int, levels=None, *,
+                    impl: str, group_size: int):
+    """Fused ``y = x @ w`` + quantize/pack ``x`` beside it.  ``impl`` is the
+    concrete impl :func:`route_fused` returned."""
+    return ops.matmul_quantize_packed(x2d, w, bits, seed, levels,
+                                      group_size=group_size, impl=impl)
+
+
+def dequant_matmul(packed, zero, rng, g2d, bits: int, group_size: int,
+                   d: int, levels=None, *, impl: str):
+    """Fused ``dw = dequant(packed)^T @ g`` (dequantize in the backward
+    matmul's prologue)."""
+    return ops.dequant_matmul_packed(packed, zero, rng, g2d, bits,
+                                     group_size, d, levels, impl=impl)

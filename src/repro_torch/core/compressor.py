@@ -140,22 +140,43 @@ def compress_matmul(x: torch.Tensor, w: torch.Tensor, cfg: CompressionConfig,
                     ) -> tuple[torch.Tensor, CompressedTensor]:
     """Forward matmul ``y = x @ w`` (f32) plus the stash ``ct`` of ``x``.
 
-    Only the unfused two-pass spelling exists in this slice of the port:
-    :func:`repro_torch.core.backend.route_fused` declines ``"auto"`` and
-    raises on ``"on"``."""
-    backend.route_fused(fused, cfg.impl, tuple(x.shape), cfg.bits,
-                        cfg.group_size, cfg.levels(), cfg.rp_ratio, x.device)
-    ct = compress(x, cfg, seed)
-    return x.to(torch.float32) @ w.to(torch.float32), ct
+    :func:`repro_torch.core.backend.route_fused` decides: the fused pair
+    (``x`` quantized beside the product, one read of ``x``) or, when it
+    declines, the unfused two-pass spelling.  Either way ``ct`` holds the
+    words :func:`compress` writes, and the same ``rp_seed``, shape, dtype
+    and cfg, so ``ct.nbytes`` is the ledger's."""
+    seed = int(seed) & MASK32
+    levels = cfg.levels()
+    concrete = backend.route_fused(fused, cfg.impl, tuple(x.shape), cfg.bits,
+                                   cfg.group_size, levels, cfg.rp_ratio,
+                                   x.device)
+    if concrete is None:
+        ct = compress(x, cfg, seed)
+        return x.to(torch.float32) @ w.to(torch.float32), ct
+    y, packed, zero, rng = backend.matmul_quantize(
+        x.to(torch.float32), w.to(torch.float32), cfg.bits, seed, levels,
+        impl=concrete, group_size=cfg.group_size)
+    ct = CompressedTensor(packed, zero, rng, _seed_tensor(seed ^ RP_SEED_SALT),
+                          shape=tuple(x.shape), dtype=x.dtype, cfg=cfg)
+    return y, ct
 
 
 def decompress_matmul(ct: CompressedTensor, g2d: torch.Tensor,
                       fused: str = "auto") -> torch.Tensor:
     """Backward matmul ``dw = x_hat^T @ g`` for the (M, D) input ``ct``
-    stashes and its (M, N) output gradient ``g2d`` (unfused, as above)."""
+    stashes and its (M, N) output gradient ``g2d``: fused (dequantize in
+    the product's prologue, no f32 reconstruction in memory) or, when
+    :func:`repro_torch.core.backend.route_fused` declines, two-pass."""
     cfg = ct.cfg
-    backend.route_fused(fused, cfg.impl, ct.shape, cfg.bits, cfg.group_size,
-                        cfg.levels(), cfg.rp_ratio, g2d.device)
-    x_hat = decompress(ct)
+    levels = cfg.levels()
+    concrete = backend.route_fused(fused, cfg.impl, ct.shape, cfg.bits,
+                                   cfg.group_size, levels, cfg.rp_ratio,
+                                   g2d.device)
     d = ct.shape[-1]
-    return x_hat.reshape(-1, d).to(torch.float32).T @ g2d.to(torch.float32)
+    if concrete is None:
+        x_hat = decompress(ct)
+        return (x_hat.reshape(-1, d).to(torch.float32).T
+                @ g2d.to(torch.float32))
+    return backend.dequant_matmul(ct.packed, ct.zero, ct.rng,
+                                  g2d.to(torch.float32), cfg.bits,
+                                  cfg.group_size, d, levels, impl=concrete)

@@ -23,38 +23,64 @@
 // Bit equality with the plain PyTorch version (and the JAX reference): this
 // file is built with --fmad=false and no fast math, and every rounding step
 // is an explicit _rn intrinsic, so nothing is contracted into an FMA and
-// every division is the IEEE one.
+// every division is the IEEE one.  The rounding itself lives in
+// quant_common.cuh, shared with the fused kernels of fused_matmul.cu.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quant_common.cuh"
+
 namespace {
 
+using quant::Levels;
+
 constexpr int kWarpsPerCta = 8;
-constexpr int kMaxLevels = 16;
-constexpr float kEps = 1e-10f;
-constexpr uint32_t kGolden = 0x9E3779B9u;
 
-struct Levels {
-  float v[kMaxLevels];
-  int n;  // 0 = uniform integer levels 0..B
-};
-
-__host__ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
+// Code c of a block in the strided layout: word c % W, shift (c / W) * bits.
+__device__ __forceinline__ uint32_t unpack_code(const uint32_t* block_words,
+                                                int c, int W, int bits) {
+  const uint32_t mask = static_cast<uint32_t>((1ull << bits) - 1ull);
+  return (__ldg(block_words + c % W) >> ((c / W) * bits)) & mask;
 }
 
-__device__ __forceinline__ float uniform(uint32_t seed_hash, uint32_t counter) {
-  const uint32_t mixed = fmix32(counter * kGolden + seed_hash);
-  return __fmul_rn(static_cast<float>(mixed >> 8), 1.0f / 16777216.0f);
+// Min and max over a warp's partial values (every lane gets both).
+__device__ __forceinline__ void warp_minmax(float& mn, float& mx) {
+  for (int o = 16; o > 0; o >>= 1) {
+    mn = fminf(mn, __shfl_xor_sync(0xFFFFFFFFu, mn, o));
+    mx = fmaxf(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, o));
+  }
 }
 
-__host__ __device__ __forceinline__ float max_level(int bits) {
-  return static_cast<float>((1ull << bits) - 1ull);
+// One warp quantizes and packs one block of G floats staged in shared
+// memory at xs, whose min and max it already holds (on every lane), with the
+// level table lv (n_lv entries, shared memory; 0 = uniform).  The codes
+// overwrite xs in place; block is the block's global index, so the SR
+// counter of element e is block * G + e (mod 2**32).  Writes the block's W
+// words to packed[block * W ...], and its zero and range.
+__device__ __forceinline__ void warp_quantize_staged(
+    float* xs, long long block, int G, int bits, uint32_t seed_hash,
+    float mn, float mx, const float* lv, int n_lv,
+    uint32_t* __restrict__ packed,
+    float* __restrict__ zero, float* __restrict__ rng, int lane) {
+  uint32_t* cs = reinterpret_cast<uint32_t*>(xs);
+  const float range = __fsub_rn(mx, mn);
+  const float safe = fmaxf(range, quant::kEps);
+  const float B = quant::max_level(bits);
+  for (int e = lane; e < G; e += 32) {
+    const float u =
+        quant::uniform(seed_hash, static_cast<uint32_t>(block * G + e));
+    cs[e] = quant::sr_code(xs[e], mn, safe, B, u, lv, n_lv);
+  }
+  __syncwarp();
+  const int W = G / (32 / bits);
+  for (int j = lane; j < W; j += 32) {
+    packed[block * W + j] =
+        quant::pack_word([cs](int e) { return cs[e]; }, j, W, bits);
+  }
+  if (lane == 0) {
+    zero[block] = mn;
+    rng[block] = range;
+  }
 }
 
 __global__ void __launch_bounds__(kWarpsPerCta * 32)
@@ -63,11 +89,13 @@ quant_pack_kernel(const float* __restrict__ x, uint32_t* __restrict__ packed,
                   long long n_blocks, int G, int bits, uint32_t seed_hash,
                   Levels lv) {
   extern __shared__ float smem[];  // kWarpsPerCta * G floats
+  __shared__ float table[quant::kMaxLevels];
+  quant::load_levels(lv, table);
+  __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long row = static_cast<long long>(blockIdx.x) * kWarpsPerCta + warp;
   if (row >= n_blocks) return;  // whole warp: row is per warp
   float* xs = smem + static_cast<size_t>(warp) * G;
-  uint32_t* cs = reinterpret_cast<uint32_t*>(xs);
   const float* xr = x + row * G;
 
   // pass 1: load the block, min and max
@@ -87,47 +115,13 @@ quant_pack_kernel(const float* __restrict__ x, uint32_t* __restrict__ packed,
       mx = fmaxf(mx, v);
     }
   }
-  for (int o = 16; o > 0; o >>= 1) {
-    mn = fminf(mn, __shfl_xor_sync(0xFFFFFFFFu, mn, o));
-    mx = fmaxf(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, o));
-  }
+  warp_minmax(mn, mx);
   __syncwarp();
 
-  // pass 2: normalize and stochastically round, each code over its value
-  const float range = __fsub_rn(mx, mn);
-  const float safe = fmaxf(range, kEps);
-  const float B = max_level(bits);
-  for (int e = lane; e < G; e += 32) {
-    float h = __fmul_rn(__fdiv_rn(__fsub_rn(xs[e], mn), safe), B);
-    h = fminf(fmaxf(h, 0.0f), B);
-    const float u = uniform(seed_hash, static_cast<uint32_t>(row * G + e));
-    uint32_t code;
-    if (lv.n == 0) {
-      const float lo = floorf(h);
-      code = static_cast<uint32_t>(lo) + (u < __fsub_rn(h, lo) ? 1u : 0u);
-    } else {
-      // count interior levels <= h: the reference's searchsorted(right) - 1
-      uint32_t idx = 0;
-      for (int i = 1; i < lv.n - 1; ++i) idx += (h >= lv.v[i]) ? 1u : 0u;
-      const float lo = lv.v[idx], hi = lv.v[idx + 1];
-      const float p_up = __fdiv_rn(__fsub_rn(h, lo), fmaxf(__fsub_rn(hi, lo), kEps));
-      code = idx + (u < p_up ? 1u : 0u);
-    }
-    cs[e] = code;
-  }
-  __syncwarp();
-
-  // pass 3: strided pack, word j <- codes j, j + W, j + 2W, ...
-  const int vpw = 32 / bits, W = G / vpw;
-  for (int j = lane; j < W; j += 32) {
-    uint32_t w = 0;
-    for (int k = 0; k < vpw; ++k) w |= cs[j + k * W] << (k * bits);
-    packed[row * W + j] = w;
-  }
-  if (lane == 0) {
-    zero[row] = mn;
-    rng[row] = range;
-  }
+  // passes 2 and 3: stochastically round each code over its value, then
+  // the strided pack (quant_common.cuh)
+  warp_quantize_staged(xs, row, G, bits, seed_hash, mn, mx, table,
+                              lv.n, packed, zero, rng, lane);
 }
 
 __global__ void __launch_bounds__(kWarpsPerCta * 32)
@@ -135,27 +129,21 @@ dequant_unpack_kernel(const uint32_t* __restrict__ packed,
                       const float* __restrict__ zero,
                       const float* __restrict__ rng, float* __restrict__ out,
                       long long n_blocks, int G, int bits, Levels lv) {
+  __shared__ float table[quant::kMaxLevels];
+  quant::load_levels(lv, table);
+  __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long row = static_cast<long long>(blockIdx.x) * kWarpsPerCta + warp;
   if (row >= n_blocks) return;
-  const int vpw = 32 / bits, W = G / vpw;
-  const uint32_t mask = static_cast<uint32_t>((1ull << bits) - 1ull);
-  const float scale = __fdiv_rn(rng[row], max_level(bits));
+  const int W = G / (32 / bits);
+  const float scale = quant::dequant_scale(rng[row], bits);
   const float z = zero[row];
   const uint32_t* pr = packed + row * W;
   float* orow = out + row * G;
   for (int e = lane; e < G; e += 32) {
-    const uint32_t code = (__ldg(pr + e % W) >> ((e / W) * bits)) & mask;
-    const float v = lv.n ? lv.v[code] : static_cast<float>(code);
-    orow[e] = __fadd_rn(__fmul_rn(v, scale), z);
+    orow[e] = quant::dequant_value(unpack_code(pr, e, W, bits), scale,
+                                   z, table, lv.n);
   }
-}
-
-Levels make_levels(const float* levels, int n_levels) {
-  Levels lv = {};
-  lv.n = n_levels;
-  for (int i = 0; i < n_levels && i < kMaxLevels; ++i) lv.v[i] = levels[i];
-  return lv;
 }
 
 unsigned grid_for(long long n_blocks) {
@@ -178,8 +166,8 @@ extern "C" int quant_pack(const float* x, uint32_t* packed, float* zero,
   }
   quant_pack_kernel<<<grid_for(n_blocks), kWarpsPerCta * 32, smem,
                       static_cast<cudaStream_t>(stream)>>>(
-      x, packed, zero, rng, n_blocks, group_size, bits, fmix32(seed),
-      make_levels(levels, n_levels));
+      x, packed, zero, rng, n_blocks, group_size, bits, quant::fmix32(seed),
+      quant::make_levels(levels, n_levels));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -191,6 +179,6 @@ extern "C" int dequant_unpack(const uint32_t* packed, const float* zero,
   dequant_unpack_kernel<<<grid_for(n_blocks), kWarpsPerCta * 32, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       packed, zero, rng, out, n_blocks, group_size, bits,
-      make_levels(levels, n_levels));
+      quant::make_levels(levels, n_levels));
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,18 +22,21 @@ def masked_nll(logits: torch.Tensor, labels: torch.Tensor,
 
 class CompiledFull:
     """Full-graph step: ``step(epoch)`` runs forward, the manual backward
-    and AdamW in place, and returns the loss (a device scalar)."""
+    and AdamW in place, and returns the loss (a device scalar).  ``fused``
+    is the reference's ``KernelPolicy.fused`` knob ("auto" | "on" | "off")
+    for the matmul-quant pair."""
 
     def __init__(self, graph: DeviceGraph, cfg: GNNConfig, model: GNN,
-                 opt: AdamWConfig):
+                 opt: AdamWConfig, fused: str = "auto"):
         self.graph, self.cfg, self.model, self.opt = graph, cfg, model, opt
+        self.fused = fused
         self.state = adamw_init(model.flat_params())
         self.stash_bytes: list[int] = []
 
     def step(self, epoch: int) -> torch.Tensor:
         params = self.model.flat_params()
         logits = stash_gnn_forward(self.model, self.graph, self.cfg,
-                                   seeds.sr_seed(epoch))
+                                   seeds.sr_seed(epoch), self.fused)
         self.stash_bytes = stash_nbytes(logits)
         loss = masked_nll(logits, self.graph.labels, self.graph.train_mask)
         grads = torch.autograd.grad(loss, params)

@@ -31,7 +31,7 @@ class _StashGNN(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, graph: DeviceGraph, cfg: GNNConfig, seed: int,
-                *flat_params):
+                fused: str, *flat_params):
         params = list(zip(flat_params[0::2], flat_params[1::2]))
         per_layer = cfg.layer_compression()
         sage = cfg.arch == "sage"
@@ -45,7 +45,10 @@ class _StashGNN(torch.autograd.Function):
                 entry = {"raw": x}
                 z = x @ w + b
             else:
-                y, ct = compress_matmul(x, w, comp, seeds.layer_seed(seed, li))
+                # fused: x is quantized beside its product (one read of
+                # x); route_fused falls back to two passes per layer
+                y, ct = compress_matmul(x, w, comp, seeds.layer_seed(seed, li),
+                                        fused=fused)
                 entry = {"ct": ct}
                 z = y + b
             if not sage:
@@ -56,7 +59,7 @@ class _StashGNN(torch.autograd.Function):
             stash.append(entry)
             h = z
         ctx.save_for_backward(*flat_params)
-        ctx.graph, ctx.cfg, ctx.stash = graph, cfg, stash
+        ctx.graph, ctx.cfg, ctx.stash, ctx.fused = graph, cfg, stash, fused
         return h
 
     @staticmethod
@@ -79,7 +82,8 @@ class _StashGNN(torch.autograd.Function):
             # the linear)
             gz = g if sage else spmm(g, adj_t)
             if "ct" in entry:
-                dw = decompress_matmul(entry["ct"], gz)
+                # fused: the stash is dequantized in the product's prologue
+                dw = decompress_matmul(entry["ct"], gz, fused=ctx.fused)
             else:
                 dw = entry["raw"].T @ gz
             grads[2 * li] = dw.to(w.dtype)
@@ -92,17 +96,23 @@ class _StashGNN(torch.autograd.Function):
                 gh = gx[:, :d] + spmm(gx[:, d:], adj_t)
             else:
                 gh = gx
-        return (None, None, None, *grads)
+        return (None, None, None, None, *grads)
 
 
 def stash_gnn_forward(model, graph: DeviceGraph, cfg: GNNConfig,
-                      seed: int = 0) -> torch.Tensor:
+                      seed: int = 0, fused: str = "auto") -> torch.Tensor:
     """Logits of ``model`` on ``graph`` with every layer's stash saved for
-    the manual backward (``cfg`` carries the compression configs)."""
+    the manual backward (``cfg`` carries the compression configs).
+
+    ``fused`` ("auto" | "on" | "off") routes each compressed layer's matmul
+    pair (:func:`repro_torch.core.backend.route_fused`): "auto" fuses the
+    eligible layers on the card, "on" fuses every layer or raises, "off"
+    keeps the two-pass spelling."""
     if len(model.weights) != cfg.n_layers:
         raise ValueError(f"model has {len(model.weights)} layers for a "
                          f"{cfg.n_layers}-layer config")
-    return _StashGNN.apply(graph, cfg, int(seed), *model.flat_params())
+    return _StashGNN.apply(graph, cfg, int(seed), fused,
+                           *model.flat_params())
 
 
 def stash_nbytes(logits: torch.Tensor) -> list[int]:

@@ -32,12 +32,13 @@ def _accuracy(model: GNN, graph, mask: torch.Tensor) -> float:
 
 def run(g, cfg: GNNConfig, opt: AdamWConfig | None = None, *,
         n_epochs: int = 100, seed: int = 0, params: GNN | None = None,
-        device="cuda") -> dict:
+        device="cuda", fused: str = "auto") -> dict:
     """Train ``cfg`` on ``g``; returns ``test_acc``, ``val_acc``,
     ``history`` (one ``(epoch, loss, ms)`` per epoch, the host time of the
     step through the loss read-back), ``epochs_per_sec``, ``model`` (the
     trained :class:`GNN`; ``params`` itself is left untouched) and
-    ``stash_bytes`` (the last step's live stash, per layer)."""
+    ``stash_bytes`` (the last step's live stash, per layer).  ``fused``
+    routes the matmul-quant pair (see :class:`CompiledFull`)."""
     device = resolve_device(device)
     opt = opt or AdamWConfig(lr=5e-3, weight_decay=0.0)
     graph = device_graph(g, cfg.arch, device)
@@ -45,7 +46,7 @@ def run(g, cfg: GNNConfig, opt: AdamWConfig | None = None, *,
         params = GNN(cfg, g.n_feats,
                      generator=torch.Generator().manual_seed(seed))
     model = copy.deepcopy(params).to(device)
-    compiled = CompiledFull(graph, cfg, model, opt)
+    compiled = CompiledFull(graph, cfg, model, opt, fused)
     history = []
     t_start = time.perf_counter()
     for epoch in range(n_epochs):

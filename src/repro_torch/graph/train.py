@@ -10,7 +10,8 @@ from repro_torch.optim import AdamWConfig
 
 def train_gnn(g: Graph, cfg: GNNConfig, opt: AdamWConfig | None = None,
               n_epochs: int = 100, seed: int = 0, params: GNN | None = None,
-              impl: str = "auto", device="cuda") -> dict:
+              impl: str = "auto", fused: str = "auto",
+              device="cuda") -> dict:
     """Full-graph training; returns dict(test_acc, val_acc, history,
     epochs_per_sec, model, stash_bytes) (see
     :func:`repro_torch.engine.runner.run`).
@@ -21,6 +22,13 @@ def train_gnn(g: Graph, cfg: GNNConfig, opt: AdamWConfig | None = None,
     (``"cuda"`` on a CUDA device, ``"torch"`` on the CPU).  ``params`` (a
     :class:`GNN`, e.g. from :func:`repro_torch.graph.models.params_from_numpy`)
     sets the initial weights; by default they are drawn from ``seed``.
+
+    ``fused`` ("auto" | "on" | "off") governs the fused matmul-quant pair
+    (the reference's ``train_gnn(fused=)``): "auto" fuses every eligible
+    layer on the card when ``rp_ratio <= 1`` (2-D operand, blocks aligned to
+    rows, whole blocks) and runs the two-pass spelling elsewhere, "on"
+    forces the pair (the plain composition on the CPU, the same bits) and
+    raises on an ineligible layer, "off" never fuses.
     """
     return run(g, cfg.with_impl(impl), opt, n_epochs=n_epochs, seed=seed,
-               params=params, device=device)
+               params=params, device=device, fused=fused)

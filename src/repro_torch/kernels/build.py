@@ -3,23 +3,25 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds).  Libraries go to ``build/kernels/`` at the repository root,
-named by a digest of the source and the flags, so a changed source is
-rebuilt and an unchanged one is reused.  Nothing is built when this module
-is imported: :func:`load` builds at first use, :func:`build` builds several
-sources at once, one ``nvcc`` process each, all started together.
+named by a digest of the source, the ``csrc/*.cuh`` headers it includes
+and the flags, so a changed source or header is rebuilt and an unchanged
+one is reused.  Nothing is built when this module is imported:
+:func:`load` builds at first use, :func:`build` builds several sources at
+once, one ``nvcc`` process each, all started together.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("quant_blockwise", "rp_matmul")
+SOURCES = ("quant_blockwise", "rp_matmul", "fused_matmul")
 # --fmad=false: the quantizer must round like the plain PyTorch version,
 # which never contracts a multiply and an add into an FMA (the RP kernel
 # asks for its FMAs explicitly).  -Xptxas -v reports registers and spills.
@@ -40,10 +42,25 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _included(path: Path, seen: list[Path]) -> list[Path]:
+    """``path`` and every ``csrc`` header it includes, transitively, each
+    once, in the order first included."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    for name in _INCLUDE.findall(path.read_bytes()):
+        _included(CSRC / name.decode(), seen)
+    return seen
+
+
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in _included(CSRC / f"{name}.cu", []):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES) -> dict[str, str]:

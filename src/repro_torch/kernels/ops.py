@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import fused_matmul as fk
 from repro_torch.kernels import quant_blockwise as qk
 from repro_torch.kernels import ref as refmod
 from repro_torch.kernels import rp_matmul as rk
@@ -80,3 +81,29 @@ def irp_project(x2d, seed: int, d_in: int, *, impl: str = "auto"):
     if _plain(impl, x2d.device):
         return refmod.irp_project(x2d, seed, d_in)
     return rk.irp_project(x2d.contiguous(), seed, d_in)
+
+
+def matmul_quantize_packed(x2d, w, bits: int, seed: int, levels=None, *,
+                           group_size: int, impl: str = "auto"):
+    """Fused ``y = x @ w`` with ``x`` quantized+packed beside it: (y (M, N),
+    packed int32, zero (nb,), rng (nb,)), the stash bit-equal to
+    :func:`quantize_packed` on ``x.reshape(-1, group_size)``.  The caller
+    guarantees eligibility (``core.backend.fused_unsupported``)."""
+    levels = static_levels(levels)
+    if _plain(impl, x2d.device):
+        return refmod.matmul_quantize_packed(x2d, w, bits, seed, levels,
+                                             group_size=group_size)
+    return fk.matmul_quant(x2d.contiguous(), w.contiguous(), bits, seed,
+                           levels, group_size=group_size)
+
+
+def dequant_matmul_packed(packed, zero, rng, g2d, bits: int,
+                          group_size: int, d: int, levels=None, *,
+                          impl: str = "auto"):
+    """Fused ``dw = dequant(packed)^T @ g`` (d, N) for an (M, d) stash."""
+    levels = static_levels(levels)
+    if _plain(impl, g2d.device):
+        return refmod.dequant_matmul_packed(packed, zero, rng, g2d, bits,
+                                            group_size, d, levels)
+    return fk.dequant_matmul(packed, zero, rng, g2d.contiguous(), bits,
+                             group_size, d, levels)

@@ -36,3 +36,25 @@ def rp_project(x2d: torch.Tensor, seed: int, d_out: int) -> torch.Tensor:
 def irp_project(x2d: torch.Tensor, seed: int, d_in: int) -> torch.Tensor:
     """x (M, r) @ R(seed).T (r, d_in)."""
     return rpmod.irp(x2d, seed, d_in)
+
+
+def matmul_quantize_packed(x2d: torch.Tensor, w: torch.Tensor, bits: int,
+                           seed: int, levels=None, *, group_size: int):
+    """``y = x @ w`` (f32) and the stash of ``x``: the words, zero and range
+    of :func:`quantize_packed` on ``x.reshape(-1, G)`` (the reference's jnp
+    composition; ``M * D`` must be whole blocks)."""
+    x = x2d.to(torch.float32)
+    y = x @ w.to(torch.float32)
+    packed, zero, rng = quantize_packed(x.reshape(-1, group_size), bits,
+                                        seed, levels)
+    return y, packed, zero, rng
+
+
+def dequant_matmul_packed(packed: torch.Tensor, zero: torch.Tensor,
+                          rng: torch.Tensor, g2d: torch.Tensor, bits: int,
+                          group_size: int, d: int,
+                          levels=None) -> torch.Tensor:
+    """``dw = x_hat^T @ g`` (d, N) for the stash of an (M, d) input:
+    :func:`dequantize_packed`, then ``x_hat.reshape(M, d).T @ g``."""
+    x_hat = dequantize_packed(packed, zero, rng, bits, group_size, levels)
+    return x_hat.reshape(-1, d).T @ g2d.to(torch.float32)

@@ -61,18 +61,28 @@ def test_fused_eligibility_matches_reference(shape, bits, g):
     for rp_ratio in (0, 8):
         ref_raises = _raises(lambda: j_backend.route_fused(
             "on", "jnp", shape, bits, g, lv, rp_ratio))
-        if ref_raises:
-            with pytest.raises(ValueError):
-                t_backend.route_fused("on", "auto", shape, bits, g, lv,
-                                      rp_ratio)
-        else:
-            # eligible: the fused kernels are the next slice of the port
-            with pytest.raises(NotImplementedError, match="next slice"):
-                t_backend.route_fused("on", "auto", shape, bits, g, lv,
-                                      rp_ratio)
-        for mode in ("auto", "off"):
-            assert t_backend.route_fused(mode, "auto", shape, bits, g, lv,
-                                         rp_ratio) is None
+        for device, concrete in (("cpu", "torch"), ("cuda", "cuda")):
+            if ref_raises:
+                with pytest.raises(ValueError):
+                    t_backend.route_fused("on", "auto", shape, bits, g, lv,
+                                          rp_ratio, device)
+            else:
+                assert t_backend.route_fused("on", "auto", shape, bits, g,
+                                             lv, rp_ratio, device) == concrete
+            assert t_backend.route_fused("off", "auto", shape, bits, g, lv,
+                                         rp_ratio, device) is None
+        # "auto" fuses only on the kernel path: the card, where the
+        # reference's kernel impl ("pallas") would fuse
+        want = j_backend.route_fused("auto", "pallas", shape, bits, g, lv,
+                                     rp_ratio)
+        assert (want == "pallas") == (not ref_raises)
+        assert t_backend.route_fused("auto", "auto", shape, bits, g, lv,
+                                     rp_ratio, "cuda") == (
+                                         "cuda" if want else None)
+        assert t_backend.route_fused("auto", "auto", shape, bits, g, lv,
+                                     rp_ratio, "cpu") is None
+        assert j_backend.route_fused("auto", "auto", shape, bits, g, lv,
+                                     rp_ratio) is None
     with pytest.raises(ValueError):
         t_backend.route_fused("sometimes", "auto", shape, bits, g, lv)
 

@@ -89,3 +89,91 @@ def test_cuda_training_matches_cpu(cuda, arch):
     assert t_qk.quant_pack.launches == before + 9
     np.testing.assert_allclose([h[1] for h in on_card["history"]],
                                [h[1] for h in on_cpu["history"]], rtol=1e-3)
+
+
+FUSED_SHAPES = [(96, 64, 64, 48), (9, 64, 64, 48), (10, 32, 64, 48),
+                (100, 64, 32, 48), (677, 512, 256, 40), (678, 128, 256, 256),
+                (5000, 256, 256, 40), (6, 2048, 1024, 48), (99, 96, 288, 40)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levels", [None, VM2], ids=["uniform", "vm"])
+@pytest.mark.parametrize("m,d,g,n", FUSED_SHAPES)
+def test_cuda_matmul_quant_matches_plain_and_quant_pack(cuda, levels, m, d,
+                                                        g, n):
+    """The fused forward's stash triplet is bit-equal to the plain version
+    and to the quant_pack kernel on the same x; y is within 2e-4 of the
+    cuBLAS product (the RP kernel's band: another summation order)."""
+    from repro_torch.kernels import fused_matmul as t_fk
+
+    x = torch.from_numpy(_x(m, d, seed=m)).cuda()
+    w = torch.from_numpy(
+        (_x(d, n, seed=d) / np.sqrt(d)).astype(np.float32)).cuda()
+    before = t_fk.matmul_quant.launches
+    y, *stash = t_fk.matmul_quant(x, w, 2, 42, levels, group_size=g)
+    assert t_fk.matmul_quant.launches == before + 1
+    y_p, *stash_p = t_ref.matmul_quantize_packed(x, w, 2, 42, levels,
+                                                 group_size=g)
+    stash_q = t_qk.quant_pack(x.reshape(-1, g), 2, 42, levels)
+    for a, b, c in zip(stash, stash_p, stash_q):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    torch.testing.assert_close(y, y_p, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levels", [None, VM2], ids=["uniform", "vm"])
+@pytest.mark.parametrize("m,d,g,n", FUSED_SHAPES)
+def test_cuda_dequant_matmul_matches_plain(cuda, levels, m, d, g, n):
+    """|dw_kernel - dw_plain| <= 1e-4 * (|x_hat|^T |g|) elementwise (the
+    row sum is long and its order differs), and two calls give the same
+    bits (fixed row ranges, fixed-order tree, no atomics)."""
+    from repro_torch.kernels import fused_matmul as t_fk
+
+    x = torch.from_numpy(_x(m, d, seed=m)).cuda()
+    gr = torch.from_numpy(_x(m, n, seed=n)).cuda()
+    packed, zero, rng = t_qk.quant_pack(x.reshape(-1, g), 2, 42, levels)
+    dw = t_fk.dequant_matmul(packed, zero, rng, gr, 2, g, d, levels)
+    again = t_fk.dequant_matmul(packed, zero, rng, gr, 2, g, d, levels)
+    assert torch.equal(dw, again)
+    x_hat = t_ref.dequantize_packed(packed, zero, rng, 2, g,
+                                    levels).reshape(m, d)
+    want = t_ref.dequant_matmul_packed(packed, zero, rng, gr, 2, g, d,
+                                       levels)
+    scale = x_hat.abs().T @ gr.abs()
+    assert bool(((dw - want).abs() <= 1e-4 * scale + 1e-30).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,hidden,g,fused_layers",
+                         [("sage", (128, 128), 256, 3),
+                          ("gcn", (256, 256), 256, 2),
+                          ("sage", (1024, 1024), 1024, 2)])
+def test_cuda_fused_training_matches_cpu(cuda, arch, hidden, g,
+                                         fused_layers):
+    """rp_ratio 0, fused="auto": every eligible layer runs the fused pair
+    on the card, within rtol 1e-3 of the CPU plain path.  GCN's layer 0
+    (677 x 128, G=256) and SAGE's layer 0 at G=1024 (677 x 256) are not
+    whole blocks and take the quant kernels; SAGE's 677 x 2048 layers at
+    G=1024 fuse."""
+    from repro_torch.core.compressor import CompressionConfig
+    from repro_torch.graph.data import arxiv_like
+    from repro_torch.graph.models import GNN, GNNConfig
+    from repro_torch.graph.train import train_gnn
+    from repro_torch.kernels import fused_matmul as t_fk
+
+    graph = arxiv_like(scale=0.004)
+    cfg = GNNConfig(arch=arch, hidden=hidden, n_classes=40,
+                    compression=CompressionConfig(2, g, 0, vm=True))
+    model = GNN(cfg, graph.n_feats,
+                generator=torch.Generator().manual_seed(0))
+    counts = lambda: (t_fk.matmul_quant.launches,
+                      t_fk.dequant_matmul.launches, t_qk.quant_pack.launches)
+    before = counts()
+    on_card = train_gnn(graph, cfg, n_epochs=3, params=model)
+    after = counts()
+    assert [a - b for a, b in zip(after, before)] == [
+        3 * fused_layers, 3 * fused_layers, 3 * (3 - fused_layers)]
+    on_cpu = train_gnn(graph, cfg, n_epochs=3, params=model, device="cpu")
+    np.testing.assert_allclose([h[1] for h in on_card["history"]],
+                               [h[1] for h in on_cpu["history"]], rtol=1e-3)
+    assert on_card["stash_bytes"] == on_cpu["stash_bytes"]
