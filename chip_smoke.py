@@ -9,7 +9,10 @@ Phases, in order; any failure raises and exits non-zero:
 2. build: every CUDA kernel of the main path, from ``src/repro_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version at the main
    path's shapes, timed with CUDA events (cold L2) beside the plain version,
-   the one-call PyTorch yardstick where there is one, and the card's bound;
+   the one-call PyTorch yardstick where there is one, and the card's bound
+   (flash attention at the serving prefill's (80, 1000, 128) and ragged
+   shapes; the seeded quant_pack and the window dequant_unpack at the KV
+   cache's shapes);
    then a small training run with the kernels against the plain path, and
    the full-size aggregation (spmm) checked for bit-reproducibility;
    (the fused matmul-quant pair at the rp_ratio-0 slice's layer shapes
@@ -26,7 +29,19 @@ Phases, in order; any failure raises and exits non-zero:
    ``fused="off"`` from the same weights (losses within rtol 1e-3, equal
    stash bytes, epoch times and peak memory side by side) and one
    profiled step;
-6. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+6. slice 3: serving full-width qwen1.5-4b (random bf16 weights, seed 0)
+   through ``repro_torch.launch.serve``'s engine: 8 requests of 1000 prompt
+   tokens and 32 generated, 4 slots, continuous batching, 4-bit KV pages
+   (G=64, 16 tokens a page).  Every request served with 32 tokens; launch
+   counts as planned (flash 80, seeded quant_pack 5120, dequant_unpack
+   4960, no plain attention on the card); the live pool's bytes equal the
+   layout's; TTFT, TPOT, tokens/s and peak memory of that run, which
+   collects no logits, as the launcher runs; two more runs that collect
+   the logits give the same tokens and identical, finite logits; at 2
+   layers of full width the prefill logits with the kernel agree with the
+   plain attention on the card; prefill and decode step times, and one
+   profiled prefill and decode step;
+7. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX; without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -40,6 +55,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and float32
 # operations/s outside the tensor cores.
@@ -391,6 +408,321 @@ def slice_rp0(torch, g, cfg, model0, wrappers, saved_bytes_per_layer) -> dict:
     return {name: launches[name] for name in FUSED}
 
 
+FLASH_SHAPE = (80, 1000, 128)    # slice 3 prefill: 4 requests x 20 heads
+
+
+def check_flash(torch, fa, ref, flush, gen) -> dict:
+    """flash_attention against its plain version: at the serving prefill
+    shape, causal, bf16 (within 3e-2: an output may round to the other
+    neighbouring bf16) and float32 (within 3e-5), in both scale orders, and
+    at ragged Sq != Skv with q_offset / kv_len.  Timed at the prefill shape
+    (bf16, q scaled first, as the model calls it) beside the plain version
+    and one F.scaled_dot_product_attention in float32 (library_ms)."""
+    import torch.nn.functional as F
+
+    rows = {}
+    bh, s, dh = FLASH_SHAPE
+    # (atol, rtol): float32 within 3e-5; a bf16 output within one bf16 ulp
+    # of the plain version's (2**-7 relative), 1e-3 absolute near zero
+    f32_tol, bf16_tol = (3e-5, 3e-5), (1e-3, 2.0 ** -7)
+    cases = [("prefill bf16", FLASH_SHAPE, s, torch.bfloat16, True, 0, None,
+              bf16_tol),
+             ("prefill f32", FLASH_SHAPE, s, torch.float32, True, 0, None,
+              f32_tol),
+             ("ragged f32", (6, 70, 128), 200, torch.float32, True, 130,
+              None, f32_tol),
+             ("ragged kv_len bf16", (6, 77, 128), 200, torch.bfloat16, True,
+              60, 137, bf16_tol),
+             ("full kv_len f32", (6, 70, 64), 200, torch.float32, False, 0,
+              131, f32_tol)]
+    for tag, (b, sq, d), skv, dt, causal, q_off, kv_len, tol in cases:
+        errs = []        # this case's errors: each row reports its own
+        q = torch.randn((b, sq, d), device="cuda", generator=gen).to(dt)
+        k = torch.randn((b, skv, d), device="cuda", generator=gen).to(dt)
+        v = torch.randn((b, skv, d), device="cuda", generator=gen).to(dt)
+        for scale_q in (True, False):
+            kw = dict(causal=causal, q_offset=q_off, kv_len=kv_len,
+                      scale_q=scale_q)
+            got = fa.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=tol[0], rtol=tol[1])
+            errs.append(err)
+            log(f"flash_attention {tag} {b}x{sq}x{d} skv={skv} causal="
+                f"{causal} q_offset={q_off} kv_len={kv_len} scale_q="
+                f"{scale_q}: max abs err {err} (atol, rtol {tol})")
+        if tag.startswith("prefill"):
+            kern = lambda: fa.flash_attention(q, k, v, causal=True,
+                                              scale_q=True)
+            plain = lambda: ref.flash_attention(q, k, v, causal=True,
+                                                scale_q=True)
+            q4, k4, v4 = (t.float()[None] for t in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                         is_causal=True)
+            pairs = s * (s + 1) // 2            # causal (query, key) pairs
+            nbytes = 4 * bh * s * dh * q.element_size()
+            bnd = bound(nbytes, 4 * bh * dh * pairs)
+            row = dict(ms=time_ms(torch, kern, flush),
+                       plain_ms=time_ms(torch, plain, flush),
+                       library_ms=time_ms(torch, lib, flush),
+                       bound_ms=bnd[0], bound_by=bnd[1],
+                       max_abs_err=max(errs), flops=4 * bh * dh * pairs,
+                       bytes=nbytes)
+            log(f"flash_attention {tag}: {row}")
+            rows[("flash_attention", tag)] = row
+        del q, k, v
+    return rows
+
+
+#: slice 3's KV cache at qwen1.5-4b: 20 KV heads x 128 = 2560 elements a
+#: token, 40 blocks of G=64 at 4 bits; 4 slots x 65 pages x 16 tokens.
+KV_G, KV_BITS, KV_NBT = 64, 4, 40
+KV_PREFILL_TOKENS = 4 * 1008         # a group's page-aligned prompt rows
+KV_WINDOW_TOKENS = 4 * 65 * 16       # the decode window of 4 slots
+
+
+def check_kv_quant(torch, qk, ref, flush, gen) -> dict:
+    """The KV cache's use of the quant kernels: quant_pack with one seed per
+    token (counters restarting per token) at a prefill group's and a
+    decode step's rows, bit-equal to the plain version; dequant_unpack of
+    a decode window's pages, bit-equal to the plain version.  Timed."""
+    from repro_torch.engine.seeds import kv_seed
+
+    rows = {}
+    for tag, n_tok in (("kv prefill", KV_PREFILL_TOKENS), ("kv decode", 4)):
+        x = torch.randn((n_tok * KV_NBT, KV_G), device="cuda",
+                        generator=gen) * 1.3
+        seeds = kv_seed(torch.arange(n_tok, device="cuda") % 1008,
+                        torch.arange(n_tok, device="cuda") // 1008, 7, 1)
+        got = qk.quant_pack(x, KV_BITS, seeds, rows_per_seed=KV_NBT)
+        want = ref.quantize_packed(x, KV_BITS, seeds, rows_per_seed=KV_NBT)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"seeded quant_pack {tag}: not bit-equal")
+        n = n_tok * KV_NBT
+        nbytes = n * KV_G * 4 + n * KV_G * KV_BITS // 8 + 8 * n + 4 * n_tok
+        bnd = bound(nbytes, 18 * n * KV_G)
+        row = dict(ms=time_ms(torch, lambda: qk.quant_pack(
+                       x, KV_BITS, seeds, rows_per_seed=KV_NBT), flush),
+                   plain_ms=time_ms(torch, lambda: ref.quantize_packed(
+                       x, KV_BITS, seeds, rows_per_seed=KV_NBT), flush),
+                   bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=0.0,
+                   library_ms=None, bytes=nbytes)
+        log(f"quant_pack (seeded) {tag} {n}x{KV_G}: bit-equal; {row}")
+        rows[("quant_pack", f"{tag} {n}x{KV_G}")] = row
+    n = KV_WINDOW_TOKENS * KV_NBT
+    x = torch.randn((n, KV_G), device="cuda", generator=gen)
+    pk, zk, rk = qk.quant_pack(x, KV_BITS, 5)
+    got = qk.dequant_unpack(pk, zk, rk, KV_BITS, KV_G)
+    want = ref.dequantize_packed(pk, zk, rk, KV_BITS, KV_G)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if err > 1e-6:
+        raise AssertionError(f"dequant_unpack kv window: max abs err {err}")
+    nbytes = n * KV_G * 4 + n * KV_G * KV_BITS // 8 + 8 * n
+    bnd = bound(nbytes, 4 * n * KV_G)
+    row = dict(ms=time_ms(torch, lambda: qk.dequant_unpack(
+                   pk, zk, rk, KV_BITS, KV_G), flush),
+               plain_ms=time_ms(torch, lambda: ref.dequantize_packed(
+                   pk, zk, rk, KV_BITS, KV_G), flush),
+               bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=err,
+               library_ms=None, bytes=nbytes)
+    log(f"dequant_unpack kv window {n}x{KV_G}: max abs err {err}; {row}")
+    rows[("dequant_unpack", f"kv window {n}x{KV_G}")] = row
+    return rows
+
+
+SERVE_ARGV = ["--arch", "qwen1.5-4b", "--requests", "8", "--max-batch", "4",
+              "--prompt-len", "1000", "--gen-len", "32", "--kv-bits", "4",
+              "--kv-group", "64", "--page-tokens", "16", "--mode",
+              "continuous", "--kv-policy", "device", "--device", "cuda"]
+#: Launches over one serving run: 2 prefill groups x 40 layers of flash;
+#: quant_pack once per layer and stream for each group's prompt and each of
+#: the 62 decode steps (2 groups x 31); dequant_unpack once per layer and
+#: stream for each decode step's window.
+SERVE_LAUNCHES = {"flash_attention": 80, "quant_pack": 2 * 80 + 62 * 80,
+                  "dequant_unpack": 62 * 80}
+#: 40 layers x 260 pages x 51,200 bytes (4-bit words + zero/range, K and V)
+SERVE_POOL_BYTES = 532_480_000
+
+
+def profile_serve(torch, engine, requests) -> dict:
+    """One admission group's prefill and single decode steps of a fresh
+    engine: host time (synchronized), then one profiled prefill and one
+    profiled decode step (device time by kernel, idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def admit():
+        for r in requests[:engine.max_batch]:
+            engine.sched.submit(r)
+        group = engine.sched.admit()
+        table = np.full((engine.max_batch, engine.max_pages_per_slot),
+                        engine.layout.null_page, np.int32)
+        return group, table
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def profiled(fn, what):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out, wall_ms = timed(fn)
+        rows = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.count,
+                 e.key) for e in prof.key_averages()
+                if getattr(e, "device_type", None)
+                == torch.autograd.DeviceType.CUDA]
+        rows.sort(reverse=True)
+        busy = sum(r[0] for r in rows)
+        log(f"profiled {what}: wall {wall_ms:.3f} ms, device busy "
+            f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}")
+        for ms, count, key in rows[:12]:
+            log(f"  {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+        return out
+
+    out = {}
+    state = engine._init_state()
+    group, table = admit()
+    state, out["prefill_ms"] = timed(
+        lambda: engine._admit_group(group, state, table))
+    page_table = torch.as_tensor(table, device=engine.device)
+    steps = []
+    for _ in range(5):
+        (_, state), ms = timed(lambda: engine._decode(
+            engine.pool, page_table, state, engine._host_active()))
+        engine.sched.tick()
+        steps.append(ms)
+    out["decode_ms"] = steps
+    profiled(lambda: engine._decode(engine.pool, page_table, state,
+                                    engine._host_active()), "decode step")
+    for si in range(engine.max_batch):
+        engine.sched.complete(si)
+    state = engine._init_state()
+    group, table = admit()
+    profiled(lambda: engine._admit_group(group, state, table),
+             "prefill (4 x 1000 tokens)")
+    log(f"[serve] unprofiled: prefill of a 4 x 1000 group "
+        f"{out['prefill_ms']:.3f} ms; decode steps {steps} ms")
+    return out
+
+
+def slice_serve(torch, wrappers, fa, ref) -> dict:
+    """Slice 3: serving full-width qwen1.5-4b through the launcher's engine
+    (see the module docstring).  Returns the serving run's launch counts."""
+    from repro_torch.configs import get
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.serving.kvcache import pool_nbytes
+
+    args = serve.parser().parse_args(SERVE_ARGV)
+    t0 = time.perf_counter()
+    model = serve.build_model(args)
+    torch.cuda.synchronize()
+    log(f"[serve] qwen1.5-4b: {model.cfg.param_count()} parameters "
+        f"(ArchConfig.param_count), {sum(p.numel() for p in model.parameters())} "
+        f"in the model, built in {time.perf_counter() - t0:.1f} s")
+
+    # plain attention must not run on the card during the serving run
+    plain_calls = [0]
+    plain = ref.flash_attention
+
+    def counted(q, *a, **kw):
+        plain_calls[0] += q.is_cuda
+        return plain(q, *a, **kw)
+
+    # the counted and timed run is the launcher's: no logits collected
+    engine, requests = serve.build_engine(args, model)
+    pool_bytes = pool_nbytes(engine.pool)
+    ref.flash_attention = counted
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = engine.run(requests)
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    ref.flash_attention = plain
+    peak = torch.cuda.max_memory_allocated()
+    serve.report(args, engine, out)
+    log(f"[serve] launches over the run: {launches}; plain attention calls "
+        f"on the card: {plain_calls[0]}")
+    for name, n in launches.items():
+        if n != SERVE_LAUNCHES.get(name, 0):
+            raise AssertionError(f"[serve] {name}: {n} launches, expected "
+                                 f"{SERVE_LAUNCHES.get(name, 0)}")
+    if plain_calls[0]:
+        raise AssertionError("[serve] plain attention ran on the card")
+    done = [r for r in out["results"] if r.status == "done"]
+    if len(done) != 8 or any(r.tokens.shape != (32,) for r in done):
+        raise AssertionError(f"[serve] {len(done)}/8 requests served")
+    log(f"[serve] pool bytes {pool_bytes} layout {engine.layout.pool_bytes} "
+        f"f32 {engine.layout.f32_pool_bytes}; pages {engine.layout.n_pages}")
+    if not pool_bytes == engine.layout.pool_bytes == SERVE_POOL_BYTES:
+        raise AssertionError("[serve] pool bytes differ from the layout")
+    log(f"[serve] TTFT mean {out['ttft_mean_ms']!r} ms, TPOT mean "
+        f"{out['tpot_mean_ms']!r} ms, {out['tokens_per_sec']!r} tokens/s, "
+        f"p50 {out['p50_latency_ms']!r} ms, p99 {out['p99_latency_ms']!r} "
+        f"ms, wall {out['wall_s']!r} s, {out['decode_steps']} decode steps, "
+        f"max_memory_allocated {peak} bytes")
+    log(f"[serve] first request's tokens {done[0].tokens.tolist()}")
+    del engine
+
+    # the same requests twice more, collecting logits: identical tokens and
+    # logits, and the tokens of the run above
+    runs = []
+    for _ in range(2):
+        eng, _ = serve.build_engine(args, model, collect_logits=True)
+        runs.append(eng.run(requests))
+        del eng
+    first, again = runs
+    for res in (first, again):
+        for a, b in zip(out["results"], res["results"]):
+            if not np.array_equal(a.tokens, b.tokens):
+                raise AssertionError(f"[serve] request {a.rid}: tokens "
+                                     "differ from the uncollected run")
+        if not all(np.isfinite(res["logits"][r.rid]).all() for r in done):
+            raise AssertionError("[serve] non-finite logits")
+    if not all(np.array_equal(first["logits"][r.rid], again["logits"][r.rid])
+               for r in done):
+        raise AssertionError("[serve] a repeated run's logits differ")
+    log("[serve] repeated runs: tokens identical to the timed run, logits "
+        "identical to each other and finite")
+    del out, first, again, runs
+
+    profile_serve(torch, serve.build_engine(args, model)[0], requests)
+    del model
+    torch.cuda.empty_cache()
+
+    # 2 layers of full width: the prefill logits with the kernel against
+    # the plain attention, on the card, from the same weights and prompts
+    import dataclasses
+    cfg2 = dataclasses.replace(get("qwen1.5-4b"), n_layers=2,
+                               act_mode="none")
+    two = Model(cfg2, generator=torch.Generator("cuda").manual_seed(1))
+    prompts = torch.as_tensor(np.stack([r.prompt for r in requests[:4]]),
+                              device="cuda")
+    with_kernel, _ = two.prefill(prompts)
+    two.impl = "torch"
+    with_plain, _ = two.prefill(prompts)
+    torch.cuda.synchronize()
+    err = float((with_kernel - with_plain).abs().max())
+    scale = float(with_plain.abs().max())
+    log(f"[serve] 2 layers: prefill logits kernel vs plain attention: max "
+        f"abs err {err} (logits up to {scale}); argmax equal "
+        f"{torch.equal(with_kernel.argmax(-1), with_plain.argmax(-1))}")
+    # bf16 activations: an attention output may round to the neighbouring
+    # bf16 value (2**-8 relative), which the rest of the layer carries on
+    if err > 0.1:
+        raise AssertionError(f"[serve] 2-layer logits differ by {err}")
+    del two
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -405,6 +737,7 @@ def main() -> int:
     from repro_torch.graph.models import GNN, GNNConfig
     from repro_torch.graph.train import train_gnn
     from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_matmul as fk
     from repro_torch.kernels import quant_blockwise as qk
     from repro_torch.kernels import rp_matmul as rk
@@ -436,6 +769,8 @@ def main() -> int:
     cfg0 = GNNConfig(arch="sage", hidden=(256, 256), n_classes=40,
                      compression=comp0)
     rows.update(check_fused(torch, fk, qk, ref, comp0.levels(), flush, gen))
+    rows.update(check_flash(torch, fa, ref, flush, gen))
+    rows.update(check_kv_quant(torch, qk, ref, flush, gen))
     small_cfg = GNNConfig(arch="sage", hidden=(64, 64), n_classes=40,
                           compression=comp)
     check_small_training(torch, train_gnn, small_cfg, arxiv_like(scale=0.004))
@@ -451,7 +786,8 @@ def main() -> int:
     del flush
     model0 = GNN(cfg, g.n_feats, generator=torch.Generator().manual_seed(0))
     wrappers = (qk.quant_pack, qk.dequant_unpack, rk.rp_project,
-                rk.irp_project, fk.matmul_quant, fk.dequant_matmul)
+                rk.irp_project, fk.matmul_quant, fk.dequant_matmul,
+                fa.flash_attention)
     for w in wrappers:
         w.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -470,7 +806,8 @@ def main() -> int:
     steps = EPOCHS + 2
     log(f"launches over {steps} steps: {launches}")
     for name, n in launches.items():
-        want = 0 if name in FUSED else 3 * steps   # RP 8: nothing fuses
+        # RP 8: nothing fuses, and no attention
+        want = 0 if name in FUSED + ("flash_attention",) else 3 * steps
         if n != want:
             raise AssertionError(f"{name}: {n} launches, expected {want}")
     ledger = [r["compressed_bytes"]
@@ -492,8 +829,14 @@ def main() -> int:
     profile_step(torch, g, cfg, res["model"])
     launches.update(slice_rp0(torch, g, cfg0, model0, wrappers,
                               saved_bytes_per_layer))
+    del g, model0, res, rep_a, rep_b
+    torch.cuda.empty_cache()
 
-    # 6. results
+    # 6. slice 3: serving
+    served = slice_serve(torch, wrappers, fa, ref)
+    launches["flash_attention"] = served["flash_attention"]
+
+    # 7. results
     sources = {"quant_pack": ("src/repro_torch/csrc/quant_blockwise.cu",
                               "src/repro/kernels/quant_blockwise.py:62"),
                "dequant_unpack": ("src/repro_torch/csrc/quant_blockwise.cu",
@@ -505,13 +848,16 @@ def main() -> int:
                "matmul_quant": ("src/repro_torch/csrc/fused_matmul.cu",
                                 "src/repro/kernels/fused_matmul.py:80"),
                "dequant_matmul": ("src/repro_torch/csrc/fused_matmul.cu",
-                                  "src/repro/kernels/fused_matmul.py:156")}
+                                  "src/repro/kernels/fused_matmul.py:156"),
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:27")}
     # one row per kernel: its largest main-path shape (VM for quant)
     main_tag = {"quant_pack": "42336x256 vm", "dequant_unpack": "42336x256 vm",
                 "rp_project": f"{N_NODES}x512->64",
                 "irp_project": f"{N_NODES}x64->512",
                 "matmul_quant": f"{N_NODES}x512@512x256",
-                "dequant_matmul": f"{N_NODES}x512@512x256"}
+                "dequant_matmul": f"{N_NODES}x512@512x256",
+                "flash_attention": "prefill bf16"}
     kernels = []
     for name, (source, replaces) in sources.items():
         row = rows[(name, main_tag[name])]
@@ -524,7 +870,9 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": main_tag[name],
             **({"unfused_ms": row["unfused_ms"]} if "unfused_ms" in row
-               else {})})
+               else {}),
+            **({"serving_launches": served[name]}
+               if name in ("quant_pack", "dequant_unpack") else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

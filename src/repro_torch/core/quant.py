@@ -46,6 +46,34 @@ def block_stats(blocks: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return zero, rng
 
 
+def _sr(hnorm: torch.Tensor, levels: torch.Tensor,
+        u: torch.Tensor) -> torch.Tensor:
+    """Round each ``hnorm`` up with probability ``p_up`` given noise ``u``."""
+    nlev = levels.shape[0]
+    upper_idx = torch.searchsorted(levels, hnorm.contiguous(), right=True)
+    upper_idx = upper_idx.clamp(1, nlev - 1)
+    lo = levels[upper_idx - 1]
+    hi = levels[upper_idx]
+    p_up = (hnorm - lo) / (hi - lo).clamp_min(EPS)
+    return torch.where(u < p_up, upper_idx, upper_idx - 1).to(torch.int32)
+
+
+def stochastic_round_per_run(hnorm: torch.Tensor, levels: torch.Tensor,
+                             seeds: torch.Tensor, rows_per_seed: int
+                             ) -> torch.Tensor:
+    """SR of (n, G) normalized blocks where each run of ``rows_per_seed``
+    rows has its own seed (``seeds`` (n / rows_per_seed,)) and a counter
+    that restarts at 0: element (r, c) draws ``uniform(seeds[r // rps],
+    (r % rps) * G + c)``, exactly what quantizing each run alone draws."""
+    n, g = hnorm.shape
+    row = torch.arange(n, dtype=torch.int64, device=hnorm.device)[:, None]
+    col = torch.arange(g, dtype=torch.int64, device=hnorm.device)[None, :]
+    counter = ((row % rows_per_seed) * g + col) & MASK32
+    seed_rows = (seeds.to(torch.int64) & MASK32).repeat_interleave(
+        rows_per_seed)[:, None]
+    return _sr(hnorm, levels, uniform_from_counter(seed_rows, counter))
+
+
 def stochastic_round_to_levels(hnorm: torch.Tensor, levels: torch.Tensor,
                                seed: int, counter_base: int = 0
                                ) -> torch.Tensor:
@@ -58,12 +86,6 @@ def stochastic_round_to_levels(hnorm: torch.Tensor, levels: torch.Tensor,
     (with the per-element carry) folded into the seed through the hash.
     ``hash(0) == 0``, so base 0 is the kernels' plain path.
     """
-    nlev = levels.shape[0]
-    upper_idx = torch.searchsorted(levels, hnorm.contiguous(), right=True)
-    upper_idx = upper_idx.clamp(1, nlev - 1)
-    lo = levels[upper_idx - 1]
-    hi = levels[upper_idx]
-    p_up = (hnorm - lo) / (hi - lo).clamp_min(EPS)
     base_hi, base_lo = divmod(int(counter_base), 1 << 32)
     idx = torch.arange(hnorm.numel(), dtype=torch.int64,
                        device=hnorm.device).reshape(hnorm.shape)
@@ -71,8 +93,7 @@ def stochastic_round_to_levels(hnorm: torch.Tensor, levels: torch.Tensor,
     carry = (counter < base_lo).to(torch.int64)
     hi_word = ((base_hi & MASK32) + carry) & MASK32
     seed_t = (int(seed) & MASK32) ^ hash_u32(hi_word)
-    u = uniform_from_counter(seed_t, counter)
-    return torch.where(u < p_up, upper_idx, upper_idx - 1).to(torch.int32)
+    return _sr(hnorm, levels, uniform_from_counter(seed_t, counter))
 
 
 def _level_table(levels, bits: int, device) -> torch.Tensor:
@@ -81,15 +102,22 @@ def _level_table(levels, bits: int, device) -> torch.Tensor:
     return torch.as_tensor(levels, dtype=torch.float32, device=device)
 
 
-def quantize_grouped(blocks: torch.Tensor, bits: int, seed: int, levels=None
+def quantize_grouped(blocks: torch.Tensor, bits: int, seed, levels=None, *,
+                     rows_per_seed: int | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Quantize (n_blocks, G) -> (codes int32, zero f32, range f32)."""
+    """Quantize (n_blocks, G) -> (codes int32, zero f32, range f32).
+
+    ``seed`` is a python int, or with ``rows_per_seed`` a tensor of one
+    seed per run of rows (:func:`stochastic_round_per_run`)."""
     lv = _level_table(levels, bits, blocks.device)
     B = float(2**bits - 1)
     zero, rng = block_stats(blocks)
     safe = rng.clamp_min(EPS)
     hnorm = ((blocks - zero[:, None]) / safe[:, None] * B).clamp(0.0, B)
-    codes = stochastic_round_to_levels(hnorm, lv, seed)
+    if rows_per_seed is None:
+        codes = stochastic_round_to_levels(hnorm, lv, seed)
+    else:
+        codes = stochastic_round_per_run(hnorm, lv, seed, rows_per_seed)
     return codes, zero, rng
 
 

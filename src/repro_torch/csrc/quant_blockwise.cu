@@ -8,6 +8,13 @@
 //                           then the strided pack (word j <- codes j, j+W, ...)
 //   _dequant_unpack_kernel  unpack, level lookup, v * (range / B) + zero
 //
+// quant_pack also takes an optional table of seeds, one per run of
+// rows_per_seed blocks: the serving KV cache quantizes every token's blocks
+// with their own seed and a counter that restarts at 0 for each token (the
+// reference's jax.vmap of quantize_blocks in serving/kvcache.py), so block
+// row r draws u = uniform(seeds[r / rps], (r % rps) * G + col).  A null
+// table is the plain one-seed kernel, with the same bits as before.
+//
 // What bounds it on an H100: bytes.  Quantize reads 4 bytes per element and
 // writes bits/8 (+ 8 per block); dequantize the reverse.  The per-element
 // work (one murmur3 hash, a few compares and one division) is a few dozen
@@ -54,11 +61,12 @@ __device__ __forceinline__ void warp_minmax(float& mn, float& mx) {
 // One warp quantizes and packs one block of G floats staged in shared
 // memory at xs, whose min and max it already holds (on every lane), with the
 // level table lv (n_lv entries, shared memory; 0 = uniform).  The codes
-// overwrite xs in place; block is the block's global index, so the SR
-// counter of element e is block * G + e (mod 2**32).  Writes the block's W
+// overwrite xs in place; the SR counter of element e is counter0 + e
+// (mod 2**32).  block is the block's global index: writes the block's W
 // words to packed[block * W ...], and its zero and range.
 __device__ __forceinline__ void warp_quantize_staged(
-    float* xs, long long block, int G, int bits, uint32_t seed_hash,
+    float* xs, long long block, uint32_t counter0, int G, int bits,
+    uint32_t seed_hash,
     float mn, float mx, const float* lv, int n_lv,
     uint32_t* __restrict__ packed,
     float* __restrict__ zero, float* __restrict__ rng, int lane) {
@@ -67,8 +75,8 @@ __device__ __forceinline__ void warp_quantize_staged(
   const float safe = fmaxf(range, quant::kEps);
   const float B = quant::max_level(bits);
   for (int e = lane; e < G; e += 32) {
-    const float u =
-        quant::uniform(seed_hash, static_cast<uint32_t>(block * G + e));
+    const float u = quant::uniform(seed_hash,
+                                   counter0 + static_cast<uint32_t>(e));
     cs[e] = quant::sr_code(xs[e], mn, safe, B, u, lv, n_lv);
   }
   __syncwarp();
@@ -87,6 +95,7 @@ __global__ void __launch_bounds__(kWarpsPerCta * 32)
 quant_pack_kernel(const float* __restrict__ x, uint32_t* __restrict__ packed,
                   float* __restrict__ zero, float* __restrict__ rng,
                   long long n_blocks, int G, int bits, uint32_t seed_hash,
+                  const uint32_t* __restrict__ seeds, int rows_per_seed,
                   Levels lv) {
   extern __shared__ float smem[];  // kWarpsPerCta * G floats
   __shared__ float table[quant::kMaxLevels];
@@ -120,8 +129,16 @@ quant_pack_kernel(const float* __restrict__ x, uint32_t* __restrict__ packed,
 
   // passes 2 and 3: stochastically round each code over its value, then
   // the strided pack (quant_common.cuh)
-  warp_quantize_staged(xs, row, G, bits, seed_hash, mn, mx, table,
-                              lv.n, packed, zero, rng, lane);
+  // the SR stream: one seed for all rows (counter = row * G + e), or one
+  // per run of rows_per_seed rows (counter restarting at each run)
+  uint32_t sh = seed_hash;
+  uint32_t counter0 = static_cast<uint32_t>(row * G);
+  if (seeds != nullptr) {
+    sh = quant::fmix32(__ldg(seeds + row / rows_per_seed));
+    counter0 = static_cast<uint32_t>((row % rows_per_seed) * G);
+  }
+  warp_quantize_staged(xs, row, counter0, G, bits, sh, mn, mx, table, lv.n,
+                       packed, zero, rng, lane);
 }
 
 __global__ void __launch_bounds__(kWarpsPerCta * 32)
@@ -154,9 +171,12 @@ unsigned grid_for(long long n_blocks) {
 
 // x (n_blocks, G) f32 -> packed (n_blocks, G*bits/32) u32, zero, rng (n_blocks,).
 // levels: host array of n_levels floats (n_levels = 0: uniform levels).
+// seeds: null (every row takes seed), or a device array of
+// n_blocks / rows_per_seed seeds, one per run of rows_per_seed rows.
 extern "C" int quant_pack(const float* x, uint32_t* packed, float* zero,
                           float* rng, long long n_blocks, int group_size,
-                          int bits, unsigned int seed, const float* levels,
+                          int bits, unsigned int seed, const uint32_t* seeds,
+                          int rows_per_seed, const float* levels,
                           int n_levels, void* stream) {
   const size_t smem = static_cast<size_t>(kWarpsPerCta) * group_size * sizeof(float);
   if (smem > 48 * 1024) {
@@ -167,7 +187,7 @@ extern "C" int quant_pack(const float* x, uint32_t* packed, float* zero,
   quant_pack_kernel<<<grid_for(n_blocks), kWarpsPerCta * 32, smem,
                       static_cast<cudaStream_t>(stream)>>>(
       x, packed, zero, rng, n_blocks, group_size, bits, quant::fmix32(seed),
-      quant::make_levels(levels, n_levels));
+      seeds, rows_per_seed, quant::make_levels(levels, n_levels));
   return static_cast<int>(cudaGetLastError());
 }
 

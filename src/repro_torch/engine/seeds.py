@@ -1,15 +1,20 @@
 """The one place the activation-seed scheme is defined (the reference's
-``repro.engine.seeds``, full-graph part).
+``repro.engine.seeds``: the full-graph part and the LM / serving seeds).
 
 * an update ordinal ``o`` (the epoch, for full-graph training) maps to the
   base SR seed ``(o + 1) * 7919``;
-* layer ``li`` offsets the base seed by ``li * 1013``.
+* layer ``li`` offsets the base seed by ``li * 1013``;
+* an LM step hashes to ``step * KNUTH_MULT``, and a serving KV write to
+  :func:`kv_seed` of its position, slot, layer and field.
 
-Seeds are python ints wrapped mod 2**32, the uint32 the counter PRNG takes.
+Seeds are python ints (or int64 tensors) wrapped mod 2**32, the uint32 the
+counter PRNG takes.
 """
 from __future__ import annotations
 
-from repro_torch.core.prng import MASK32
+import torch
+
+from repro_torch.core.prng import KNUTH_MULT, MASK32, _mul32
 
 #: Base multiplier of the update-ordinal seed scheme: ``(o + 1) * 7919``.
 SR_SEED_PRIME = 7919
@@ -26,3 +31,40 @@ def sr_seed(ordinal: int) -> int:
 def layer_seed(seed: int, li: int) -> int:
     """Layer li's stash seed given the update's base seed."""
     return (int(seed) + li * LAYER_SEED_STRIDE) & MASK32
+
+
+def _wrap(x):
+    """``x`` mod 2**32: a python int, or an int64 tensor of uint32 values."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int64) & MASK32
+    return int(x) & MASK32
+
+
+def step_seed(step):
+    """Activation-compression base seed for one LM step: the Knuth hash of
+    the step counter, ``step * KNUTH_MULT`` mod 2**32 (a python int, or an
+    int64 tensor of uint32 values for a tensor ``step``)."""
+    if isinstance(step, torch.Tensor):
+        return _mul32(_wrap(step), KNUTH_MULT)
+    return (_wrap(step) * KNUTH_MULT) & MASK32
+
+
+#: Per-slot seed stride for the serving KV cache: decorrelates two slots
+#: that sit at the same absolute position (next prime after the ordinal
+#: scheme's 7919 so the streams never alias).
+KV_SLOT_STRIDE = 7927
+
+
+def kv_seed(pos, slot, li, field):
+    """SR seed for one serving KV-cache write.
+
+    ``pos`` is the token's absolute position (prompt + generated), ``slot``
+    the scheduler slot, ``li`` the layer, ``field`` 0 for K / 1 for V.  The
+    base stream is the LM step hash of the position; slot and (layer,
+    field) offsets draw decorrelated counter-PRNG streams.  Every argument
+    may be a python int or an integer tensor (they broadcast); the result
+    wraps mod 2**32 like the reference's uint32 arithmetic.
+    """
+    base = step_seed(pos) + _wrap(slot) * KV_SLOT_STRIDE
+    off = (_wrap(li) * 2 + _wrap(field)) * LAYER_SEED_STRIDE
+    return _wrap(base + off)

@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("quant_blockwise", "rp_matmul", "fused_matmul")
+SOURCES = ("quant_blockwise", "rp_matmul", "fused_matmul",
+           "flash_attention")
 # --fmad=false: the quantizer must round like the plain PyTorch version,
 # which never contracts a multiply and an add into an FMA (the RP kernel
 # asks for its FMAs explicitly).  -Xptxas -v reports registers and spills.

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_matmul as fk
 from repro_torch.kernels import quant_blockwise as qk
 from repro_torch.kernels import ref as refmod
@@ -50,13 +51,15 @@ def static_levels(levels):
     return None if levels is None else tuple(float(lv) for lv in levels)
 
 
-def quantize_packed(x2d, bits: int, seed: int, levels=None, *,
-                    impl: str = "auto"):
-    """(n_blocks, G) f32 -> (packed int32, zero (n,), rng (n,))."""
+def quantize_packed(x2d, bits: int, seed, levels=None, *,
+                    impl: str = "auto", rows_per_seed: int | None = None):
+    """(n_blocks, G) f32 -> (packed int32, zero (n,), rng (n,)).  ``seed``
+    is an int, or a tensor of one seed per run of ``rows_per_seed`` rows."""
     levels = static_levels(levels)
     if _plain(impl, x2d.device):
-        return refmod.quantize_packed(x2d, bits, seed, levels)
-    return qk.quant_pack(x2d, bits, seed, levels)
+        return refmod.quantize_packed(x2d, bits, seed, levels,
+                                      rows_per_seed=rows_per_seed)
+    return qk.quant_pack(x2d, bits, seed, levels, rows_per_seed=rows_per_seed)
 
 
 def dequantize_packed(packed, zero, rng, bits: int, group_size: int,
@@ -107,3 +110,16 @@ def dequant_matmul_packed(packed, zero, rng, g2d, bits: int,
                                             group_size, d, levels)
     return fk.dequant_matmul(packed, zero, rng, g2d.contiguous(), bits,
                              group_size, d, levels)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    kv_len: int | None = None, scale: float | None = None,
+                    scale_q: bool = False, impl: str = "auto"):
+    """Softmax attention of q (BH, Sq, Dh) over k, v (BH, Skv, Dh) (see
+    :func:`repro_torch.kernels.flash_attention.flash_attention`)."""
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, scale=scale,
+              scale_q=scale_q)
+    if _plain(impl, q.device):
+        return refmod.flash_attention(q, k, v, **kw)
+    return fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              **kw)

@@ -26,7 +26,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("quant_blockwise")
     lib.quant_pack.argtypes = [_P, _P, _P, _P, ctypes.c_longlong,
                                ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
-                               _P, ctypes.c_int, _P]
+                               _P, ctypes.c_int, _P, ctypes.c_int, _P]
     lib.dequant_unpack.argtypes = [_P, _P, _P, _P, ctypes.c_longlong,
                                    ctypes.c_int, ctypes.c_int, _P,
                                    ctypes.c_int, _P]
@@ -66,15 +66,48 @@ def _stream() -> _P:
     return _P(torch.cuda.current_stream().cuda_stream)
 
 
-def quant_pack(x2d: torch.Tensor, bits: int, seed: int, levels=None):
-    """(n_blocks, G) f32 -> (packed int32 (n, G*bits/32), zero (n,), rng (n,))."""
+def _seed_run_length(seed, n: int, rows_per_seed: int | None) -> int:
+    """Check a per-run seed table against ``n`` block rows; returns the run
+    length (rows per seed).  ``seed`` is a python int (one stream, no
+    table) or a 1-D integer tensor of ``n / rows_per_seed`` uint32 seeds."""
+    if not isinstance(seed, torch.Tensor):
+        if rows_per_seed is not None:
+            raise ValueError("rows_per_seed needs a tensor of seeds")
+        return 0
+    if rows_per_seed is None or rows_per_seed < 1 or n % rows_per_seed \
+            or seed.shape != (n // rows_per_seed,) \
+            or seed.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"a seed table must be a 1-D integer tensor of one "
+                         f"seed per {rows_per_seed} of the {n} rows, got "
+                         f"{seed.dtype} {tuple(seed.shape)}")
+    return rows_per_seed
+
+
+def quant_pack(x2d: torch.Tensor, bits: int, seed, levels=None, *,
+               rows_per_seed: int | None = None):
+    """(n_blocks, G) f32 -> (packed int32 (n, G*bits/32), zero (n,), rng (n,)).
+
+    ``seed`` is a python int: element (row, col) draws its SR noise from
+    counter ``row * G + col``.  Or it is a tensor of one seed per run of
+    ``rows_per_seed`` rows, on the input's device: row r takes
+    ``seed[r // rows_per_seed]`` and counter ``(r % rows_per_seed) * G +
+    col`` (each run quantized as if alone, as the serving KV cache
+    quantizes each token)."""
+    rps = _seed_run_length(seed, x2d.shape[0], rows_per_seed)
     if not x2d.is_cuda:
-        return ref.quantize_packed(x2d, bits, seed, levels)
+        return ref.quantize_packed(x2d, bits, seed, levels,
+                                   rows_per_seed=rows_per_seed)
     if x2d.dtype != torch.float32 or x2d.dim() != 2:
         raise ValueError(f"quant_pack needs a 2-D float32 tensor, got "
                          f"{x2d.dtype} {tuple(x2d.shape)}")
     n, g = x2d.shape
     lv, n_lv = _checked(bits, g, levels, x2d)
+    seeds = None
+    if rps:
+        if seed.device != x2d.device:
+            raise ValueError("the seed table must lie on the input's device")
+        # uint32 values as int32 bits (the int64 -> int32 cast wraps)
+        seeds = (seed.to(torch.int64) & MASK32).to(torch.int32).contiguous()
     packed = torch.empty((n, g * bits // 32), dtype=torch.int32,
                          device=x2d.device)
     zero = torch.empty((n,), dtype=torch.float32, device=x2d.device)
@@ -82,7 +115,8 @@ def quant_pack(x2d: torch.Tensor, bits: int, seed: int, levels=None):
     if n:
         build.check(_lib().quant_pack(
             x2d.data_ptr(), packed.data_ptr(), zero.data_ptr(),
-            rng.data_ptr(), n, g, bits, int(seed) & MASK32, lv, n_lv,
+            rng.data_ptr(), n, g, bits, 0 if rps else int(seed) & MASK32,
+            None if seeds is None else seeds.data_ptr(), rps, lv, n_lv,
             _stream()), "quant_pack")
         quant_pack.launches += 1
     return packed, zero, rng

@@ -14,9 +14,14 @@ from repro_torch.core import quant as quantmod
 from repro_torch.core import random_projection as rpmod
 
 
-def quantize_packed(x2d: torch.Tensor, bits: int, seed: int, levels=None):
-    """(n_blocks, G) f32 -> (packed int32 (n_blocks, G*bits/32), zero, rng)."""
-    codes, zero, rng = quantmod.quantize_grouped(x2d, bits, seed, levels)
+def quantize_packed(x2d: torch.Tensor, bits: int, seed, levels=None, *,
+                    rows_per_seed: int | None = None):
+    """(n_blocks, G) f32 -> (packed int32 (n_blocks, G*bits/32), zero, rng).
+
+    ``seed``: a python int, or a tensor of one seed per run of
+    ``rows_per_seed`` rows (each run's counter restarts at 0)."""
+    codes, zero, rng = quantmod.quantize_grouped(x2d, bits, seed, levels,
+                                                 rows_per_seed=rows_per_seed)
     return packmod.pack(codes, bits), zero, rng
 
 
@@ -58,3 +63,34 @@ def dequant_matmul_packed(packed: torch.Tensor, zero: torch.Tensor,
     :func:`dequantize_packed`, then ``x_hat.reshape(M, d).T @ g``."""
     x_hat = dequantize_packed(packed, zero, rng, bits, group_size, levels)
     return x_hat.reshape(-1, d).T @ g2d.to(torch.float32)
+
+
+#: The reference's finite mask value (``repro.models.attention.NEG_INF``).
+NEG_INF = -1e30
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0,
+                    kv_len: int | None = None, scale: float | None = None,
+                    scale_q: bool = False) -> torch.Tensor:
+    """Plain masked softmax over the full score matrix: q (BH, Sq, Dh), k/v
+    (BH, Skv, Dh) -> (BH, Sq, Dh) in q's dtype, float32 inside.  The same
+    ``causal``, ``q_offset``, ``kv_len``, ``scale`` and ``scale_q`` as the
+    kernel (:func:`repro_torch.kernels.flash_attention.flash_attention`)."""
+    sq, dh = q.shape[-2], q.shape[-1]
+    skv = k.shape[-2]
+    sc = torch.full((), 1.0 / dh ** 0.5 if scale is None else scale,
+                    dtype=torch.float32, device=q.device)
+    qf, kf = q.to(torch.float32), k.to(torch.float32)
+    if scale_q:
+        s = (qf * sc) @ kf.transpose(-1, -2)
+    else:
+        s = (qf @ kf.transpose(-1, -2)) * sc
+    kv_pos = torch.arange(skv, device=q.device)
+    valid = (kv_pos < (skv if kv_len is None else kv_len))[None, :]
+    if causal:
+        q_pos = q_offset + torch.arange(sq, device=q.device)
+        valid = valid & (kv_pos[None, :] <= q_pos[:, None])
+    s = s.masked_fill(~valid, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return (p @ v.to(torch.float32)).to(q.dtype)

@@ -1,0 +1,133 @@
+"""Serving launcher: continuous-batching engine over the block-quantized
+paged KV cache (the reference's ``repro.launch.serve``).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
+      --prompt-len 1000 --gen-len 32 --kv-bits 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
+      --smoke --device cpu
+
+Runs on the card (``--device cuda``, the default) unless the CPU is asked
+for.  Weights are random, drawn from a seeded generator on the device.
+Dense families serve through :class:`repro_torch.serving.ServeEngine`:
+slot-based continuous batching with page-level admission control, KV
+written block-quantized (``--kv-bits {2,4,8}``; 16 = raw bf16).
+``--mode fixed`` recovers the sequential fixed-batch loop as a scheduler
+configuration.
+
+Not ported yet: the legacy loop of the SSM / hybrid / enc-dec families and
+the MoE model (ROADMAP A.11), the ``host`` / ``pinned-paged`` KV policies
+(A.8) and ``--obs`` (A.10); each raises.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+from repro_torch.configs import get, reduce_for_smoke
+from repro_torch.data import batch_for_step
+from repro_torch.engine.runner import resolve_device
+from repro_torch.models import Model
+from repro_torch.serving import (KV_FAMILIES, KVCacheConfig, Request,
+                                 ServeEngine)
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-batch", type=int, default=4,
+                    help="decode slots (continuous) / batch size (fixed)")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument("--kv-bits", type=int, default=8, choices=[2, 4, 8, 16],
+                    help="KV cache width: 2/4/8 block-quantized, 16 raw bf16")
+    ap.add_argument("--kv-policy", default="device",
+                    choices=["device", "host", "pinned-paged"],
+                    help="page-pool placement (only 'device' is ported)")
+    ap.add_argument("--kv-group", type=int, default=64,
+                    help="quantization block size along the KV token row")
+    ap.add_argument("--page-tokens", type=int, default=16,
+                    help="tokens per KV page")
+    ap.add_argument("--kv-pages", type=int, default=None,
+                    help="physical pages in the pool (default: sized so "
+                         "max_batch full-horizon requests fit)")
+    ap.add_argument("--mode", default="continuous",
+                    choices=["continuous", "fixed"],
+                    help="fixed = legacy sequential batch loop, as a "
+                         "scheduler configuration")
+    ap.add_argument("--obs", action="store_true",
+                    help="engine metrics (not ported yet: ROADMAP A.10)")
+    ap.add_argument("--device", default="cuda",
+                    help="where the model and the KV pool live (cuda, or "
+                         "cpu for the plain versions)")
+    return ap
+
+
+def build_model(args) -> Model:
+    """The model ``args`` name, with random weights from seed 0 drawn on
+    ``args.device``."""
+    if args.obs:
+        raise NotImplementedError("--obs waits for the port's obs package "
+                                  "(ROADMAP A.10)")
+    device = resolve_device(args.device)
+    cfg = get(args.arch)
+    if args.smoke:
+        cfg = reduce_for_smoke(cfg)
+    cfg = dataclasses.replace(cfg, act_mode="none")
+    if cfg.family not in KV_FAMILIES:
+        raise NotImplementedError(
+            f"serving the {cfg.family!r} family (the reference's legacy "
+            "loop) is not ported yet (ROADMAP A.11)")
+    return Model(cfg, device=device)
+
+
+def build_engine(args, model: Model | None = None, *,
+                 collect_logits: bool = False):
+    """The engine and request list that ``main`` runs for parsed ``args``
+    (``chip_smoke.py`` drives this same path); ``model`` defaults to
+    :func:`build_model`'s."""
+    model = model or build_model(args)
+    cfg = model.cfg
+    pages_per_req = -(-(args.prompt_len + args.gen_len - 1)
+                      // args.page_tokens)
+    n_pages = args.kv_pages or args.max_batch * pages_per_req
+    kv = KVCacheConfig(bits=args.kv_bits, group_size=args.kv_group,
+                       policy=args.kv_policy, page_tokens=args.page_tokens,
+                       n_pages=n_pages)
+    engine = ServeEngine(model, kv=kv, max_batch=args.max_batch,
+                         max_prompt=args.prompt_len, gen_cap=args.gen_len,
+                         mode=args.mode, collect_logits=collect_logits)
+    requests = [
+        Request(rid=i,
+                prompt=batch_for_step(cfg.vocab, 1, args.prompt_len,
+                                      step=i, seed=11)[0],
+                max_new=args.gen_len)
+        for i in range(args.requests)]
+    return engine, requests
+
+
+def report(args, engine, out) -> None:
+    print(f"served {args.requests - out['rejected']}/{args.requests} "
+          f"requests [{args.mode}, kv-bits={args.kv_bits}, "
+          f"{engine.mechanism}, {engine.device}]: "
+          f"{out['tokens_per_sec']:.1f} tok/s, "
+          f"p50 {out['p50_latency_ms']:.0f} ms / "
+          f"p99 {out['p99_latency_ms']:.0f} ms, "
+          f"ttft {out['ttft_mean_ms']:.0f} ms, "
+          f"tpot {out['tpot_mean_ms']:.1f} ms")
+    print(f"kv pool: {out['kv_pool_bytes']} B "
+          f"({out['kv_f32_pool_bytes']} B as f32, "
+          f"{out['kv_f32_pool_bytes'] / max(out['kv_pool_bytes'], 1):.1f}x)")
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    engine, requests = build_engine(args)
+    out = engine.run(requests)
+    report(args, engine, out)
+    return [r.tokens for r in out["results"] if r.status == "done"]
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,4 @@
+"""LM substrate: the dense transformer (further families in later slices)."""
+from repro_torch.models.transformer import Model
+
+__all__ = ["Model"]

@@ -1,0 +1,134 @@
+"""GQA attention (the reference's ``repro.models.attention``): the
+training/prefill path through the flash-attention kernel, and the cached
+decode paths.
+
+:func:`online_attention` computes what the reference's chunked
+online-softmax scan computes.  On the card it launches the hand-written
+kernel (``csrc/flash_attention.cu``), which keeps the running max, sum and
+accumulator of each 64-row query tile on chip; on the CPU it runs the
+kernel's plain version, a masked softmax over the full score matrix.  Both
+scale q in float32 before the product, as the reference does.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope, mm, rmsnorm
+
+NEG_INF = -1e30
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, Hkv, Dh) -> (B, S, Hkv*n_rep, Dh)."""
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
+
+
+def online_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                     kv_len: int | None = None, impl: str = "auto"):
+    """Streaming-softmax attention.
+
+    q: (B, Sq, H, Dh);  k, v: (B, Skv, H, Dh) (already GQA-expanded).
+    ``q_offset``: absolute position of q[0] (causal masking for chunked
+    prefill).  ``kv_len``: number of valid kv entries (the cache may be
+    padded).  Output (B, Sq, H, Dh) in q's dtype.  The kernel tiles keys by
+    64 (the reference scans them in ``cfg.k_chunk`` chunks); the result
+    agrees up to float rounding.  ``impl`` routes as
+    :func:`repro_torch.kernels.ops.flash_attention` does.
+    """
+    b, sq, h, dh = q.shape
+    # the reference's numpy-float64 scale promotes q to float32 before the
+    # product: (q * scale) . k, not (q . k) * scale
+    scale = float(1.0 / np.sqrt(dh))
+
+    def heads(t):
+        return t.transpose(1, 2).reshape(b * h, t.shape[1], dh)
+
+    out = ops.flash_attention(heads(q), heads(k), heads(v), causal=causal,
+                              q_offset=int(q_offset), kv_len=kv_len,
+                              scale=scale, scale_q=True, impl=impl)
+    return out.reshape(b, h, sq, dh).transpose(1, 2)
+
+
+def qkv_project(x, p, cfg, positions):
+    """x (B,S,D) -> q (B,S,H,Dh), k/v (B,S,Hkv,Dh) with rope + qk-norm.
+    ``p`` holds the layer's attention weights (``wq``, ``wk``, ``wv``, and
+    ``bq``/``bk``/``bv``, ``q_norm``/``k_norm`` where the config has them)."""
+    b, s, _ = x.shape
+    q = mm(x, p.wq).reshape(b, s, cfg.n_heads, cfg.d_head)
+    k = mm(x, p.wk).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    v = mm(x, p.wv).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    if cfg.qkv_bias:
+        q = q + p.bq.reshape(1, 1, cfg.n_heads, cfg.d_head).to(q.dtype)
+        k = k + p.bk.reshape(1, 1, cfg.n_kv_heads, cfg.d_head).to(k.dtype)
+        v = v + p.bv.reshape(1, 1, cfg.n_kv_heads, cfg.d_head).to(v.dtype)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p.q_norm)
+        k = rmsnorm(k, p.k_norm)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attention_block(x, p, cfg, *, causal=True, impl: str = "auto"):
+    """Full-sequence attention (training / prefill)."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = qkv_project(x, p, cfg, positions)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    out = online_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
+                           causal=causal, impl=impl)
+    return mm(out.reshape(b, s, cfg.n_heads * cfg.d_head), p.wo)
+
+
+def _grouped_q(q: torch.Tensor, hkv: int) -> torch.Tensor:
+    """q (B,1,Hq,Dh) -> float32 (B,Hkv,G,Dh), scaled as the reference
+    scales it (float32 q times the float32 scale)."""
+    b, _, hq, dh = q.shape
+    scale = torch.full((), 1.0 / np.sqrt(dh), dtype=torch.float32,
+                       device=q.device)
+    return (q.to(torch.float32) * scale).reshape(b, hkv, hq // hkv, dh)
+
+
+def decode_attend(q, kf, vf, pos, *, out_dtype):
+    """Single-token grouped-head attention over a materialized KV window.
+
+    q (B,1,Hq,Dh) (rope applied); kf/vf (B,S,Hkv,Dh) float32 (the window
+    may be padded past ``pos``); pos (B,) integer, entries with index > pos
+    mask out.  Returns (B, 1, Hq*Dh) in ``out_dtype`` (before ``wo``).
+    """
+    b, _, hq, dh = q.shape
+    hkv, smax = kf.shape[2], kf.shape[1]
+    qg = _grouped_q(q, hkv)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, kf)            # (B,Hkv,G,S)
+    valid = torch.arange(smax, device=q.device)[None, :] <= pos[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    pexp = torch.exp(s - m)
+    l = pexp.sum(-1, keepdim=True)
+    out = torch.einsum("bkgs,bskd->bkgd", pexp / l, vf)    # (B,Hkv,G,Dh)
+    return out.reshape(b, 1, hq * dh).to(out_dtype)
+
+
+def attention_decode(x, p, cfg, cache_k, cache_v, pos):
+    """One-token decode. x (B,1,D); cache (B,Smax,Hkv,Dh); pos (B,) integer.
+
+    Projects q/k/v, writes the new KV row at ``pos`` (in place: the port
+    updates the cache tensors where the reference returns new ones; a
+    position past the end clamps to the last row, as the reference's
+    ``dynamic_update_slice`` clamps), and attends via :func:`decode_attend`.
+    Returns (out (B,1,D), cache_k, cache_v).
+    """
+    q, k, v = qkv_project(x, p, cfg, pos[:, None])
+    rows = torch.arange(x.shape[0], device=x.device)
+    at = pos.clamp(max=cache_k.shape[1] - 1)
+    cache_k[rows, at] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, at] = v[:, 0].to(cache_v.dtype)
+    out = decode_attend(q, cache_k.to(torch.float32),
+                        cache_v.to(torch.float32), pos, out_dtype=x.dtype)
+    return mm(out, p.wo), cache_k, cache_v

@@ -1,0 +1,47 @@
+"""Weight carry-over from the JAX reference: the reference's ``Model.init``
+parameter tree, as numpy arrays, into the port's :class:`Model`, so both
+packages compute from the same weights.  Nothing here imports JAX: the
+caller hands over numpy arrays (``jax.tree.map(np.asarray, params)``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.engine.runner import resolve_device
+from repro_torch.models.transformer import Model, check_family
+
+
+def to_tensor(a, device=None) -> torch.Tensor:
+    """A numpy array as a tensor with the same dtype and bits; bfloat16
+    (the ``ml_dtypes`` numpy type JAX hands out) goes through its 16-bit
+    pattern."""
+    a = np.array(a)   # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(params_np: dict, cfg, device="cuda", *,
+                    impl: str = "auto") -> Model:
+    """The reference's dense-family parameter pytree (numpy leaves, layer
+    weights stacked on a leading layer axis) as the port's :class:`Model`
+    on ``device`` (the card unless the CPU is asked for); the layer axis is
+    unstacked into one module per layer."""
+    check_family(cfg)
+    device = resolve_device(device)
+    layers = params_np["layers"]
+    n_layers = np.asarray(layers["ln1"]).shape[0]
+    tree = {name: to_tensor(params_np[name], device)
+            for name in ("embed", "final_norm", "lm_head")}
+    tree["layers"] = [_map(layers, lambda a, li=li: to_tensor(
+        np.asarray(a)[li], device)) for li in range(n_layers)]
+    return Model(cfg, tree, device=device, impl=impl)

@@ -1,0 +1,391 @@
+"""Block-wise-quantized paged KV cache for the continuous-batching engine
+(the reference's ``repro.serving.kvcache``).
+
+The decode KV cache is carved into fixed-size **pages** of ``page_tokens``
+tokens; each slot's logical sequence maps to physical pages through a
+per-slot page table (``layout.null_page``, one past the pool end, marks
+unallocated entries).  Every token's (Hkv*Dh)-element K and V rows are
+quantized per ``group_size`` block through the paper's quantize/pack path
+as they are written, each token with its own seed
+(:func:`repro_torch.engine.seeds.kv_seed`), in one seeded ``quant_pack``
+launch per layer and stream.  The pool holds packed codes (int32 bit views
+of the reference's uint32 words) plus per-block (zero, range) float32
+stats.  ``bits=16`` stores raw bf16 pages instead.
+
+Page layout per (layer, physical page), one of the two K/V streams::
+
+    quantized:  packed (page_tokens, blocks_per_token, words_per_block)
+                zero/rng (page_tokens, blocks_per_token) f32
+    raw bf16:   (page_tokens, n_kv_heads, d_head)
+
+The reference's out-of-bounds scatters (``mode="drop"``) and gathers
+(``mode="fill"``) at ``null_page`` are spelled out with masks: a torch
+index past the end raises on the CPU and faults on the card, and the pool
+has no sink page (its bytes are exactly ``layout.pool_bytes``).  Writes
+update the pool tensors in place.
+
+Placement: ``policy="device"`` only.  The ``host`` and ``pinned-paged``
+policies wait for the offload engine (ROADMAP A.8); they raise rather than
+quietly keep the pool on the device.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import pack as packmod
+from repro_torch.core.backend import quant_kernel_unsupported
+from repro_torch.engine.seeds import kv_seed
+from repro_torch.kernels import ops
+
+#: Supported KV cache widths: 2/4/8 quantized, 16 = raw bf16 pages.
+KV_BITS = (2, 4, 8, 16)
+#: The reference's placement policies (``repro.offload.engine.POLICIES``).
+POLICIES = ("device", "host", "pinned-paged")
+
+
+@dataclasses.dataclass(frozen=True)
+class KVCacheConfig:
+    """User-facing knobs for the paged KV cache."""
+    bits: int = 8
+    group_size: int = 64
+    policy: str = "device"
+    page_tokens: int = 16
+    n_pages: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class KVPageLayout:
+    """Resolved page-pool geometry (validated by :func:`plan_kv_layout`)."""
+    n_layers: int
+    n_kv_heads: int
+    d_head: int
+    bits: int
+    group_size: int      # effective per-token quant group
+    page_tokens: int
+    n_pages: int
+    policy: str = "device"
+
+    # ------------------------------------------------------------ geometry
+    @property
+    def quantized(self) -> bool:
+        return self.bits < 16
+
+    @property
+    def elems_per_token(self) -> int:
+        return self.n_kv_heads * self.d_head
+
+    @property
+    def blocks_per_token(self) -> int:
+        return self.elems_per_token // self.group_size
+
+    @property
+    def words_per_block(self) -> int:
+        return packmod.packed_len(self.group_size, self.bits) \
+            if self.quantized else 0
+
+    @property
+    def words_per_page(self) -> int:
+        """32-bit words of one page's packed-code (or raw bf16) stream."""
+        if self.quantized:
+            return self.page_tokens * self.blocks_per_token \
+                * self.words_per_block
+        return self.page_tokens * self.elems_per_token * 2 // 4
+
+    @property
+    def null_page(self) -> int:
+        """Sentinel page id for unallocated table entries: one past the
+        pool end (writes there are dropped, reads fill zeros)."""
+        return self.n_pages
+
+    # --------------------------------------------------------------- bytes
+    @property
+    def page_bytes(self) -> int:
+        """Stored bytes of one page, both K and V streams."""
+        per = self.words_per_page * 4
+        if self.quantized:
+            per += self.page_tokens * self.blocks_per_token * 8  # zero+rng
+        return 2 * per
+
+    @property
+    def pool_bytes(self) -> int:
+        return self.n_layers * self.n_pages * self.page_bytes
+
+    @property
+    def f32_page_bytes(self) -> int:
+        """The same page capacity stored as uncompressed f32 K+V."""
+        return 2 * self.page_tokens * self.elems_per_token * 4
+
+    @property
+    def f32_pool_bytes(self) -> int:
+        return self.n_layers * self.n_pages * self.f32_page_bytes
+
+    @property
+    def total_words(self) -> int:
+        return self.n_layers * self.n_pages * self.words_per_page
+
+    def page_segments(self):
+        """Flat-word-space segments of every (layer, page) in one packed
+        stream: (layer, page, offset, length)."""
+        for li in range(self.n_layers):
+            for p in range(self.n_pages):
+                off = (li * self.n_pages + p) * self.words_per_page
+                yield li, p, off, self.words_per_page
+
+
+def plan_kv_layout(kv: KVCacheConfig, *, n_layers: int, n_kv_heads: int,
+                   d_head: int) -> KVPageLayout:
+    """Validate a :class:`KVCacheConfig` against the model's KV row and
+    resolve the page geometry."""
+    if kv.policy not in POLICIES:
+        raise ValueError(f"offload={kv.policy!r} not in {POLICIES}")
+    if kv.policy != "device":
+        raise NotImplementedError(
+            f"kv policy {kv.policy!r} waits for the port's offload engine "
+            "(ROADMAP A.8); use policy='device'")
+    if kv.bits not in KV_BITS:
+        raise ValueError(f"kv bits={kv.bits} not in {KV_BITS}")
+    if kv.page_tokens < 1:
+        raise ValueError(f"page_tokens={kv.page_tokens} must be >= 1")
+    if kv.n_pages < 1:
+        raise ValueError(f"n_pages={kv.n_pages} must be >= 1")
+    elems = n_kv_heads * d_head
+    g = min(kv.group_size, elems)
+    if g < 1 or elems % g:
+        raise ValueError(
+            f"group_size={kv.group_size} (effective {g}) must divide the "
+            f"{elems}-element KV token row (Hkv={n_kv_heads} x Dh={d_head}) "
+            "so quant blocks never straddle tokens")
+    if kv.bits < 16:
+        reason = quant_kernel_unsupported(kv.bits, g, None)
+        if reason is not None:
+            raise ValueError(f"kv cache quantization infeasible: {reason}")
+    return KVPageLayout(n_layers=n_layers, n_kv_heads=n_kv_heads,
+                        d_head=d_head, bits=kv.bits, group_size=g,
+                        page_tokens=kv.page_tokens, n_pages=kv.n_pages,
+                        policy=kv.policy)
+
+
+# ================================================================= pools
+def init_kv_pool(layout: KVPageLayout, device="cpu") -> dict:
+    """Zero-initialized page pool; every tensor carries a leading layer
+    axis.  Its bytes are exactly ``layout.pool_bytes``."""
+    L, P, T = layout.n_layers, layout.n_pages, layout.page_tokens
+    if not layout.quantized:
+        kv_shape = (L, P, T, layout.n_kv_heads, layout.d_head)
+        return {name: torch.zeros(kv_shape, dtype=torch.bfloat16,
+                                  device=device) for name in ("k", "v")}
+    nbt, wpb = layout.blocks_per_token, layout.words_per_block
+    pool = {}
+    for name in ("k", "v"):
+        pool[f"{name}_packed"] = torch.zeros((L, P, T, nbt, wpb),
+                                             dtype=torch.int32, device=device)
+        pool[f"{name}_zero"] = torch.zeros((L, P, T, nbt), device=device)
+        pool[f"{name}_rng"] = torch.zeros((L, P, T, nbt), device=device)
+    return pool
+
+
+def pool_nbytes(pool: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in pool.values())
+
+
+def place_kv_pool(pool: dict, layout: KVPageLayout) -> tuple[dict, str]:
+    """The pool where the layout's policy puts it, and the mechanism: only
+    ``device`` is ported (:func:`plan_kv_layout` refuses the others)."""
+    if layout.policy != "device":
+        raise NotImplementedError(
+            f"kv policy {layout.policy!r} waits for ROADMAP A.8")
+    return pool, "device"
+
+
+def layer_view(pool: dict, li: int) -> dict:
+    """Layer ``li`` of every pool tensor (views: writes land in the pool)."""
+    return {name: t[li] for name, t in pool.items()}
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+# ================================================================ writes
+def _quantize_rows(layout: KVPageLayout, t: torch.Tensor,
+                   seeds: torch.Tensor):
+    """(n, Hkv, Dh) rows -> packed (n, nbt, wpb), zero/rng (n, nbt): every
+    row's blocks with that row's seed, counters from 0 (one launch)."""
+    n, nbt, g = t.shape[0], layout.blocks_per_token, layout.group_size
+    packed, zero, rng = ops.quantize_packed(
+        t.to(torch.float32).reshape(n * nbt, g), layout.bits, seeds,
+        rows_per_seed=nbt)
+    return (packed.reshape(n, nbt, layout.words_per_block),
+            zero.reshape(n, nbt), rng.reshape(n, nbt))
+
+
+def write_token(pool_l: dict, layout: KVPageLayout, page_table, pos, active,
+                k_tok, v_tok, seed_k, seed_v, *, rows=None) -> dict:
+    """Write one decode token's K/V rows into their page (one layer).
+
+    k_tok/v_tok (B, Hkv, Dh); pos (B,) absolute positions; page_table
+    (B, max_pages) physical ids; seed_k/seed_v (B,) per-slot seeds from
+    :func:`repro_torch.engine.seeds.kv_seed`.  ``active`` (B,) bool says
+    which slots write; it is read on the host (the engine passes its
+    scheduler mirror, so nothing waits on the card), and the other slots'
+    writes are dropped as the reference's out-of-bounds scatter drops them.
+    An active slot must own the page its position falls in.  ``rows``, the
+    active slots' indices on the device, may be passed instead of being
+    copied there again (the engine copies them once a step).
+    """
+    if rows is None:
+        rows = torch.as_tensor(np.flatnonzero(_host(active)),
+                               device=pos.device)
+    if not rows.numel():
+        return pool_l
+    T = layout.page_tokens
+    p = pos[rows].to(torch.int64)
+    phys = page_table[rows, p // T].to(torch.int64)
+    off = p % T
+    if not layout.quantized:
+        for name, t in (("k", k_tok), ("v", v_tok)):
+            pool_l[name][phys, off] = t[rows].to(pool_l[name].dtype)
+        return pool_l
+    for name, t, seed in (("k", k_tok, seed_k), ("v", v_tok, seed_v)):
+        vals = _quantize_rows(layout, t[rows], seed[rows])
+        for suffix, val in zip(("packed", "zero", "rng"), vals):
+            pool_l[f"{name}_{suffix}"][phys, off] = val
+    return pool_l
+
+
+def write_prompt(pool: dict, layout: KVPageLayout, k, v, phys_pages,
+                 slots) -> dict:
+    """Scatter a prefill's KV rows into freshly allocated pages.
+
+    k/v (L, B, S, Hkv, Dh) from ``Model.prefill`` with ``max_seq`` padded
+    to a page multiple (S % page_tokens == 0); phys_pages (B, S//T)
+    physical page ids per slot, on the host (entries at ``null_page`` are
+    dropped); slots (B,) slot indices (the seed stream).  Token (b, s) of
+    layer li quantizes with ``kv_seed(s, slots[b], li, field)``; one seeded
+    ``quant_pack`` launch per layer and stream.
+    """
+    L, B, S = k.shape[0], k.shape[1], k.shape[2]
+    T = layout.page_tokens
+    assert S % T == 0, (S, T)
+    npg = S // T
+    dev = k.device
+    phys = _host(phys_pages).astype(np.int64).reshape(B, npg)
+    keep_b, keep_p = np.nonzero(phys < layout.n_pages)
+    dst = torch.as_tensor(phys[keep_b, keep_p], device=dev)
+    keep_b = torch.as_tensor(keep_b, device=dev)
+    keep_p = torch.as_tensor(keep_p, device=dev)
+    positions = torch.arange(S, device=dev)
+    slots = torch.as_tensor(_host(slots).astype(np.int64), device=dev)
+    hkv, dh = layout.n_kv_heads, layout.d_head
+    for li in range(L):
+        for field, (name, t) in enumerate((("k", k[li]), ("v", v[li]))):
+            if not layout.quantized:
+                paged = t.to(torch.bfloat16).reshape(B, npg, T, hkv, dh)
+                pool[name][li][dst] = paged[keep_b, keep_p]
+                continue
+            seeds = kv_seed(positions[None, :], slots[:, None], li, field)
+            vals = _quantize_rows(layout, t.reshape(B * S, hkv, dh),
+                                  seeds.reshape(-1))
+            for suffix, val in zip(("packed", "zero", "rng"), vals):
+                paged = val.reshape(B, npg, T, *val.shape[1:])
+                pool[f"{name}_{suffix}"][li][dst] = paged[keep_b, keep_p]
+    return pool
+
+
+# ================================================================= reads
+def _gather_pages(t: torch.Tensor, table: torch.Tensor, n_pages: int):
+    """``t[table]`` over the page axis, zeros where ``table`` holds the
+    null page (the reference's ``mode="fill"`` gather)."""
+    valid = table < n_pages
+    pages = t[table.clamp(max=n_pages - 1).to(torch.int64)]
+    mask = valid.reshape(*valid.shape, *([1] * (pages.dim() - valid.dim())))
+    return torch.where(mask, pages, torch.zeros((), dtype=t.dtype,
+                                                device=t.device))
+
+
+def gather_kv_raw(pool_l: dict, layout: KVPageLayout, page_table):
+    """bits=16 read path: a slot's pages as the dense (B, max_pages*T, Hkv,
+    Dh) float32 window (unallocated pages read as zeros)."""
+    B, maxp = page_table.shape
+    return tuple(
+        _gather_pages(pool_l[name], page_table, layout.n_pages).reshape(
+            B, maxp * layout.page_tokens, layout.n_kv_heads, layout.d_head
+        ).to(torch.float32) for name in ("k", "v"))
+
+
+def _dequant_pages(pool_l: dict, layout: KVPageLayout, name: str,
+                   table: torch.Tensor) -> torch.Tensor:
+    """Pages ``table`` (any shape) of stream ``name`` dequantized in one
+    ``dequant_unpack`` launch -> (*table.shape, T, Hkv, Dh) float32."""
+    P = layout.n_pages
+    pk = _gather_pages(pool_l[f"{name}_packed"], table, P)
+    pz = _gather_pages(pool_l[f"{name}_zero"], table, P)
+    pr = _gather_pages(pool_l[f"{name}_rng"], table, P)
+    blocks = ops.dequantize_packed(
+        pk.reshape(-1, layout.words_per_block), pz.reshape(-1),
+        pr.reshape(-1), layout.bits, layout.group_size)
+    return blocks.reshape(*table.shape, layout.page_tokens,
+                          layout.n_kv_heads, layout.d_head)
+
+
+def fetch_window(pool_l: dict, layout: KVPageLayout, page_table):
+    """Quantized read path, whole window: every slot's pages dequantized
+    with one ``dequant_unpack`` launch per stream -> kf, vf (B,
+    max_pages*T, Hkv, Dh) float32: the reference's page-by-page reads
+    (its ``make_page_fetch``) laid end to end, null pages as zeros.  The
+    serving engine attends over it with
+    :func:`repro_torch.models.attention.decode_attend`; the float32 window
+    is one layer's transient."""
+    B, maxp = page_table.shape
+    return tuple(
+        _dequant_pages(pool_l, layout, name, page_table).reshape(
+            B, maxp * layout.page_tokens, layout.n_kv_heads, layout.d_head)
+        for name in ("k", "v"))
+
+
+# ============================================================= allocator
+class PageAllocator:
+    """Host-side free-list allocator over the physical page pool.
+
+    Deterministic: pages hand out in ascending id order and freed pages
+    return to the tail, so identical admission traces replay to identical
+    page tables.  Bounds and double-free are hard errors."""
+
+    def __init__(self, n_pages: int):
+        if n_pages < 1:
+            raise ValueError(f"n_pages={n_pages} must be >= 1")
+        self.n_pages = n_pages
+        self._free = list(range(n_pages - 1, -1, -1))
+        self._used: set[int] = set()
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return len(self._used)
+
+    def alloc(self, n: int) -> list[int] | None:
+        """n physical pages, or None when the pool cannot satisfy them
+        (the scheduler's signal to hold admission)."""
+        if n < 0:
+            raise ValueError(f"cannot allocate {n} pages")
+        if n > len(self._free):
+            return None
+        pages = [self._free.pop() for _ in range(n)]
+        self._used.update(pages)
+        return pages
+
+    def free(self, pages) -> None:
+        for p in pages:
+            if not 0 <= p < self.n_pages:
+                raise ValueError(
+                    f"page id {p} outside the [0, {self.n_pages}) pool")
+            if p not in self._used:
+                raise ValueError(f"double free of page {p}")
+            self._used.remove(p)
+            self._free.append(p)

@@ -177,3 +177,168 @@ def test_cuda_fused_training_matches_cpu(cuda, arch, hidden, g,
     np.testing.assert_allclose([h[1] for h in on_card["history"]],
                                [h[1] for h in on_cpu["history"]], rtol=1e-3)
     assert on_card["stash_bytes"] == on_cpu["stash_bytes"]
+
+
+# ------------------------------------------------------------ flash (B.6)
+def _qkv(bh, sq, skv, dh, dtype, seed=0):
+    r = np.random.default_rng(seed)
+    mk = lambda s: torch.from_numpy(r.normal(size=(bh, s, dh)).astype(
+        np.float32)).to(dtype).cuda()
+    return mk(sq), mk(skv), mk(skv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,sq,skv,dh,causal", [
+    (4, 256, 256, 64, True), (2, 256, 512, 64, False),
+    (2, 128, 128, 128, True), (1, 512, 256, 64, False),
+    (3, 77, 77, 16, True), (2, 100, 37, 32, False)])
+def test_cuda_flash_matches_plain_f32(cuda, bh, sq, skv, dh, causal):
+    """The reference flash test's shapes (and ragged ones, d_head 16/32):
+    within its 3e-5 band, both scale orders."""
+    from repro_torch.kernels import flash_attention as t_fa
+
+    q, k, v = _qkv(bh, sq, skv, dh, torch.float32, seed=sq + skv)
+    for scale_q in (False, True):
+        before = t_fa.flash_attention.launches
+        got = t_fa.flash_attention(q, k, v, causal=causal, scale_q=scale_q)
+        assert t_fa.flash_attention.launches == before + 1
+        want = t_ref.flash_attention(q, k, v, causal=causal, scale_q=scale_q)
+        torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,sq,skv,dh", [(2, 128, 128, 64),
+                                          (80, 1000, 1000, 128)])
+def test_cuda_flash_matches_plain_bf16(cuda, bh, sq, skv, dh):
+    """bf16 in and out, float32 inside: within one bf16 ulp of the plain
+    version (2**-7 relative; an output may round to the other neighbouring
+    bf16 value), 1e-3 absolute near zero."""
+    from repro_torch.kernels import flash_attention as t_fa
+
+    q, k, v = _qkv(bh, sq, skv, dh, torch.bfloat16, seed=dh)
+    got = t_fa.flash_attention(q, k, v, causal=True, scale_q=True)
+    assert got.dtype == torch.bfloat16
+    want = t_ref.flash_attention(q, k, v, causal=True, scale_q=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-3,
+                               rtol=2.0 ** -7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (3e-5, 3e-5)),
+                                       (torch.bfloat16, (1e-3, 2.0 ** -7))])
+def test_cuda_flash_offset_and_kv_len(cuda, dtype, tol):
+    """Ragged Sq != Skv with q_offset (a chunk of a longer prompt) and
+    kv_len (a padded cache), causal and full."""
+    from repro_torch.kernels import flash_attention as t_fa
+
+    q, k, v = _qkv(6, 70, 200, 128, dtype, seed=3)
+    for causal, q_offset, kv_len in ((True, 130, 200), (True, 100, 150),
+                                     (False, 0, 131), (True, 0, 1)):
+        got = t_fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                   kv_len=kv_len, scale_q=True)
+        want = t_ref.flash_attention(q, k, v, causal=causal,
+                                     q_offset=q_offset, kv_len=kv_len,
+                                     scale_q=True)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol[0],
+                                   rtol=tol[1])
+
+
+@pytest.mark.gpu
+def test_cuda_flash_refuses_what_it_cannot_run(cuda):
+    from repro_torch.kernels import flash_attention as t_fa
+
+    q, k, v = _qkv(2, 16, 16, 48, torch.float32)
+    with pytest.raises(ValueError, match="d_head"):
+        t_fa.flash_attention(q, k, v)
+    q, k, v = _qkv(2, 16, 16, 64, torch.float32)
+    with pytest.raises(ValueError, match="one dtype"):
+        t_fa.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="kv_len"):
+        t_fa.flash_attention(q, k, v, kv_len=0)
+
+
+@pytest.mark.gpu
+def test_cuda_online_attention_matches_cpu(cuda):
+    """The model's prefill attention on the card (kernel) against the CPU
+    (plain version), GQA-expanded, bf16: within 3e-2."""
+    from repro_torch.models.attention import online_attention
+
+    r = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(r.normal(size=(2, 90, 8, 64)).astype(
+        np.float32)).bfloat16() for _ in range(3))
+    got = online_attention(q.cuda(), k.cuda(), v.cuda(), causal=True)
+    want = online_attention(q, k, v, causal=True)
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=3e-2,
+                               rtol=3e-2)
+
+
+# ------------------------------------------- seeded quant_pack (KV cache)
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_cuda_seeded_quant_pack_bit_equal_to_plain(cuda, bits):
+    """One seed per token (run of rows), counters restarting per token:
+    words, zero and range bit-equal to the plain version."""
+    from repro_torch.engine.seeds import kv_seed
+
+    nbt, g, n_tok = 40, 64, 37
+    x = torch.from_numpy(_x(n_tok * nbt, g, seed=bits)).cuda()
+    seeds = kv_seed(torch.arange(n_tok, device="cuda") + 2**31 - 5, 3, 39, 1)
+    before = t_qk.quant_pack.launches
+    got = t_qk.quant_pack(x, bits, seeds, rows_per_seed=nbt)
+    assert t_qk.quant_pack.launches == before + 1
+    want = t_ref.quantize_packed(x.cpu(), bits, seeds.cpu(),
+                                 rows_per_seed=nbt)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_cuda_one_seed_table_equals_the_plain_seed(cuda):
+    """A table of one seed over every row is the one-seed kernel: the
+    null-table path keeps its bits."""
+    x = torch.from_numpy(_x(301, 256, seed=9)).cuda()
+    table = torch.tensor([2**32 - 3], device="cuda")
+    got = t_qk.quant_pack(x, 2, table, VM2, rows_per_seed=301)
+    plain = t_qk.quant_pack(x, 2, 2**32 - 3, VM2)
+    want = t_ref.quantize_packed(x, 2, 2**32 - 3, VM2)
+    for a, b, c in zip(got, plain, want):
+        assert torch.equal(a, b) and torch.equal(b, c)
+
+
+# ------------------------------------------------------------- serving
+@pytest.mark.gpu
+def test_cuda_serving_matches_cpu(cuda):
+    """The smoke-size engine (float32 activations, 8-bit KV) on the card
+    against the CPU from the same weights: greedy tokens equal, logits
+    within 2e-3 (cuBLAS and the CPU sum in other orders, and a last-ulp
+    difference in K or V can move an 8-bit SR code by one level)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduce_for_smoke
+    from repro_torch.kernels import flash_attention as t_fa
+    from repro_torch.models import Model
+    from repro_torch.serving import KVCacheConfig, Request, ServeEngine
+
+    cfg = dataclasses.replace(reduce_for_smoke(ARCHS["qwen1.5-4b"]),
+                              act_mode="none", act_dtype="float32")
+    model = Model(cfg, device="cpu",
+                  generator=torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (3, 40))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        eng = ServeEngine(copy.deepcopy(model).to(dev),
+                          kv=KVCacheConfig(bits=8, page_tokens=16,
+                                           n_pages=12),
+                          max_batch=2, max_prompt=40, gen_cap=8,
+                          collect_logits=True)
+        before = t_fa.flash_attention.launches
+        outs[dev] = eng.run([Request(rid=i, prompt=prompts[i], max_new=8)
+                             for i in range(3)])
+        launched = t_fa.flash_attention.launches - before
+        assert launched == (4 if dev == "cuda" else 0)   # 2 groups x 2 layers
+    for a, b in zip(outs["cuda"]["results"], outs["cpu"]["results"]):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    for rid in range(3):
+        np.testing.assert_allclose(outs["cuda"]["logits"][rid],
+                                   outs["cpu"]["logits"][rid], atol=2e-3)
