@@ -3,8 +3,9 @@
 Marked ``gpu``: they skip without a CUDA device (as on a CPU-only host) and
 import nothing of JAX, so the card's host runs them with
 ``python -m pytest -q -m gpu tests/test_torch_cuda.py``.  Quantize and
-dequantize must be bit-equal; RP/IRP agree to rtol/atol 2e-4 (the kernel and
-cuBLAS sum the same float32 products in another order)."""
+dequantize must be bit-equal; RP/IRP agree to rtol/atol 2e-4 (the kernel
+sums two TF32 parts of x times +-1 on the tensor cores, cuBLAS the float32
+products, each in its own order)."""
 import numpy as np
 import pytest
 import torch
@@ -57,7 +58,7 @@ def test_cuda_quant_misaligned_input(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,d,r", [(677, 256, 32), (130, 512, 64),
-                                   (33, 40, 5)])
+                                   (33, 40, 5), (300, 24, 8)])
 def test_cuda_rp_kernels_match_plain(cuda, m, d, r):
     x = torch.from_numpy(_x(m, d)).cuda()
     y = t_rk.rp_project(x, 7, r)
@@ -66,6 +67,57 @@ def test_cuda_rp_kernels_match_plain(cuda, m, d, r):
     torch.testing.assert_close(t_rk.irp_project(y, 7, d),
                                t_ref.irp_project(y, 7, d), rtol=2e-4,
                                atol=2e-4)
+
+
+def _rp_case(case):
+    """(x for RP, d, r) for each path of the RP kernel that the main path's
+    shapes do not take."""
+    if case == "misaligned":      # base 4 bytes past a 16-byte boundary
+        flat = torch.from_numpy(_x(1, 300 * 256 + 1)).cuda().reshape(-1)
+        return flat[1:].reshape(300, 256), 256, 32
+    if case == "k_mod_4":         # K = 130 (RP), 70 (IRP): 4-byte copies
+        return torch.from_numpy(_x(300, 130)).cuda(), 130, 70
+    if case == "ragged_m":        # 2 row tiles of 128 and 1 row
+        return torch.from_numpy(_x(257, 512)).cuda(), 512, 64
+    # K = 2100 > 2048 at 64 columns (and 4300 > 4096 at 32): the signs are
+    # hashed in windows of K.  x is zero except in 64 columns of each
+    # window, so the sum rounds as a K = 128 product while its signs come
+    # from both windows.  For IRP, N = 4300 is 68 chunks of 64 columns:
+    # more than a sign table holds, so several slabs on blockIdx.y.
+    m, d, r, starts = ((129, 2100, 40, (100, 2030)) if case == "k_windows"
+                       else (6, 4300, 20, (100, 4200)))
+    x = torch.zeros((m, d), device="cuda")
+    for k0 in starts:
+        x[:, k0:k0 + 64] = torch.from_numpy(_x(m, 64, seed=k0)).cuda()
+    return x, d, r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["misaligned", "k_mod_4", "ragged_m",
+                                  "k_windows", "n_slabs"])
+def test_cuda_rp_kernel_paths_match_plain(cuda, case):
+    x, d, r = _rp_case(case)
+    y = t_rk.rp_project(x, 11, r)
+    torch.testing.assert_close(y, t_ref.rp_project(x, 11, r), rtol=2e-4,
+                               atol=2e-4)
+    if case == "misaligned":
+        flat = torch.empty(y.numel() + 1, device="cuda")
+        flat[1:] = y.reshape(-1)
+        y = flat[1:].reshape(y.shape)
+    torch.testing.assert_close(t_rk.irp_project(y, 11, d),
+                               t_ref.irp_project(y, 11, d), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d,r", [(1000, 512, 64), (677, 256, 32)])
+def test_cuda_rp_kernels_bit_identical_repeat(cuda, m, d, r):
+    """Each output is summed by one warp in a fixed order: two calls give
+    the same bits."""
+    x = torch.from_numpy(_x(m, d, seed=3)).cuda()
+    y = t_rk.rp_project(x, 5, r)
+    assert torch.equal(y, t_rk.rp_project(x, 5, r))
+    assert torch.equal(t_rk.irp_project(y, 5, d), t_rk.irp_project(y, 5, d))
 
 
 @pytest.mark.gpu
