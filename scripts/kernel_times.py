@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Check and time one of the port's kernels alone on one GPU.
 
-    python3 scripts/kernel_times.py {rp,fused} [--root CHECKOUT]
+    python3 scripts/kernel_times.py {rp,fused,flash} [--root CHECKOUT]
 
 Builds the kernel's source (printing ptxas's registers, shared memory and
 spills), then runs its check from ``chip_smoke.py`` at the main path's
@@ -14,7 +14,14 @@ shapes, without the training phases, in about 20 s:
 - ``fused``: ``check_fused``, the matmul-quantize pair at the three layer
   shapes of the rp_ratio-0 SAGE slice (the stash bit-equal to the plain
   version and to quant_pack, y and dw within their bounds), timed beside
-  the plain version, the product alone and the two-pass spelling.
+  the plain version, the product alone and the two-pass spelling;
+- ``flash``: ``check_flash``, flash attention at the serving prefill's
+  (80, 1000, 128), causal, bf16 and float32, and at ragged shapes with
+  q_offset / kv_len, in both scale orders, within their bands of the plain
+  version (bf16 also bit-identical from call to call, with the share of
+  outputs not bit-equal to the plain version's), then CUDA-event medians
+  of the kernel, the plain version and float32 and bf16 SDPA, beside the
+  bound.
 
 The last line is a JSON object of the rows.  ``--root`` runs the kernels,
 wrappers and checks of another checkout of the repository instead (its own
@@ -36,7 +43,7 @@ def print_builds(build, sources) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernel", choices=("rp", "fused"))
+    ap.add_argument("kernel", choices=("rp", "fused", "flash"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="checkout whose kernels and checks run")
     args = ap.parse_args()
@@ -62,6 +69,10 @@ def main() -> int:
         from repro_torch.kernels import rp_matmul
         print_builds(build, ("rp_matmul",))
         rows = chip_smoke.check_rp(torch, rp_matmul, ref, rpmod, flush, gen)
+    elif args.kernel == "flash":
+        from repro_torch.kernels import flash_attention
+        print_builds(build, ("flash_attention",))
+        rows = chip_smoke.check_flash(torch, flash_attention, ref, flush, gen)
     else:
         from repro_torch.core.compressor import CompressionConfig
         from repro_torch.kernels import fused_matmul, quant_blockwise

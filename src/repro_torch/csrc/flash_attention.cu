@@ -1,4 +1,5 @@
-// Causal or full online-softmax attention (flash attention), SIMT float32.
+// Causal or full online-softmax attention (flash attention): bf16 inputs on
+// Hopper's tensor cores, float32 inputs on the SIMT cores.
 //
 // Replaces the TPU kernel of src/repro/kernels/flash_attention.py:
 //   _flash_kernel  per (bh, query tile): running max m, denominator l and
@@ -9,32 +10,62 @@
 //                  Key tiles strictly above the causal diagonal are skipped.
 // It also computes what repro.models.attention.online_attention computes on
 // the prefill path: q_offset (absolute position of query row 0) and kv_len
-// (valid keys) mask like the reference's chunk scan, and with scale_q the
-// scale multiplies q in float32 before the product (the reference's
-// (q * scale) . k order) instead of the scores after it (the Pallas kernel's
-// (q . k) * scale order).
+// (valid keys) mask like the reference's chunk scan.  Ragged Sq and Skv are
+// masked here, so nothing is padded outside.  Masked scores are the
+// reference's finite NEG_INF = -1e30, so a fully masked tile never makes a
+// NaN and the first tile's correction exp(-1e30 - m) is exactly 0.  The
+// dtype picks the kernel; both are written by hand and neither falls back
+// to the other.
 //
-// What bounds it on an H100: operations.  At the serving prefill shape
-// (80 heads x 1000 tokens x d_head 128, causal) it does 4 * BH * Dh flops
-// per (query, key) pair it keeps, 20.5 GFLOP, against 82 MB of q, k, v and
-// out: about 250 flops a byte, far above the float32 balance.  This kernel
-// keeps the reference's float32 arithmetic on the SIMT cores (no bf16 or
-// TF32 tensor-core products, P stays float32), so its bound is the card's
-// 67 TFLOP/s float32 rate.
+// bf16 (the serving prefill): a FlashAttention-2 dataflow on
+// mma.sync m16n8k16 bf16 x bf16 -> f32.
+// What bounds it on an H100: bytes.  The function is 4 * Dh flops a kept
+// (query, key) pair: at the serving prefill shape (80 x 1000 x 128, causal)
+// 20.5 GFLOP, 0.0207 ms at 989 TFLOP/s, against 82 MB of q, k, v and out,
+// 0.0245 ms at 3.35 TB/s.  The kernel does 6 * Dh a pair on the tensor cores
+// (P V twice for the split P, below): 30.7 GFLOP, 0.031 ms; that extra
+// P V pass is the kernel's own cost, not the function's.
+// - A CTA is 4 warps and owns one (bh, 64-row query tile), heaviest causal
+//   tiles launched first; each warp owns 16 query rows.  Q is copied once
+//   into shared memory and held in registers as A fragments (ldmatrix).
+// - K and V stream through a double-buffered ring of 64-key tiles filled by
+//   cp.async (16 bytes a thread; zero-filled past Sq and Skv, the mask
+//   handles those rows; plain loads when a pointer is not 16-byte aligned).
+//   Rows are padded by 16 bytes, so every ldmatrix hits 32 distinct banks.
+//   At Dh = 128: 17 KB of Q and 2 x 34 KB of K and V, two CTAs an SM.
+// - S = Q K^T on the tensor cores, bf16 operands, f32 sums: K stored
+//   [key][dh] is the .col B operand as it stands.  A bf16 x bf16 product is
+//   exact in f32, so only the order of the sum differs from the reference.
+//   The scale multiplies the f32 sum after it, for both values of scale_q:
+//   with scale_q the reference rounds q * scale in float32 first, so s
+//   differs from it by a few float32 ulps.
+// - The online softmax stays in registers: a thread holds 2 rows of each
+//   m16n8 fragment; the row max goes across the quad by shuffles, each
+//   thread keeps its part of l, and the quad sums l once at the end.
+// - P V with P split in two bf16 parts, hi = rn(p) and lo = rn(p - hi) (the
+//   subtraction is exact), both through the same mma into one f32
+//   accumulator, so a term misses at most 2^-16 p (one bf16 P, up to
+//   2^-8 p, is what a bf16 attention computes: another function).  The C
+//   fragments of two adjacent m16n8 S tiles are the A fragment of one
+//   m16n8k16, so P never goes through shared memory; V stored [key][dh] is
+//   the B operand through ldmatrix.trans.
+// - Each warp stages its 16 x Dh bf16 outputs in its own Q rows and stores
+//   16 bytes a thread (out must be 16-byte aligned).  No atomics: repeated
+//   calls give the same bits.
 //
-// Design (simple first): one CTA of 256 threads per (bh, 64-row query tile),
-// heaviest causal tiles launched first.  Q of the tile is staged once in
-// shared memory as float32 (transposed, padded stride 65: no bank
-// conflicts); each 64-row key tile is staged as K^T and V in float32.
-// Thread (rg, cg) = (tid / 16, tid % 16) owns query rows rg + 16 i (i < 4):
-// it computes their scores against keys cg + 16 j (j < 4), reduces the row
-// max and sum over the 16 threads of its row group with shuffles, keeps m
-// and l for its 4 rows in registers, writes P into the K^T buffer (K is
-// consumed by then), and accumulates acc for columns cg + 16 j of its rows
-// (j < Dh / 16) in registers.  Ragged Sq and Skv edges are masked here, so
-// nothing is padded outside.  Masked scores are the reference's finite
-// NEG_INF = -1e30, so a fully masked tile never makes a NaN and the first
-// tile's correction exp(-1e30 - m) is exactly 0.
+// float32: SIMT float32 throughout, the reference's arithmetic (no bf16 or
+// TF32 products, P stays float32), bound by the card's 67 TFLOP/s float32
+// rate.  One CTA of 256 threads per (bh, 64-row query tile).  Q of the tile
+// is staged once in shared memory (transposed, padded stride 65: no bank
+// conflicts); each 64-row key tile is staged as K^T and V.  Thread
+// (rg, cg) = (tid / 16, tid % 16) owns query rows rg + 16 i (i < 4): it
+// computes their scores against keys cg + 16 j (j < 4), reduces the row max
+// and sum over the 16 threads of its row group with shuffles, writes P into
+// the K^T buffer (K is consumed by then), and accumulates acc for columns
+// cg + 16 j of its rows (j < Dh / 16) in registers.  With scale_q the scale
+// multiplies q in float32 before the product (the reference's
+// (q * scale) . k order) instead of the scores after it (the Pallas
+// kernel's (q . k) * scale order).
 //
 // Built with --fmad=false (as every source of the port): the products ask
 // for their FMAs (__fmaf_rn), and expf is the accurate one, not __expf.
@@ -46,18 +77,24 @@ namespace {
 
 constexpr int kBlockQ = 64;    // query rows per CTA
 constexpr int kBlockK = 64;    // keys per staged tile
-constexpr int kThreads = 256;  // 16 row groups x 16 column groups
-constexpr int kLd = 65;        // padded stride of the transposed tiles
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// Which keys a query tile reads: tiles [0, n_kt) of kBlockK keys.
+__device__ __forceinline__ int key_tiles(int q0, int sq, int skv, int causal,
+                                         int q_offset, int kv_len) {
+  const int kv_end = kv_len < skv ? kv_len : skv;
+  int n_kt = (kv_end + kBlockK - 1) / kBlockK;
+  if (causal) {
+    const int last_row = (q0 + kBlockQ < sq ? q0 + kBlockQ : sq) - 1;
+    const int last_k = (q_offset + last_row) / kBlockK + 1;
+    n_kt = n_kt < last_k ? n_kt : last_k;
+  }
+  return n_kt;
 }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
+
+// ------------------------------------------------------------ float32, SIMT
+constexpr int kThreads = 256;  // 16 row groups x 16 column groups
+constexpr int kLd = 65;        // padded stride of the transposed tiles
 
 template <int DH>
 constexpr size_t smem_bytes() {
@@ -79,11 +116,12 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int sq, int skv,
-             int causal, int q_offset, int kv_len, float scale, int scale_q) {
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 int sq, int skv, int causal, int q_offset, int kv_len,
+                 float scale, int scale_q) {
   constexpr int kCols = DH / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
   float* qs = smem;                                // Q^T
@@ -94,25 +132,19 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qt = gridDim.x - 1 - blockIdx.x;      // heaviest tiles first
   const int q0 = qt * kBlockQ;
   const long long bh = blockIdx.y;
-  const T* qb = q + (bh * sq + q0) * DH;
-  const T* kb = k + bh * skv * DH;
-  const T* vb = v + bh * skv * DH;
+  const float* qb = q + (bh * sq + q0) * DH;
+  const float* kb = k + bh * skv * DH;
+  const float* vb = v + bh * skv * DH;
 
   for (int e = tid; e < kBlockQ * DH; e += kThreads) {
     const int r = e / DH, d = e % DH;
-    float x = q0 + r < sq ? to_f32(qb[static_cast<long long>(r) * DH + d])
-                          : 0.0f;
+    float x = q0 + r < sq ? qb[static_cast<long long>(r) * DH + d] : 0.0f;
     if (scale_q) x = __fmul_rn(x, scale);
     qs[d * kLd + r] = x;
   }
 
   const int kv_end = kv_len < skv ? kv_len : skv;
-  int n_kt = (kv_end + kBlockK - 1) / kBlockK;
-  if (causal) {
-    const int last_row = (q0 + kBlockQ < sq ? q0 + kBlockQ : sq) - 1;
-    const int last_k = (q_offset + last_row) / kBlockK + 1;
-    n_kt = n_kt < last_k ? n_kt : last_k;
-  }
+  const int n_kt = key_tiles(q0, sq, skv, causal, q_offset, kv_len);
 
   float m[4], l[4], acc[4][kCols];
 #pragma unroll
@@ -130,8 +162,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = e / DH, d = e % DH;
       const bool in = k0 + c < skv;
       const long long off = static_cast<long long>(k0 + c) * DH + d;
-      kp[d * kLd + c] = in ? to_f32(kb[off]) : 0.0f;
-      vs[c * DH + d] = in ? to_f32(vb[off]) : 0.0f;
+      kp[d * kLd + c] = in ? kb[off] : 0.0f;
+      vs[c * DH + d] = in ? vb[off] : 0.0f;
     }
     __syncthreads();
 
@@ -205,67 +237,368 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = rg + 16 * i;
     if (q0 + r >= sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* o = out + (bh * sq + q0 + r) * DH;
+    float* o = out + (bh * sq + q0 + r) * DH;
 #pragma unroll
     for (int j = 0; j < kCols; ++j)
-      store(o + cg + 16 * j, __fdiv_rn(acc[i][j], denom));
+      o[cg + 16 * j] = __fdiv_rn(acc[i][j], denom);
   }
 }
 
-template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* out, int bh,
-           int sq, int skv, int causal, int q_offset, int kv_len, float scale,
-           int scale_q, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DH>();
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(flash_kernel<T, DH>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+// ------------------------------------------------- bf16, tensor cores
+using bf16 = __nv_bfloat16;
+constexpr int kTcWarps = 4;              // 16 query rows a warp
+constexpr int kTcThreads = 32 * kTcWarps;
+
+template <int DH>
+constexpr size_t tc_smem_bytes() {
+  // Q, then 2 ring slots of K and V: 64 rows of DH + 8 bf16 each
+  return sizeof(bf16) * 5 * kBlockQ * (DH + 8);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as a bf16 pair, x0 in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// p = hi + lo + e for a pair: hi = rn(p), lo = rn(p - hi), |e| <= 2^-16 p.
+__device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  const float2 hf = __bfloat1622float2(h);
+  lo = pack_bf16(__fsub_rn(p0, hf.x), __fsub_rn(p1, hf.y));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 2));
+}
+
+// Fragment coordinates (mma.sync m16n8k16, PTX ISA): lane = 4 g + t holds
+// S/acc rows g and g + 8 at columns 2t and 2t + 1 of each m16n8 tile.
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ out, int sq,
+                  int skv, int causal, int q_offset, int kv_len, float scale,
+                  int vec_in) {
+  constexpr int LD = DH + 8;          // shared row stride: 16 bytes of pad
+  constexpr int TILE = kBlockQ * LD;  // one 64-row tile
+  constexpr int KS = DH / 16;         // k16 steps of Q K^T
+  constexpr int NT = DH / 8;          // n8 tiles of the accumulator
+  constexpr int CPR = DH / 8;         // 16-byte chunks a row
+  static_assert(kBlockQ == kBlockK && kBlockQ == 16 * kTcWarps, "tiles");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ring = qs + TILE;  // slot s: K at ring + 2 s TILE, V after it
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
+  const int q0 = qt * kBlockQ;
+  const long long bh = blockIdx.y;
+  const bf16* kb = k + bh * skv * DH;
+  const bf16* vb = v + bh * skv * DH;
+
+  // Rows [0, 64) of src (rows_left of them real) into a tile; the rest 0.
+  auto copy_tile = [&](bf16* dst, const bf16* src, int rows_left) {
+    if (vec_in) {
+      for (int c = tid; c < kBlockQ * CPR; c += kTcThreads) {
+        const int r = c / CPR, col = c % CPR * 8;
+        const bool in = r < rows_left;
+        cp_async16(dst + r * LD + col, in ? src + r * DH + col : src,
+                   in ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < kBlockQ * DH; e += kTcThreads) {
+        const int r = e / DH, col = e % DH;
+        dst[r * LD + col] =
+            r < rows_left ? src[r * DH + col] : __float2bfloat16_rn(0.0f);
+      }
+    }
+  };
+  auto load_kv = [&](int kt) {
+    const int k0 = kt * kBlockK;
+    bf16* dst = ring + (kt & 1) * 2 * TILE;
+    copy_tile(dst, kb + static_cast<long long>(k0) * DH, skv - k0);
+    copy_tile(dst + TILE, vb + static_cast<long long>(k0) * DH, skv - k0);
+  };
+
+  const int kv_end = kv_len < skv ? kv_len : skv;
+  const int n_kt = key_tiles(q0, sq, skv, causal, q_offset, kv_len);
+  const int row_w = q0 + 16 * warp;              // this warp's first row
+  const int qpos0 = q_offset + row_w + g, qpos1 = qpos0 + 8;
+
+  copy_tile(qs, q + (bh * sq + q0) * DH, sq - q0);
+  load_kv(0);
+  cp_async_commit();
+
+  uint32_t qf[KS][4];
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (kt + 1 < n_kt) load_kv(kt + 1);  // into the slot freed last tile
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile kt (and Q) landed for every thread
+    if (kt == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        ldmatrix_x4(qf[ks], qs + (16 * warp + (lane & 15)) * LD + 16 * ks +
+                                (lane >> 4) * 8);
+    }
+    const bf16* ksm = ring + (kt & 1) * 2 * TILE;
+    const bf16* vsm = ksm + TILE;
+
+    // S = Q K^T: n-tiles 2np, 2np + 1 (keys 16 np ..) from one ldmatrix
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, ksm + (16 * np + (lane & 7) + (lane >> 4) * 8) * LD +
+                           16 * ks + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
+      }
+    }
+
+    // scale, mask, online softmax (rows g and g + 8 of this warp)
+    const int k0 = kt * kBlockK;
+    const bool whole = k0 + kBlockK <= kv_end &&
+                       (!causal || k0 + kBlockK - 1 <= q_offset + row_w);
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x0 = __fmul_rn(s[j][e], scale);
+        float x1 = __fmul_rn(s[j][2 + e], scale);
+        if (!whole) {
+          const int kpos = k0 + 8 * j + 2 * t + e;
+          const bool in = kpos < kv_end;
+          if (!in || (causal && kpos > qpos0)) x0 = kNegInf;
+          if (!in || (causal && kpos > qpos1)) x1 = kNegInf;
+        }
+        s[j][e] = x0;
+        s[j][2 + e] = x1;
+        mx0 = fmaxf(mx0, x0);
+        mx1 = fmaxf(mx1, x1);
+      }
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0));
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    const float corr0 = expf(__fsub_rn(m0, mn0));
+    const float corr1 = expf(__fsub_rn(m1, mn1));
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[j][e] = expf(__fsub_rn(s[j][e], mn0));
+        s[j][2 + e] = expf(__fsub_rn(s[j][2 + e], mn1));
+        sum0 = __fadd_rn(sum0, s[j][e]);
+        sum1 = __fadd_rn(sum1, s[j][2 + e]);
+      }
+    }
+    l0 = __fadd_rn(__fmul_rn(l0, corr0), sum0);
+    l1 = __fadd_rn(__fmul_rn(l1, corr1), sum1);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      acc[j][0] = __fmul_rn(acc[j][0], corr0);
+      acc[j][1] = __fmul_rn(acc[j][1], corr0);
+      acc[j][2] = __fmul_rn(acc[j][2], corr1);
+      acc[j][3] = __fmul_rn(acc[j][3], corr1);
+    }
+
+    // acc += P V, P = hi + lo: keys 16 kk .. 16 kk + 15 a step, dh n-tiles
+    // 2dp and 2dp + 1 from one ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int dp = 0; dp < KS; ++dp) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, vsm + (16 * kk + (lane & 7) +
+                                    ((lane >> 3) & 1) * 8) * LD +
+                                 16 * dp + (lane >> 4) * 8);
+        mma_bf16(acc[2 * dp], ph, b[0], b[1]);
+        mma_bf16(acc[2 * dp], pl, b[0], b[1]);
+        mma_bf16(acc[2 * dp + 1], ph, b[2], b[3]);
+        mma_bf16(acc[2 * dp + 1], pl, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this slot before its refill
   }
-  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, bh);
-  flash_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, skv, causal,
-      q_offset, kv_len, scale, scale_q);
+  cp_async_wait<0>();
+
+  // out = acc / max(l, 1e-30): l summed over the quad, the same order in
+  // each of its lanes; staged in this warp's Q rows (in registers by now)
+  l0 = __fadd_rn(l0, __shfl_xor_sync(0xFFFFFFFFu, l0, 1));
+  l0 = __fadd_rn(l0, __shfl_xor_sync(0xFFFFFFFFu, l0, 2));
+  l1 = __fadd_rn(l1, __shfl_xor_sync(0xFFFFFFFFu, l1, 1));
+  l1 = __fadd_rn(l1, __shfl_xor_sync(0xFFFFFFFFu, l1, 2));
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  bf16* so = qs + 16 * warp * LD;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    *reinterpret_cast<uint32_t*>(so + g * LD + 8 * j + 2 * t) = pack_bf16(
+        __fdiv_rn(acc[j][0], d0), __fdiv_rn(acc[j][1], d0));
+    *reinterpret_cast<uint32_t*>(so + (g + 8) * LD + 8 * j + 2 * t) =
+        pack_bf16(__fdiv_rn(acc[j][2], d1), __fdiv_rn(acc[j][3], d1));
+  }
+  __syncwarp();
+  bf16* ob = out + (bh * sq + row_w) * DH;
+  for (int c = lane; c < 16 * CPR; c += 32) {
+    const int r = c / CPR, col = c % CPR * 8;
+    if (row_w + r < sq)
+      *reinterpret_cast<uint4*>(ob + r * DH + col) =
+          *reinterpret_cast<const uint4*>(so + r * LD + col);
+  }
+}
+
+struct Args {
+  const void *q, *k, *v;
+  void* out;
+  int bh, sq, skv, causal, q_offset, kv_len;
+  float scale;
+  int scale_q;
+  cudaStream_t stream;
+};
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Lets `kern` take `smem` bytes of dynamic shared memory: set once for each
+// kernel instantiation (a function-local static of the caller), its error
+// kept for every later launch.
+cudaError_t allow_smem(const void* kern, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <int DH>
+int launch_f32(const Args& a) {
+  constexpr size_t smem = smem_bytes<DH>();
+  static const cudaError_t attr_err = allow_smem(
+      reinterpret_cast<const void*>(flash_f32_kernel<DH>), smem);
+  if (attr_err) return static_cast<int>(attr_err);
+  const dim3 grid((a.sq + kBlockQ - 1) / kBlockQ, a.bh);
+  flash_f32_kernel<DH><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.sq, a.skv,
+      a.causal, a.q_offset, a.kv_len, a.scale, a.scale_q);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(int dh, const void* q, const void* k, const void* v, void* out,
-             int bh, int sq, int skv, int causal, int q_offset, int kv_len,
-             float scale, int scale_q, cudaStream_t stream) {
-  switch (dh) {
-    case 16:
-      return launch<T, 16>(q, k, v, out, bh, sq, skv, causal, q_offset,
-                           kv_len, scale, scale_q, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, out, bh, sq, skv, causal, q_offset,
-                           kv_len, scale, scale_q, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, bh, sq, skv, causal, q_offset,
-                           kv_len, scale, scale_q, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, bh, sq, skv, causal, q_offset,
-                            kv_len, scale, scale_q, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int DH>
+int launch_bf16(const Args& a) {
+  constexpr size_t smem = tc_smem_bytes<DH>();
+  static const cudaError_t attr_err = allow_smem(
+      reinterpret_cast<const void*>(flash_bf16_kernel<DH>), smem);
+  if (attr_err) return static_cast<int>(attr_err);
+  if (!aligned16(a.out)) return static_cast<int>(cudaErrorMisalignedAddress);
+  const dim3 grid((a.sq + kBlockQ - 1) / kBlockQ, a.bh);
+  const int vec_in = aligned16(a.q) && aligned16(a.k) && aligned16(a.v);
+  flash_bf16_kernel<DH><<<grid, kTcThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.sq, a.skv,
+      a.causal, a.q_offset, a.kv_len, a.scale, vec_in);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int launch(const Args& a, int is_bf16) {
+  return is_bf16 ? launch_bf16<DH>(a) : launch_f32<DH>(a);
 }
 
 }  // namespace
 
 // q (bh, sq, dh), k/v (bh, skv, dh), out (bh, sq, dh), all float32
-// (is_bf16 = 0) or all bfloat16 (is_bf16 = 1), contiguous.
+// (is_bf16 = 0) or all bfloat16 (is_bf16 = 1), contiguous; a bf16 out
+// 16-byte aligned (the wrapper allocates it).  scale_q picks the float32
+// kernel's scale order; the bf16 kernel scales the scores.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int bh, int sq, int skv, int dh,
                                int is_bf16, int causal, int q_offset,
                                int kv_len, float scale, int scale_q,
                                void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return dispatch<__nv_bfloat16>(dh, q, k, v, out, bh, sq, skv, causal,
-                                   q_offset, kv_len, scale, scale_q, s);
+  const Args a{q, k, v, out, bh, sq, skv, causal, q_offset, kv_len, scale,
+               scale_q, static_cast<cudaStream_t>(stream)};
+  switch (dh) {
+    case 16:
+      return launch<16>(a, is_bf16);
+    case 32:
+      return launch<32>(a, is_bf16);
+    case 64:
+      return launch<64>(a, is_bf16);
+    case 128:
+      return launch<128>(a, is_bf16);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return dispatch<float>(dh, q, k, v, out, bh, sq, skv, causal, q_offset,
-                         kv_len, scale, scale_q, s);
 }

@@ -8,19 +8,10 @@ import time
 
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.engine.compile import CompiledFull
 from repro_torch.graph.models import GNN, GNNConfig, device_graph
 from repro_torch.optim import AdamWConfig
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device without a card raises
-    (the port never falls back to the CPU on its own)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' but no CUDA device is available; "
-                           "pass device='cpu' to run the plain versions")
-    return device
 
 
 @torch.no_grad()

@@ -21,6 +21,7 @@ from torch import nn
 
 from repro_torch.core import pack as packmod
 from repro_torch.core.compressor import CompressionConfig
+from repro_torch.core.device import resolve_device
 
 
 # ------------------------------------------------------------- 1-bit ReLU
@@ -203,9 +204,11 @@ class GNN(nn.Module):
         return h
 
 
-def params_from_numpy(params, cfg: GNNConfig, device="cpu") -> GNN:
+def params_from_numpy(params, cfg: GNNConfig, device="cuda") -> GNN:
     """A :class:`GNN` holding the reference's params (a list of
-    ``{"w": ndarray, "b": ndarray}``), so both packages start alike."""
+    ``{"w": ndarray, "b": ndarray}``), so both packages start alike, on
+    ``device`` (the card unless the CPU is asked for; raises without one)."""
+    device = resolve_device(device)
     in_dim = params[0]["w"].shape[0] // (2 if cfg.arch == "sage" else 1)
     model = GNN(cfg, in_dim)
     with torch.no_grad():

@@ -63,14 +63,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_len: int | None = None, scale: float | None = None,
                     scale_q: bool = False) -> torch.Tensor:
     """Softmax attention of q (BH, Sq, Dh) over k, v (BH, Skv, Dh), float32
-    arithmetic inside, output in q's dtype.
+    sums inside, output in q's dtype.  On the card, float32 inputs run a
+    SIMT float32 kernel; bf16 inputs run the tensor cores, with P split
+    into two bf16 parts so the result keeps the float32 band.
 
     ``q_offset`` is the absolute position of query row 0 (causal masking
     keeps key j for query i when ``j <= q_offset + i``); ``kv_len`` counts
     the valid keys (default Skv); ``scale`` defaults to ``1/sqrt(Dh)``.
     ``scale_q`` scales q in float32 before the product (the reference's
     ``online_attention`` order) instead of the scores after it (the Pallas
-    kernel's order)."""
+    kernel's order).  The bf16 kernel scales the scores in both orders:
+    its products are exact in float32, so the two differ by a few float32
+    ulps of a score."""
     dh = q.shape[-1]
     scale = 1.0 / math.sqrt(dh) if scale is None else float(scale)
     if not q.is_cuda:

@@ -24,8 +24,8 @@ import argparse
 import dataclasses
 
 from repro_torch.configs import get, reduce_for_smoke
+from repro_torch.core.device import resolve_device
 from repro_torch.data import batch_for_step
-from repro_torch.engine.runner import resolve_device
 from repro_torch.models import Model
 from repro_torch.serving import (KV_FAMILIES, KVCacheConfig, Request,
                                  ServeEngine)

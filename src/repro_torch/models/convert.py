@@ -8,7 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.engine.runner import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.models.transformer import Model, check_family
 
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.engine.runner import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (dense_init, embed_init, mm, rmsnorm,
                                        swiglu)

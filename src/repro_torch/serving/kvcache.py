@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.core import pack as packmod
 from repro_torch.core.backend import quant_kernel_unsupported
+from repro_torch.core.device import resolve_device
 from repro_torch.engine.seeds import kv_seed
 from repro_torch.kernels import ops
 
@@ -169,9 +170,11 @@ def plan_kv_layout(kv: KVCacheConfig, *, n_layers: int, n_kv_heads: int,
 
 
 # ================================================================= pools
-def init_kv_pool(layout: KVPageLayout, device="cpu") -> dict:
-    """Zero-initialized page pool; every tensor carries a leading layer
+def init_kv_pool(layout: KVPageLayout, device="cuda") -> dict:
+    """Zero-initialized page pool on ``device`` (the card unless the CPU is
+    asked for; raises without one); every tensor carries a leading layer
     axis.  Its bytes are exactly ``layout.pool_bytes``."""
+    device = resolve_device(device)
     L, P, T = layout.n_layers, layout.n_pages, layout.page_tokens
     if not layout.quantized:
         kv_shape = (L, P, T, layout.n_kv_heads, layout.d_head)

@@ -296,6 +296,59 @@ def test_cuda_flash_offset_and_kv_len(cuda, dtype, tol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,skv,causal,q_offset,kv_len", [
+    (77, 141, True, 64, None),      # ragged, a chunk of a longer prompt
+    (100, 130, False, 0, 97),       # ragged, a padded cache
+    (192, 192, True, 0, 150)])      # whole tiles, kv_len < Skv
+def test_cuda_flash_bf16_tensor_core_cases(cuda, dh, sq, skv, causal,
+                                           q_offset, kv_len):
+    """The bf16 tensor-core kernel at every d_head, Sq and Skv not multiples
+    of its 64-row tiles, kv_len < Skv: within one bf16 ulp of the plain
+    version in both scale orders (the kernel scales the scores in both)."""
+    from repro_torch.kernels import flash_attention as t_fa
+
+    q, k, v = _qkv(3, sq, skv, dh, torch.bfloat16, seed=dh + sq)
+    for scale_q in (True, False):
+        kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len,
+                  scale_q=scale_q)
+        got = t_fa.flash_attention(q, k, v, **kw)
+        want = t_ref.flash_attention(q, k, v, **kw)
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-3,
+                                   rtol=2.0 ** -7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_bit_identical_repeat(cuda, dtype):
+    """No atomics and a fixed order of sums: two calls give the same bits."""
+    from repro_torch.kernels import flash_attention as t_fa
+
+    q, k, v = _qkv(8, 300, 300, 128, dtype, seed=11)
+    for causal in (True, False):
+        assert torch.equal(t_fa.flash_attention(q, k, v, causal=causal),
+                           t_fa.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.gpu
+def test_cuda_flash_bf16_misaligned_inputs(cuda):
+    """Contiguous views whose start is not 16-byte aligned take the bf16
+    kernel's plain loads instead of cp.async, with the same bits."""
+    from repro_torch.kernels import flash_attention as t_fa
+
+    q, k, v = _qkv(2, 90, 90, 64, torch.bfloat16, seed=4)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].reshape(t.shape)
+
+    assert torch.equal(
+        t_fa.flash_attention(shifted(q), shifted(k), shifted(v)),
+        t_fa.flash_attention(q, k, v))
+
+
+@pytest.mark.gpu
 def test_cuda_flash_refuses_what_it_cannot_run(cuda):
     from repro_torch.kernels import flash_attention as t_fa
 

@@ -219,7 +219,8 @@ def _cfgs(arch):
 def _carried(jcfg, tcfg, in_dim):
     jp = init_gnn_params(jax.random.PRNGKey(0), jcfg, in_dim)
     return jp, params_from_numpy(
-        [{k: np.asarray(v) for k, v in p.items()} for p in jp], tcfg)
+        [{k: np.asarray(v) for k, v in p.items()} for p in jp], tcfg,
+        device="cpu")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

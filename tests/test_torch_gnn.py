@@ -62,7 +62,7 @@ def _cfgs(arch, vm=True):
 def _carried(jcfg, tcfg, in_dim, seed=0):
     jp = init_gnn_params(jax.random.PRNGKey(seed), jcfg, in_dim)
     npp = [{k: np.asarray(v) for k, v in p.items()} for p in jp]
-    return jp, params_from_numpy(npp, tcfg)
+    return jp, params_from_numpy(npp, tcfg, device="cpu")
 
 
 @pytest.mark.parametrize("make", [(j_arxiv_like, t_arxiv_like, 0.004),
@@ -257,3 +257,28 @@ def test_train_gnn_never_falls_back_to_cpu():
     _, tg = _graphs()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_train_gnn(tg, _cfgs("sage")[1], n_epochs=1)
+
+
+def test_carried_params_and_kv_pool_live_on_the_card_unless_asked():
+    """``params_from_numpy`` and ``init_kv_pool`` default to the card, like
+    ``train_gnn`` and ``params_from_jax``; without one they raise instead
+    of placing tensors on the CPU unasked."""
+    from repro_torch.serving import KVCacheConfig, kvcache, plan_kv_layout
+
+    cfg = TCfg(arch="sage", hidden=(4,), n_classes=3)
+    params = [{"w": np.ones((6, 4), np.float32), "b": np.zeros(4, np.float32)},
+              {"w": np.ones((8, 3), np.float32), "b": np.zeros(3, np.float32)}]
+    layout = plan_kv_layout(KVCacheConfig(bits=4, group_size=64,
+                                          page_tokens=4, n_pages=2),
+                            n_layers=1, n_kv_heads=1, d_head=64)
+    makes = {"params": lambda **kw: params_from_numpy(params, cfg, **kw),
+             "pool": lambda **kw: kvcache.init_kv_pool(layout, **kw)}
+    if torch.cuda.is_available():
+        assert makes["params"]().weights[0].is_cuda
+        assert all(t.is_cuda for t in makes["pool"]().values())
+    else:
+        for make in makes.values():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+    assert not makes["params"](device="cpu").weights[0].is_cuda
+    assert not any(t.is_cuda for t in makes["pool"](device="cpu").values())

@@ -115,7 +115,7 @@ def test_layout_bytes_equal_reference(bits, group, page_tokens, hkv, dh):
     for prop in LAYOUT_PROPS:
         assert getattr(t, prop) == getattr(j, prop), prop
     assert list(t.page_segments()) == list(j.page_segments())
-    pool = kvcache.init_kv_pool(t)
+    pool = kvcache.init_kv_pool(t, device="cpu")
     assert kvcache.pool_nbytes(pool) == t.pool_bytes
     jpool = j_kv.init_kv_pool(j)
     assert {k: tuple(v.shape) for k, v in pool.items()} == \
@@ -156,7 +156,7 @@ def test_plan_kv_layout_validates():
 # ------------------------------------------------------ pool writes/reads
 def _pools(bits, n_pages=8):
     t, j = _layouts(bits, 64, T, n_pages, 4, 16, n_layers=2)
-    return t, j, kvcache.init_kv_pool(t), j_kv.init_kv_pool(j)
+    return t, j, kvcache.init_kv_pool(t, device="cpu"), j_kv.init_kv_pool(j)
 
 
 def _assert_pools_equal(tpool, jpool):
