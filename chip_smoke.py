@@ -83,6 +83,13 @@ def log(*args):
     print(*args, flush=True)
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
 def bound(nbytes: float, ops: float,
           peak_ops: float = PEAK_F32_OPS_PER_S) -> tuple[float, str]:
     """Least time (ms) for the work, and which of bytes or operations set
@@ -208,15 +215,21 @@ FUSED_LAYERS = ((256, 256), (512, 256), (512, 40))   # slice 2: (D, N)
 def check_fused(torch, fk, qk, ref, levels, flush, gen) -> dict:
     """matmul_quant / dequant_matmul at the rp_ratio-0 slice's three layer
     shapes.  The forward's stash must be bit-equal to the plain version and
-    to the quant_pack kernel on the same x, its y within 2e-4 of cuBLAS;
-    the backward within 1e-4 * (|x_hat|^T |g|) elementwise of the plain
-    version (a long row sum in another order) and bit-identical from call
-    to call.  Timed beside the plain version, the product alone in one
-    torch.matmul (library_ms), and the two-pass spelling each replaces
-    (unfused_ms: cuBLAS + quant_pack, or dequant_unpack + cuBLAS)."""
+    to the quant_pack kernel on the same x, its y within 2e-4 of cuBLAS
+    (three TF32 products of split x and w on the tensor cores), and two
+    calls must give the same bits; the backward within 1e-4 * (|x_hat|^T
+    |g|) elementwise of the plain version (a long row sum in another order)
+    and bit-identical from call to call.  Timed beside the plain version,
+    the product alone in one torch.matmul (library_ms), and the two-pass
+    spelling each replaces (unfused_ms: cuBLAS + quant_pack, or
+    dequant_unpack + cuBLAS), with the card's name and power limit in each
+    row.  The forward's bound_ms is the tensor-core kernel's: the largest of
+    the bytes, the product's 2*M*D*N at the TF32 peak and the quantizer's
+    ~18 operations an element at the float32 rate; f32_bound_ms, logged
+    beside it, is the bound of a float32 SIMT product (67 TFLOP/s)."""
     log(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
-    rows, G = {}, 256
+    rows, G, smi = {}, 256, card()
     for d, n in FUSED_LAYERS:
         x = torch.randn((N_NODES, d), device="cuda", generator=gen) * 1.7
         w = torch.randn((d, n), device="cuda", generator=gen) / d ** 0.5
@@ -226,12 +239,16 @@ def check_fused(torch, fk, qk, ref, levels, flush, gen) -> dict:
         y_p, *stash_p = ref.matmul_quantize_packed(x, w, 2, 99, levels,
                                                    group_size=G)
         stash_q = qk.quant_pack(x.reshape(-1, G), 2, 99, levels)
+        again = fk.matmul_quant(x, w, 2, 99, levels, group_size=G)
         torch.cuda.synchronize()
         for a, b, c in zip(stash, stash_p, stash_q):
             if not (torch.equal(a, b) and torch.equal(a, c)):
                 raise AssertionError(f"matmul_quant {tag}: stash not "
                                      "bit-equal to the plain version and "
                                      "quant_pack")
+        if not all(torch.equal(a, b) for a, b in zip((y, *stash), again)):
+            raise AssertionError(f"matmul_quant {tag}: two calls differ")
+        del again
         torch.testing.assert_close(y, y_p, rtol=2e-4, atol=2e-4)
         y_err = float((y - y_p).abs().max())
         dw = fk.dequant_matmul(*stash, g, 2, G, d, levels)
@@ -248,10 +265,12 @@ def check_fused(torch, fk, qk, ref, levels, flush, gen) -> dict:
         nb = N_NODES * d // G
         stash_bytes = nb * (G * 2 // 8) + 8 * nb
         flops = 2 * N_NODES * d * n
-        # forward: x and w read, y and the stash written; the product plus
-        # ~18 operations an element to quantize (as check_quant counts)
-        f_bound = bound(4 * (N_NODES * d + d * n + N_NODES * n) + stash_bytes,
-                        flops + 18 * N_NODES * d)
+        # forward: x and w read, y and the stash written; the product at
+        # the TF32 peak, ~18 operations an element to quantize (as
+        # check_quant counts) at the float32 rate, whichever takes longest
+        f_bytes = 4 * (N_NODES * d + d * n + N_NODES * n) + stash_bytes
+        f_bound = max(bound(f_bytes, flops, PEAK_TF32_OPS_PER_S),
+                      bound(f_bytes, 18 * N_NODES * d), key=lambda b: b[0])
         # backward: the stash and g read, dw written; the product plus ~4
         # operations an element to dequantize
         b_bound = bound(stash_bytes + 4 * (N_NODES * n + d * n),
@@ -260,16 +279,18 @@ def check_fused(torch, fk, qk, ref, levels, flush, gen) -> dict:
                  plain_ms=time_ms(torch, lambda: ref.matmul_quantize_packed(x, w, 2, 99, levels, group_size=G), flush),
                  library_ms=time_ms(torch, lambda: torch.matmul(x, w), flush),
                  unfused_ms=time_ms(torch, lambda: (torch.matmul(x, w), qk.quant_pack(x.reshape(-1, G), 2, 99, levels)), flush),
-                 bound_ms=f_bound[0], bound_by=f_bound[1], max_abs_err=y_err,
-                 flops=flops)
+                 bound_ms=f_bound[0], bound_by=f_bound[1],
+                 f32_bound_ms=bound(f_bytes, flops + 18 * N_NODES * d)[0],
+                 max_abs_err=y_err, flops=flops, bytes=f_bytes, card=smi)
         b = dict(ms=time_ms(torch, lambda: fk.dequant_matmul(*stash, g, 2, G, d, levels), flush),
                  plain_ms=time_ms(torch, lambda: ref.dequant_matmul_packed(*stash_p, g, 2, G, d, levels), flush),
                  library_ms=time_ms(torch, lambda: torch.matmul(x_hat.T, g), flush),
                  unfused_ms=time_ms(torch, lambda: torch.matmul(qk.dequant_unpack(*stash, 2, G, levels).reshape(-1, d).T, g), flush),
                  bound_ms=b_bound[0], bound_by=b_bound[1], max_abs_err=dw_err,
                  flops=flops, scratch_bytes=fk.scratch_nbytes(N_NODES, d, n),
-                 splits=fk.splits(N_NODES, d, n)[0])
-        log(f"matmul_quant   {tag}: stash bit-equal, y max abs err {y_err}; {f}")
+                 splits=fk.splits(N_NODES, d, n)[0], card=smi)
+        log(f"matmul_quant   {tag}: stash bit-equal, bit-identical repeat, y "
+            f"max abs err {y_err}; {f}")
         log(f"dequant_matmul {tag}: bit-identical repeat, max abs err "
             f"{dw_err}; {b}")
         rows[("matmul_quant", tag)] = f
@@ -819,10 +840,7 @@ def main() -> int:
     from repro_torch.kernels import rp_matmul as rk
 
     # 1. device
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    log(smi)
+    log(card())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 

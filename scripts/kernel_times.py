@@ -13,8 +13,10 @@ shapes, without the training phases, in about 20 s:
   version and one ``torch.matmul`` on a stored R, beside the bound;
 - ``fused``: ``check_fused``, the matmul-quantize pair at the three layer
   shapes of the rp_ratio-0 SAGE slice (the stash bit-equal to the plain
-  version and to quant_pack, y and dw within their bounds), timed beside
-  the plain version, the product alone and the two-pass spelling;
+  version and to quant_pack, y and dw within their bounds, two calls of
+  each bit-identical), timed beside the plain version, the product alone
+  and the two-pass spelling, with the tensor-core bound of the forward and
+  its float32 SIMT bound (``f32_bound_ms``);
 - ``flash``: ``check_flash``, flash attention at the serving prefill's
   (80, 1000, 128), causal, bf16 and float32, and at ragged shapes with
   q_offset / kv_len, in both scale orders, within their bands of the plain
@@ -22,6 +24,11 @@ shapes, without the training phases, in about 20 s:
   outputs not bit-equal to the plain version's), then CUDA-event medians
   of the kernel, the plain version and float32 and bf16 SDPA, beside the
   bound.
+
+``fused --parts`` also times two measurement builds of the forward at the
+same shapes, one with its product alone and one with its quantizer alone
+(``-DMATMUL_QUANT_PART=1`` / ``2`` in ``csrc/fused_matmul.cu``; their
+outputs are not the function's), beside the whole kernel.
 
 The last line is a JSON object of the rows.  ``--root`` runs the kernels,
 wrappers and checks of another checkout of the repository instead (its own
@@ -35,15 +42,49 @@ import sys
 from pathlib import Path
 
 
-def print_builds(build, sources) -> None:
-    """Build ``sources`` and print ptxas's report for each one compiled."""
-    for text in build.build(sources).values():
+def print_builds(build, sources, defines=()) -> None:
+    """Build ``sources`` and print ptxas's report for each one compiled
+    (``defines`` only for a checkout whose ``build.build`` takes them)."""
+    logs = build.build(sources, defines) if defines else build.build(sources)
+    for text in logs.values():
         print(text.strip(), flush=True)
+
+
+PARTS = (("all", ()), ("product", ("-DMATMUL_QUANT_PART=1",)),
+         ("quantizer", ("-DMATMUL_QUANT_PART=2",)))
+
+
+def time_parts(torch, chip_smoke, fk, build, levels, flush, gen) -> dict:
+    """CUDA-event medians of the forward and of its product and quantizer
+    alone, at the rp_ratio-0 slice's layer shapes."""
+    for _, defines in PARTS[1:]:
+        print_builds(build, ("fused_matmul",), defines)
+    rows, whole = {}, fk._lib
+    try:
+        for d, n in chip_smoke.FUSED_LAYERS:
+            x = torch.randn((chip_smoke.N_NODES, d), device="cuda",
+                            generator=gen) * 1.7
+            w = torch.randn((d, n), device="cuda", generator=gen) / d ** 0.5
+            row = {}
+            for part, defines in PARTS:
+                fk._lib = lambda defines=defines: whole(defines)
+                row[f"{part}_ms"] = chip_smoke.time_ms(
+                    torch, lambda: fk.matmul_quant(x, w, 2, 99, levels,
+                                                   group_size=256), flush)
+            tag = f"{chip_smoke.N_NODES}x{d}@{d}x{n}"
+            print(f"matmul_quant parts {tag}: {row}", flush=True)
+            rows[("matmul_quant parts", tag)] = row
+    finally:
+        fk._lib = whole
+    return rows
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("kernel", choices=("rp", "fused", "flash"))
+    ap.add_argument("--parts", action="store_true",
+                    help="fused: also time the product and the quantizer "
+                    "of the forward alone")
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="checkout whose kernels and checks run")
     args = ap.parse_args()
@@ -80,6 +121,9 @@ def main() -> int:
         levels = CompressionConfig(2, 256, 0, vm=True).levels()
         rows = chip_smoke.check_fused(torch, fused_matmul, quant_blockwise,
                                       ref, levels, flush, gen)
+        if args.parts:
+            rows.update(time_parts(torch, chip_smoke, fused_matmul, build,
+                                   levels, flush, gen))
     print(json.dumps({f"{name} {tag}": row for (name, tag), row in rows.items()}))
     return 0
 

@@ -3,53 +3,78 @@
 //
 // Replaces the TPU kernels of src/repro/kernels/fused_matmul.py:
 //   _matmul_quant_kernel (+ _quant_epilogue)
-//       y = x @ w; on the first N-tile the x row tile is quantized and
-//       packed with global block offsets, so its words, zero and range are
-//       those quant_pack writes for the same x (bit for bit)
+//       y = x @ w; the x row tile is quantized and packed with global block
+//       offsets, so its words, zero and range are those quant_pack writes
+//       for the same x (bit for bit)
 //   _dequant_matmul_kernel (+ _tree_sum)
 //       dw = dequant(packed)^T @ g, one (D, N) partial per row range,
 //       combined by a fixed-order pairwise tree
 //
-// What bounds them on an H100: operations.  Both do 2 * M * D * N float32
-// operations on the SIMT cores (no tensor cores, no TF32: the reference
-// computes in float32), at 67 TFLOP/s.  At the slice's shapes (M = 169,343)
-// layer 1 (512 -> 256) is 44.4 GFLOP, 0.663 ms, against 0.163 ms of bytes;
-// layer 0 (256 -> 256) 0.331 ms; in layer 2 (512 -> 40) the product alone
-// is 0.104 ms against 0.119 ms of bytes, and the quantizer's ~18
-// operations an element make the forward 0.127 ms of operations
-// (chip_smoke.py counts both).  The backward moves only the stash and g
-// (about 0.06 ms at layer 1).
+// Forward (matmul_quant_kernel, namespace fwd).  What bounds it on an
+// H100: bytes.  It reads x and w once and writes y and the stash: at the
+// slice's M = 169,343 rows, 545 MB at 512 -> 256 (0.163 ms at 3.35 TB/s),
+// 0.107 ms at 256 -> 256 and 0.119 ms at 512 -> 40.  The product's
+// 2 * M * D * N = 44.4 GFLOP at 512 -> 256 take 0.090 ms at the TF32 peak
+// of 495 TFLOP/s, the quantizer's ~18 operations an element 0.023 ms at
+// 67 TFLOP/s (chip_smoke.check_fused counts all three).  The kernel does
+// three TF32 products for the one float32 product (below), 133 GFLOP at
+// 512 -> 256, through mma.sync at well under the peak; the quantizer's hash,
+// divisions and packing are CUDA-core work of the same order.  Design:
+// 1. Tensor cores instead of SIMT FMAs: mma.sync m16n8k8 TF32 with f32
+//    accumulators on a hi/lo split of both operands (split_tf32 in
+//    tensor_core.cuh: hi = rna(v), lo = rna(v - hi)).  Three products go
+//    into the same accumulators, lo.hi, hi.lo, hi.hi; the dropped terms
+//    (lo.lo and the two split residuals) miss at most 3 * 2^-22 |x||w| a
+//    term, far inside the 2e-4 band the kernel is held to against the
+//    float32 product.  One pass (2^-11 a term) or a split of one operand
+//    alone breaks that band (tests/test_torch_fused_split.py): w is an
+//    arbitrary float32, not RP's exact +-1.  A warp splits each A fragment
+//    once a k8 step for all its n-tiles and each B fragment once for all
+//    its m-tiles.  Each output is summed by one warp in a fixed order along
+//    K; no split-K, no atomics, so repeated calls give the same bits.
+// 2. Loads overlap the product: a CTA takes 64 rows and every column of y
+//    (n <= 256; wider y in slabs of 256 on neighbouring CTAs), so x leaves
+//    device memory once.  x comes by cp.async into a chunk buffer of 64
+//    rows x up to 256 columns, the whole chunk at once; w streams through
+//    a ring of KW = 16 rows a stage, S - 1 stages ahead of the product.
+//    16-byte copies, or 4-byte ones when D or N % 4 != 0 or a base is not
+//    16-byte aligned, zero-filled past row M, column N and the chunk's end.
+//    Rows are padded (x to 4 mod 16 floats, w to 8 mod 16) so a warp's
+//    fragment loads hit 32 distinct banks.
+// 3. A column width that fits N: the CTA's columns are a template
+//    parameter chosen from N, NT n-tiles of 8 a warp times WN warps: 40
+//    (the slice's 40 classes), 64, or 256 (its hidden width).
+// 4. The quantize epilogue on every CTA, for its own rows, with the
+//    rounding of quant_common.cuh.  A block is G consecutive elements of
+//    the row-major x, and a row tile's CTAs take every block whose first
+//    element lies in its rows (slabs share them), so each stash word is
+//    written once and every layout whose element count is whole blocks
+//    runs.  When D % G == 0 and G <= 256 (the slice), a chunk is whole
+//    blocks of whole rows: after the chunk's product the CTA quantizes
+//    them from the chunk buffer (8 lanes a block find its min and max,
+//    then a thread a code word), so x is read from device memory once.
+//    Otherwise (G % D == 0 with G > D, or G > 256) the CTA copies its
+//    blocks back from device memory (mostly L2) after the product.  A CTA
+//    holds 102,400 bytes of shared memory at N = 256 and 73,728 at N = 40,
+//    so two or three CTAs share an SM and one's quantizer (CUDA cores) can
+//    run beside another's product (tensor cores).
+// The rounding differs from the float32 product only in order and in the
+// dropped terms.  Where hi is not finite, lo = v - hi is not either, and y
+// is NaN where the float32 product may be finite or +-inf: for an infinite
+// x or w, and for a finite |v| >= (2 - 2^-11) * 2^127, within a relative
+// 2^-12 of FLT_MAX, which rounds to inf in TF32 (as cvt.rna).  The stash is
+// quantized from the float32 x and does not see the split.
 //
-// Design, forward (matmul_quant_kernel): one 64 x 64 tile of y per CTA of
-// 128 threads, each thread an 8 x 4 register tile accumulated with
-// __fmaf_rn in k order; a 1-D grid with the N-tiles of a row tile side by
-// side, so x is read from device memory once and then from L2.  The K loop
-// stages x 256 columns at a time (all D when D < 256), transposed (k-major)
-// in shared memory, so each thread reads its 8 rows as two float4; w is
-// staged 32 rows at a time as float4.  After the product, the CTAs of the
-// first N-tile quantize x.  A block is G consecutive elements of the
-// row-major x, and a row tile's CTA takes every block whose first element
-// lies in its rows, so each stash word is written by exactly one CTA.  It
-// copies their span of x (just read, so mostly from L2) into the shared
-// memory the product used, as many blocks at a time as fit; 8 lanes per
-// block find its min and max, then every thread rounds the codes of whole
-// words straight into registers with the rounding of quant_common.cuh and
-// writes the words, zero and range.  Staged apart from the product's
-// tiles, a block never has to line up with them, so every layout whose
-// element count is whole blocks runs (G >= 1024, or G % D == 0 with G / D
-// not dividing 64, included).  The epilogue on one CTA in four at
-// N = 256 overlaps the other CTAs' products; spread over every N-tile it
-// ran in step with them and was slower.  Ragged M and N edges are masked.
-// Shared memory: the larger of (64 * min(D, 256) + 2048) * 4 bytes and one
-// block with its stats (72 KiB at D >= 256 and G <= 18,430), so three CTAs
-// fit on an SM.
-//
-// Design, backward (dequant_matmul_kernel): one 64 x 64 tile of dw per CTA
-// and one of S contiguous row ranges per blockIdx.z.  The CTA walks its rows
+// Backward (dequant_matmul_kernel): what bounds it on an H100 is
+// operations: 2 * M * D * N float32 operations on the SIMT cores (no
+// tensor cores yet), 0.668 ms at 512 -> 256 against about 0.06 ms of
+// bytes (the stash and g).  One 64 x 64 tile of dw per CTA and one of S
+// contiguous row ranges per blockIdx.z.  The CTA walks its rows
 // 32 at a time; each thread decodes a run of 16 columns of one row straight
 // from the words into shared memory (one block lookup and one scale per
 // run; no (M, D) float32 reconstruction reaches device memory) beside the
-// matching g rows, and the CTA accumulates in row order.  Each range writes
+// matching g rows, and the CTA accumulates in row order with __fmaf_rn,
+// each thread an 8 x 4 register tile.  Each range writes
 // its own (D, N) partial to scratch (S * D * N * 4 bytes, allocated by the
 // wrapper; S is a function of the shapes only: 8 MiB at S = 16 for layer
 // 1), and tree_sum_kernel adds them in the reference's fixed pairwise
@@ -60,22 +85,25 @@
 // serializes.
 //
 // Bit equality of the stash: built with --fmad=false, the products ask for
-// their FMAs (__fmaf_rn) and the quantizer keeps its explicit _rn roundings.
+// their FMAs (__fmaf_rn, mma) and the quantizer keeps its explicit _rn
+// roundings.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "quant_common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
 using quant::Levels;
 
 constexpr int kThreads = 128;
-constexpr int kTM = 64;   // rows of y (forward) or of dw (backward) per CTA
-constexpr int kTN = 64;   // columns of y or dw per CTA
-constexpr int kTK = 32;   // depth of one staged w tile / rows of one stash tile
+constexpr int kTM = 64;   // rows of dw per CTA
+constexpr int kTN = 64;   // columns of dw per CTA
+constexpr int kTK = 32;   // rows of one stash tile
 constexpr int kRM = 8;    // rows per thread: 8 * ty .. 8 * ty + 7
-constexpr int kChunk = 256;  // columns of x one forward K step stages
 // thread t: tx = t & 15 owns columns 4 * tx .. 4 * tx + 3, ty = t >> 4 rows
 
 __device__ __forceinline__ void fma_8x4(float acc[kRM][4], const float* a8,
@@ -113,159 +141,6 @@ __device__ __forceinline__ void store_8x4(float* __restrict__ out,
       for (int j = 0; j < 4; ++j)
         if (col + j < n) o[j] = acc[i][j];
     }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-matmul_quant_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    float* __restrict__ y, uint32_t* __restrict__ packed,
-                    float* __restrict__ zero, float* __restrict__ rng,
-                    long long m, int d, int n, int chunk, int batch, int G,
-                    int bits, uint32_t seed_hash, Levels lv) {
-  // the product's tiles, then the epilogue's staged blocks
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                  // chunk x kTM: element (r, c) at c * kTM + r
-  float* ws = smem + chunk * kTM;    // kTK x kTN
-  __shared__ float table[quant::kMaxLevels];
-  quant::load_levels(lv, table);     // read after the K loop's first barrier
-  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
-  // a 1-D grid, N-tiles fastest: the CTAs that share an x row tile run
-  // side by side and find it in L2
-  const int n_tiles = (n + kTN - 1) / kTN;
-  const int tile_n = static_cast<int>(blockIdx.x % n_tiles);
-  const long long m0 = static_cast<long long>(blockIdx.x / n_tiles) * kTM;
-  const int n0 = tile_n * kTN;
-  const int rows = static_cast<int>(m - m0 < kTM ? m - m0 : kTM);
-  const bool xvec = (d & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  const bool wvec = (n & 3) == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
-  float acc[kRM][4];
-#pragma unroll
-  for (int i = 0; i < kRM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < d; k0 += chunk) {
-    const int kx = d - k0 < chunk ? d - k0 : chunk;  // columns in this step
-    // stage them, transposed; lanes walk rows so the stores are
-    // conflict-free, and each lane's float4 runs along its row
-    if (xvec) {
-      for (int idx = t; idx < kTM * (kx >> 2); idx += kThreads) {
-        const int r = idx & (kTM - 1), c = (idx / kTM) * 4;
-        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (r < rows)
-          v = *reinterpret_cast<const float4*>(x + (m0 + r) * d + k0 + c);
-        xs[c * kTM + r] = v.x;
-        xs[(c + 1) * kTM + r] = v.y;
-        xs[(c + 2) * kTM + r] = v.z;
-        xs[(c + 3) * kTM + r] = v.w;
-      }
-    } else {
-      for (int idx = t; idx < kTM * kx; idx += kThreads) {
-        const int r = idx & (kTM - 1), c = idx / kTM;
-        xs[c * kTM + r] = r < rows ? x[(m0 + r) * d + k0 + c] : 0.0f;
-      }
-    }
-    for (int kk0 = 0; kk0 < kx; kk0 += kTK) {
-      const int kc = kx - kk0 < kTK ? kx - kk0 : kTK;
-      if (wvec) {
-        for (int idx = t; idx < kTK * kTN / 4; idx += kThreads) {
-          const int kk = idx / (kTN / 4), c = (idx % (kTN / 4)) * 4;
-          float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          if (kk < kc && n0 + c < n)
-            v = *reinterpret_cast<const float4*>(
-                w + static_cast<long long>(k0 + kk0 + kk) * n + n0 + c);
-          *reinterpret_cast<float4*>(ws + kk * kTN + c) = v;
-        }
-      } else {
-        for (int idx = t; idx < kTK * kTN; idx += kThreads) {
-          const int kk = idx / kTN, gn = n0 + (idx & (kTN - 1));
-          ws[idx] = (kk < kc && gn < n)
-                        ? w[static_cast<long long>(k0 + kk0 + kk) * n + gn]
-                        : 0.0f;
-        }
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kc; ++kk)
-        fma_8x4(acc, xs + (kk0 + kk) * kTM + kRM * ty, ws + kk * kTN + 4 * tx);
-      __syncthreads();
-    }
-  }
-  store_8x4(y, acc, m0, n0, m, n, ty, tx);
-  if (tile_n != 0) return;
-
-  // the quantize epilogue, on the first N-tile: the blocks whose first
-  // element lies in the row tile go through shared memory `batch` blocks
-  // at a time: every thread copies the batch's span of x (contiguous, so
-  // coalesced float4 loads), 8 lanes per block find its min and max, and
-  // every thread rounds whole words, lanes on neighbouring words.
-  const long long q_lo = (m0 * d + G - 1) / G;
-  const long long q_hi = ((m0 + rows) * d + G - 1) / G;
-  const int warp = t >> 5, lane = t & 31;
-  const int W = G / (32 / bits);
-  const float B = quant::max_level(bits);
-  const bool bvec = (G & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  float* stats = smem + batch * G;  // the batch's minima, then its maxima
-  for (long long b0 = q_lo; b0 < q_hi; b0 += batch) {
-    const int nq = static_cast<int>(q_hi - b0 < batch ? q_hi - b0 : batch);
-    const float* src = x + b0 * G;
-    if (bvec) {
-      for (int i = 4 * t; i < nq * G; i += 4 * kThreads)
-        *reinterpret_cast<float4*>(smem + i) =
-            *reinterpret_cast<const float4*>(src + i);
-    } else {
-      for (int i = t; i < nq * G; i += kThreads) smem[i] = src[i];
-    }
-    __syncthreads();
-    // min and max: 8 lanes per block, so a warp takes 4 blocks at a time
-    // (a quarter-warp's float4 reads are 128 contiguous bytes)
-    for (int q0 = 4 * warp; q0 < nq; q0 += kThreads / 8) {
-      const int q = q0 + (lane >> 3), sub = lane & 7;
-      float mn = __int_as_float(0x7F800000), mx = -mn;  // +inf, -inf
-      if (q < nq) {
-        const float* xb = smem + q * G;
-        if ((G & 3) == 0) {
-          for (int e = 4 * sub; e < G; e += 32) {
-            const float4 v = *reinterpret_cast<const float4*>(xb + e);
-            mn = fminf(fminf(mn, v.x), fminf(fminf(v.y, v.z), v.w));
-            mx = fmaxf(fmaxf(mx, v.x), fmaxf(fmaxf(v.y, v.z), v.w));
-          }
-        } else {
-          for (int e = sub; e < G; e += 8) {
-            mn = fminf(mn, xb[e]);
-            mx = fmaxf(mx, xb[e]);
-          }
-        }
-      }
-      for (int o = 4; o > 0; o >>= 1) {
-        mn = fminf(mn, __shfl_xor_sync(0xFFFFFFFFu, mn, o));
-        mx = fmaxf(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, o));
-      }
-      if (sub == 0 && q < nq) {
-        stats[q] = mn;
-        stats[batch + q] = mx;
-      }
-    }
-    __syncthreads();
-    for (int idx = t; idx < nq * W; idx += kThreads) {
-      const int q = idx / W, j = idx - q * W;
-      const float mn = stats[q], range = __fsub_rn(stats[batch + q], mn);
-      const float safe = fmaxf(range, quant::kEps);
-      const float* xb = smem + q * G;
-      const long long b = b0 + q;
-      const uint32_t base = static_cast<uint32_t>(b * G);
-      packed[b * W + j] = quant::pack_word(
-          [&](int e) {
-            const float u = quant::uniform(seed_hash, base + e);
-            return quant::sr_code(xb[e], mn, safe, B, u, table, lv.n);
-          },
-          j, W, bits);
-      if (j == 0) {
-        zero[b] = mn;
-        rng[b] = range;
-      }
-    }
-    __syncthreads();  // the next batch overwrites the staged blocks
   }
 }
 
@@ -398,6 +273,373 @@ __global__ void tree_sum_kernel(float* __restrict__ part,
   dw[i] = p[0];
 }
 
+// ---------------------------------------------------------------- forward
+namespace fwd {
+
+// Measurement builds time the product or the quantizer alone
+// (scripts/kernel_times.py fused --parts): -DMATMUL_QUANT_PART=1 skips the
+// quantizer, 2 the product; such a build's outputs are not the function's.
+#ifndef MATMUL_QUANT_PART
+#define MATMUL_QUANT_PART 0
+#endif
+constexpr bool kProduct = MATMUL_QUANT_PART != 2;
+constexpr bool kQuantize = MATMUL_QUANT_PART != 1;
+
+constexpr int kThreads = 256;   // 8 warps
+constexpr int kBM = 64;         // rows of x (and y) a CTA
+constexpr int kChunkMax = 256;  // columns of x a chunk holds at most
+constexpr int kQB = 256;        // blocks a quantize batch at most
+
+struct Params {
+  const float* x;
+  const float* w;
+  float* y;
+  uint32_t* packed;
+  float* zero;
+  float* rng;
+  long long m;
+  int d, n, G, bits;
+  uint32_t seed_hash;
+  int cw;          // columns a chunk (a multiple of G in chunk mode)
+  int xs;          // row stride of the chunk buffer: 4 mod 16 floats
+  int chunk_mode;  // quantize each chunk's blocks from its buffer
+  int area;        // floats before the stats: chunk buffer, w ring
+  int batch;       // blocks a quantize batch (the stats hold 2 * batch)
+  int slabs;       // CTAs a row tile, one for each BN columns of y
+  int vec_x;       // 16-byte copies of x
+  int vec_w;       // 16-byte copies of w
+};
+
+// The min and max of nq blocks staged in shared memory (block q's G
+// floats at blk(q)) into stats[q] and stats[p.batch + q]: 8 lanes a block,
+// a warp 4 blocks at a time (a quarter-warp's float4 reads are 128
+// contiguous bytes).  Every thread of the CTA calls it; the caller
+// synchronizes before the stats are read.
+template <class Blk>
+__device__ __forceinline__ void block_stats(const Params& p, int nq, Blk blk,
+                                            float* stats) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int q0 = 4 * warp; q0 < nq; q0 += kThreads / 8) {
+    const int q = q0 + (lane >> 3), sub = lane & 7;
+    float mn = __int_as_float(0x7F800000), mx = -mn;  // +inf, -inf
+    if (q < nq) {
+      const float* xb = blk(q);
+      if ((p.G & 3) == 0) {
+        for (int e = 4 * sub; e < p.G; e += 32) {
+          const float4 v = *reinterpret_cast<const float4*>(xb + e);
+          mn = fminf(fminf(mn, v.x), fminf(fminf(v.y, v.z), v.w));
+          mx = fmaxf(fmaxf(mx, v.x), fmaxf(fmaxf(v.y, v.z), v.w));
+        }
+      } else {
+        for (int e = sub; e < p.G; e += 8) {
+          mn = fminf(mn, xb[e]);
+          mx = fmaxf(mx, xb[e]);
+        }
+      }
+    }
+    for (int o = 4; o > 0; o >>= 1) {
+      mn = fminf(mn, __shfl_xor_sync(0xFFFFFFFFu, mn, o));
+      mx = fmaxf(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, o));
+    }
+    if (sub == 0 && q < nq) {
+      stats[q] = mn;
+      stats[p.batch + q] = mx;
+    }
+  }
+}
+
+// Every code word of nq blocks staged in shared memory (block q at blk(q),
+// block gb(q) of the stash, its min and max in stats), with the rounding of
+// quant_common.cuh: thread t takes words t, t + kThreads, ..., lanes on
+// neighbouring words; word 0 of a block also writes its zero and range.
+// Every thread of the CTA calls it.
+template <class Blk, class Gb>
+__device__ __forceinline__ void quantize_words(const Params& p, int nq,
+                                               Blk blk, Gb gb,
+                                               const float* stats,
+                                               const float* table, int n_lv) {
+  const int W = p.G / (32 / p.bits);
+  const float B = quant::max_level(p.bits);
+  for (int i = threadIdx.x; i < nq * W; i += kThreads) {
+    const int q = i / W, j = i - q * W;
+    const float mn = stats[q], range = __fsub_rn(stats[p.batch + q], mn);
+    const float safe = fmaxf(range, quant::kEps);
+    const float* xb = blk(q);
+    const long long b = gb(q);
+    const uint32_t base = static_cast<uint32_t>(b * p.G);
+    p.packed[b * W + j] = quant::pack_word(
+        [&](int e) {
+          const float u = quant::uniform(p.seed_hash, base + e);
+          return quant::sr_code(xb[e], mn, safe, B, u, table, n_lv);
+        },
+        j, W, p.bits);
+    if (j == 0) {
+      p.zero[b] = mn;
+      p.rng[b] = range;
+    }
+  }
+}
+
+// y (m, n) = x (m, d) @ w (d, n) on the tensor cores, and the stash of x.
+// A CTA takes kBM rows of x and BN = 8 * NT * WN columns of y (all of them
+// when n <= 256).  Warps 0 .. WM * WN - 1 each own a (16 * MT) x (8 * NT)
+// tile of y (WM = 4 / MT warps along M); every warp copies and quantizes.
+// x comes in chunks of up to kChunkMax columns, w in a ring of S stages of
+// KW rows; MINB CTAs share an SM.
+template <int NT, int WN, int MT, int KW, int S, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+matmul_quant_kernel(const Params p, const Levels lv) {
+  constexpr int WM = 4 / MT;
+  constexpr int BN = 8 * NT * WN;
+  constexpr int WS = BN % 16 == 0 ? BN + 8 : BN;  // w row stride: 8 mod 16
+  static_assert(16 * MT * WM == kBM && WM * WN <= kThreads / 32 && KW % 8 == 0,
+                "the warps tile the CTA's rows");
+
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;                  // the chunk: kBM rows of p.xs floats
+  float* ws = smem + kBM * p.xs;     // w ring: S stages of KW rows of WS
+  float* stats = smem + p.area;      // a batch's minima, then its maxima
+  __shared__ float table[quant::kMaxLevels];
+  quant::load_levels(lv, table);     // read after the first barrier
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long m0 = static_cast<long long>(blockIdx.x / p.slabs) * kBM;
+  const int slab = static_cast<int>(blockIdx.x % p.slabs);
+  const int rows = static_cast<int>(p.m - m0 < kBM ? p.m - m0 : kBM);
+  const int nbase = slab * BN;
+  const bool mma_warp = warp < WM * WN;
+  const int wm = warp % WM, wn = warp / WM;
+  const long long row_blocks = p.d / p.G;
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.0f;
+
+  const int n_chunks = p.d == 0 ? 0 : (p.d + p.cw - 1) / p.cw;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int cb = c * p.cw;
+    const int ce = p.d - cb < p.cw ? p.d : cb + p.cw;
+    const int n_steps = (ce - cb + KW - 1) / KW;
+    // chunk mode: its blocks, bpr a row, rows * bpr in all (at most
+    // p.batch), a contiguous share of them for each slab of the row tile
+    const int bpr = p.chunk_mode ? (ce - cb) / p.G : 0;
+    const int total = rows * bpr;
+    const int lo = static_cast<int>(static_cast<long long>(total) * slab /
+                                    p.slabs);
+    const int nq = static_cast<int>(static_cast<long long>(total) *
+                                    (slab + 1) / p.slabs) - lo;
+    auto blk = [&](int q) {
+      const int lq = lo + q, r = lq / bpr;
+      return xs + r * p.xs + (lq - r * bpr) * p.G;
+    };
+    auto gb = [&](int q) {
+      const int lq = lo + q, r = lq / bpr;
+      return (m0 + r) * row_blocks + cb / p.G + (lq - r * bpr);
+    };
+    // the chunk's x at once (it has a buffer of its own): kBM rows of
+    // columns cb .. cb + KW * n_steps - 1, zero-filled past the chunk's end
+    // and past row m
+    const int cols = n_steps * KW;
+    if (p.vec_x) {
+      for (int i = tid; i < kBM * cols / 4; i += kThreads) {
+        const int r = i / (cols / 4), col = i % (cols / 4) * 4;
+        const bool ok = r < rows && cb + col < ce;
+        tc::cp_async16(xs + r * p.xs + col,
+                       ok ? p.x + (m0 + r) * p.d + cb + col : p.x,
+                       ok ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < kBM * cols; i += kThreads) {
+        const int r = i / cols, col = i % cols;
+        const bool ok = r < rows && cb + col < ce;
+        tc::cp_async4(xs + r * p.xs + col,
+                      ok ? p.x + (m0 + r) * p.d + cb + col : p.x,
+                      ok ? 4 : 0);
+      }
+    }
+    // w: rows cb + s * KW .. + KW - 1 into ring slot s % S,
+    // S - 1 k-steps ahead of the product, zero-filled past the
+    // chunk's end and past column n
+    auto load_w = [&](int s) {
+      const int k0 = cb + s * KW;
+      float* wd = ws + (s % S) * KW * WS;
+      if (p.vec_w) {
+        for (int i = tid; i < KW * BN / 4; i += kThreads) {
+          const int kk = i / (BN / 4), col = i % (BN / 4) * 4;
+          const bool ok = k0 + kk < ce && nbase + col < p.n;
+          tc::cp_async16(
+              wd + kk * WS + col,
+              ok ? p.w + static_cast<long long>(k0 + kk) * p.n + nbase + col
+                 : p.w,
+              ok ? 16 : 0);
+        }
+      } else {
+        for (int i = tid; i < KW * BN; i += kThreads) {
+          const int kk = i / BN, col = i % BN;
+          const bool ok = k0 + kk < ce && nbase + col < p.n;
+          tc::cp_async4(
+              wd + kk * WS + col,
+              ok ? p.w + static_cast<long long>(k0 + kk) * p.n + nbase + col
+                 : p.w,
+              ok ? 4 : 0);
+        }
+      }
+    };
+
+    tc::cp_async_commit();  // the chunk's x: a group of its own
+    if (kProduct) {
+#pragma unroll
+      for (int s = 0; s < S - 1; ++s) {
+        if (s < n_steps) load_w(s);
+        tc::cp_async_commit();
+      }
+      for (int s = 0; s < n_steps; ++s) {
+        tc::cp_async_wait<S - 2>();
+        __syncthreads();  // step s landed; every warp is done with step s - 1
+        if (s + S - 1 < n_steps) load_w(s + S - 1);
+        tc::cp_async_commit();
+        if (mma_warp) {
+          // A fragments: rows wm * 16MT + 16mi + g (+8), columns t4 (+4);
+          // B fragments: rows t4 (+4), columns wn * 8NT + 8j + g.  Each is
+          // split once and used for all of the warp's n-tiles (A) or m-tiles
+          // (B).
+#pragma unroll
+          for (int kk = 0; kk < KW / 8; ++kk) {
+            if (s * KW + kk * 8 >= ce - cb) break;  // zero-filled past it
+            const float* xa =
+                xs + (wm * 16 * MT + g) * p.xs + s * KW + kk * 8 + t4;
+            const float* wb = ws + ((s % S) * KW + kk * 8 + t4) * WS +
+                              wn * 8 * NT + g;
+            uint32_t ahi[MT][4], alo[MT][4];
+#pragma unroll
+            for (int mi = 0; mi < MT; ++mi) {
+              const float* a = xa + mi * 16 * p.xs;
+              tc::split_tf32(a[0], ahi[mi][0], alo[mi][0]);
+              tc::split_tf32(a[8 * p.xs], ahi[mi][1], alo[mi][1]);
+              tc::split_tf32(a[4], ahi[mi][2], alo[mi][2]);
+              tc::split_tf32(a[8 * p.xs + 4], ahi[mi][3], alo[mi][3]);
+            }
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+              uint32_t bh0, bl0, bh1, bl1;
+              tc::split_tf32(wb[8 * j], bh0, bl0);
+              tc::split_tf32(wb[4 * WS + 8 * j], bh1, bl1);
+#pragma unroll
+              for (int mi = 0; mi < MT; ++mi) {
+                tc::mma_tf32(acc[mi][j], alo[mi], bh0, bh1);  // lo . hi
+                tc::mma_tf32(acc[mi][j], ahi[mi], bl0, bl1);  // hi . lo
+                tc::mma_tf32(acc[mi][j], ahi[mi], bh0, bh1);  // hi . hi
+              }
+            }
+          }
+        }
+      }
+    }
+    tc::cp_async_wait<0>();
+    __syncthreads();  // the chunk is whole; every warp is done with it
+    if (!kQuantize || !p.chunk_mode) continue;
+    block_stats(p, nq, blk, stats);
+    __syncthreads();
+    quantize_words(p, nq, blk, gb, stats, table, lv.n);
+    __syncthreads();  // the next chunk overwrites the buffer and the stats
+  }
+
+  if (mma_warp) {
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = nbase + wn * 8 * NT + 8 * j + 2 * t4;
+        if (col >= p.n) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long row = m0 + wm * 16 * MT + mi * 16 + g + 8 * h;
+          if (row >= p.m) continue;
+          float* o = p.y + row * p.n + col;
+          const float v0 = acc[mi][j][2 * h], v1 = acc[mi][j][2 * h + 1];
+          if (col + 1 >= p.n) {
+            o[0] = v0;
+          } else if ((p.n & 1) == 0) {
+            *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+          } else {
+            o[0] = v0;
+            o[1] = v1;
+          }
+        }
+      }
+  }
+  if (!kQuantize || p.chunk_mode) return;
+
+  // Blocks that a chunk does not hold whole (G % D == 0 with G > D, or
+  // G > kChunkMax): the blocks whose first element lies in the row tile,
+  // a contiguous share for each slab, copied from device memory (mostly L2:
+  // just read) into the free shared memory `batch` blocks at a time.
+  const long long q_lo = (m0 * p.d + p.G - 1) / p.G;
+  const long long q_hi = ((m0 + rows) * p.d + p.G - 1) / p.G;
+  const long long lo = q_lo + (q_hi - q_lo) * slab / p.slabs;
+  const long long hi = q_lo + (q_hi - q_lo) * (slab + 1) / p.slabs;
+  const bool bvec =
+      (p.G & 3) == 0 && (reinterpret_cast<uintptr_t>(p.x) & 15) == 0;
+  for (long long b0 = lo; b0 < hi; b0 += p.batch) {
+    const int nq = static_cast<int>(hi - b0 < p.batch ? hi - b0 : p.batch);
+    const float* src = p.x + b0 * p.G;
+    if (bvec) {
+      for (int i = 4 * tid; i < nq * p.G; i += 4 * kThreads)
+        *reinterpret_cast<float4*>(smem + i) =
+            *reinterpret_cast<const float4*>(src + i);
+    } else {
+      for (int i = tid; i < nq * p.G; i += kThreads) smem[i] = src[i];
+    }
+    __syncthreads();
+    auto staged = [&](int q) { return smem + static_cast<long long>(q) * p.G; };
+    block_stats(p, nq, staged, stats);
+    __syncthreads();
+    quantize_words(p, nq, staged, [&](int q) { return b0 + q; }, stats, table,
+                   lv.n);
+    __syncthreads();  // the next batch overwrites the staged blocks
+  }
+}
+
+template <int NT, int WN, int MT, int KW, int S, int MINB>
+int launch(Params p, const Levels& lv, cudaStream_t stream) {
+  constexpr int BN = 8 * NT * WN;
+  constexpr int WS = BN % 16 == 0 ? BN + 8 : BN;
+  const auto kern = matmul_quant_kernel<NT, WN, MT, KW, S, MINB>;
+  p.xs = (p.cw + KW - 1) / KW * KW + 4;
+  // the product's chunk buffer and w ring; the stash path off the chunk
+  // stages whole blocks in the same floats, one block at least
+  p.area = kBM * p.xs + S * KW * WS;
+  p.batch = kQB;
+  if (!p.chunk_mode) {
+    if (p.area < p.G) p.area = p.G;
+    p.batch = p.area / p.G < kQB ? p.area / p.G : kQB;
+  }
+  p.slabs = (p.n + BN - 1) / BN;
+  const size_t smem = sizeof(float) * (static_cast<size_t>(p.area) +
+                                       2 * static_cast<size_t>(p.batch));
+  static const cudaError_t carveout = cudaFuncSetAttribute(
+      kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (carveout != cudaSuccess) return static_cast<int>(carveout);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long tiles = (p.m + kBM - 1) / kBM;
+  kern<<<static_cast<unsigned>(tiles * p.slabs), kThreads, smem, stream>>>(
+      p, lv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace fwd
+
 }  // namespace
 
 // y (m, n) = x (m, d) @ w (d, n); packed (m*d/G, G*bits/32), zero and rng
@@ -407,26 +649,36 @@ extern "C" int matmul_quant(const float* x, const float* w, float* y,
                             long long m, int d, int n, int group_size,
                             int bits, unsigned int seed, const float* levels,
                             int n_levels, void* stream) {
-  const int chunk = d < kChunk ? d : kChunk;
-  // the epilogue stages `batch` blocks and their two stats in the same
-  // shared memory as the product's tiles (one block at least)
-  const int tiles = chunk * kTM + kTK * kTN;
-  const int floats = tiles > group_size + 2 ? tiles : group_size + 2;
-  const int batch = floats / (group_size + 2);
-  const size_t smem = static_cast<size_t>(floats) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        matmul_quant_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const unsigned grid = static_cast<unsigned>(((m + kTM - 1) / kTM) *
-                                             ((n + kTN - 1) / kTN));
-  matmul_quant_kernel<<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      x, w, y, packed, zero, rng, m, d, n, chunk, batch, group_size, bits,
-      quant::fmix32(seed), quant::make_levels(levels, n_levels));
-  return static_cast<int>(cudaGetLastError());
+  fwd::Params p{};
+  p.x = x;
+  p.w = w;
+  p.y = y;
+  p.packed = packed;
+  p.zero = zero;
+  p.rng = rng;
+  p.m = m;
+  p.d = d;
+  p.n = n;
+  p.G = group_size;
+  p.bits = bits;
+  p.seed_hash = quant::fmix32(seed);
+  // a chunk holds whole blocks of whole rows when D % G == 0 and G fits
+  p.chunk_mode = d > 0 && d % group_size == 0 && group_size <= fwd::kChunkMax;
+  // (in chunk mode at most kQB / kBM blocks a row, so a chunk's blocks fit
+  // the stats)
+  p.cw = p.chunk_mode
+             ? std::min({d, group_size * (fwd::kChunkMax / group_size),
+                         group_size * (fwd::kQB / fwd::kBM)})
+             : std::min(d, fwd::kChunkMax);
+  if (p.cw < 1) p.cw = 1;
+  p.vec_x = d % 4 == 0 && p.cw % 4 == 0 &&
+            reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  p.vec_w = n % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const Levels lv = quant::make_levels(levels, n_levels);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 40) return fwd::launch<5, 1, 1, 16, 2, 3>(p, lv, s);
+  if (n <= 64) return fwd::launch<8, 1, 1, 16, 4, 2>(p, lv, s);
+  return fwd::launch<8, 4, 2, 16, 2, 2>(p, lv, s);
 }
 
 // dw (d, n) = dequant(packed)^T (d, m) @ g (m, n) over `splits` row ranges

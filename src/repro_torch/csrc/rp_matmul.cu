@@ -57,7 +57,11 @@
 
 #include <algorithm>
 
+#include "tensor_core.cuh"
+
 namespace {
+
+using namespace tc;  // cp.async, split_tf32, mma_tf32
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -90,52 +94,6 @@ struct Params {
   int vec_in;    // 16-byte copies of x
   int vec_out;   // 16-byte stores of out
 };
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
-                                          int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// x = hi + lo + e with hi, lo in TF32 and |e| <= 2^-22 |x|.  The cvt leaves
-// the 13 low bits undefined: hi is masked because it is subtracted; the mma
-// ignores those bits of lo.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  uint32_t h;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(h) : "f"(v));
-  h &= 0xFFFFE000u;
-  const float r = __fsub_rn(v, __uint_as_float(h));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
-  hi = h;
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // BN output columns a chunk (NT n-tiles of 8).  Fragment order of the sign
 // table: the word of lane (g = lane / 4, t = lane % 4) for local chunk c and

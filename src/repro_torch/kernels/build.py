@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -57,26 +57,29 @@ def _included(path: Path, seen: list[Path]) -> list[Path]:
     return seen
 
 
-def lib_path(name: str) -> Path:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+def lib_path(name: str, defines: tuple = ()) -> Path:
+    """The library of ``csrc/<name>.cu`` built with ``defines`` (extra
+    ``-D`` flags of a measurement build) besides ``NVCC_FLAGS``."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     for path in _included(CSRC / f"{name}.cu", []):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(names=SOURCES) -> dict[str, str]:
+def build(names=SOURCES, defines: tuple = ()) -> dict[str, str]:
     """Compile every source in ``names`` that has no current library, all
     in parallel; returns each compiled source's compiler log (register and
     spill counts).  Raises if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = lib_path(name)
+        out = lib_path(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (out, tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []
     for name, (out, tmp, proc) in procs.items():
@@ -90,12 +93,14 @@ def build(names=SOURCES) -> dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _LIBS.get(name)
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built with ``defines``),
+    built first if needed."""
+    key = (name, tuple(defines))
+    lib = _LIBS.get(key)
     if lib is None:
-        build((name,))
-        lib = _LIBS[name] = ctypes.CDLL(str(lib_path(name)))
+        build((name,), defines)
+        lib = _LIBS[key] = ctypes.CDLL(str(lib_path(name, defines)))
     return lib
 
 

@@ -36,8 +36,10 @@ TARGET_CTAS, MAX_SPLITS = 512, 64
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = build.load("fused_matmul")
+def _lib(defines: tuple = ()) -> ctypes.CDLL:
+    """The kernels' library; ``defines``: a measurement build's (see
+    ``scripts/kernel_times.py fused --parts``)."""
+    lib = build.load("fused_matmul", defines)
     lib.matmul_quant.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_uint32, _P,

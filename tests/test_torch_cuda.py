@@ -5,7 +5,8 @@ import nothing of JAX, so the card's host runs them with
 ``python -m pytest -q -m gpu tests/test_torch_cuda.py``.  Quantize and
 dequantize must be bit-equal; RP/IRP agree to rtol/atol 2e-4 (the kernel
 sums two TF32 parts of x times +-1 on the tensor cores, cuBLAS the float32
-products, each in its own order)."""
+products, each in its own order), and so does the fused forward's y (three
+TF32 products of split x and w); its stash is bit-equal."""
 import numpy as np
 import pytest
 import torch
@@ -170,6 +171,84 @@ def test_cuda_matmul_quant_matches_plain_and_quant_pack(cuda, levels, m, d,
     for a, b, c in zip(stash, stash_p, stash_q):
         assert torch.equal(a, b) and torch.equal(a, c)
     torch.testing.assert_close(y, y_p, rtol=2e-4, atol=2e-4)
+
+
+#: (m, d, g, n) for each path of the tensor-core forward: D % 8 != 0 and
+#: D % 4 != 0 (4-byte copies of x; blocks spanning rows, copied back from
+#: device memory), N below 8 and N odd (4-byte copies of w, scalar stores),
+#: M not a multiple of the 64-row tile, every column width the kernel is
+#: instantiated for (40, 64, 256, and slabs of 256 beyond) at and below
+#: its full width,
+#: chunks of whole blocks of unequal width (D = 288, G = 96), a block larger
+#: than the chunk buffer, and slabs with blocks spanning rows.
+FUSED_PATHS = {"d_mod_8": (36, 20, 80, 40), "d_mod_4": (40, 10, 80, 40),
+               "n_below_8": (100, 64, 64, 5), "n_odd": (100, 64, 64, 43),
+               "ragged_m": (130, 128, 128, 256), "n16": (200, 64, 64, 16),
+               "n40": (200, 64, 64, 40), "n64": (200, 64, 64, 64),
+               "n128": (200, 64, 64, 128), "n256": (200, 64, 64, 256),
+               "n520_slabs": (150, 64, 64, 520),
+               "chunks_192_96": (70, 288, 96, 40),
+               "huge_block": (1024, 8, 4096, 8),
+               "slabs_spanning": (129, 96, 288, 520)}
+
+
+def _check_matmul_quant(t_fk, x, w, g, levels):
+    """The stash bit-equal to the plain version and to quant_pack, y within
+    2e-4 of the plain version; returns the kernel's outputs."""
+    got = t_fk.matmul_quant(x, w, 2, 42, levels, group_size=g)
+    y_p, *stash_p = t_ref.matmul_quantize_packed(x, w, 2, 42, levels,
+                                                 group_size=g)
+    stash_q = t_qk.quant_pack(x.reshape(-1, g), 2, 42, levels)
+    for a, b, c in zip(got[1:], stash_p, stash_q):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    torch.testing.assert_close(got[0], y_p, rtol=2e-4, atol=2e-4)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levels", [None, VM2], ids=["uniform", "vm"])
+@pytest.mark.parametrize("case", sorted(FUSED_PATHS))
+def test_cuda_matmul_quant_kernel_paths(cuda, levels, case):
+    from repro_torch.kernels import fused_matmul as t_fk
+
+    m, d, g, n = FUSED_PATHS[case]
+    x = torch.from_numpy(_x(m, d, seed=m + d)).cuda()
+    w = torch.from_numpy(
+        (_x(d, n, seed=n) / np.sqrt(d)).astype(np.float32)).cuda()
+    _check_matmul_quant(t_fk, x, w, g, levels)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levels", [None, VM2], ids=["uniform", "vm"])
+def test_cuda_matmul_quant_misaligned_inputs(cuda, levels):
+    """x and w views starting 4 bytes past a 16-byte boundary take the
+    4-byte copies, with the same bits in the stash."""
+    from repro_torch.kernels import fused_matmul as t_fk
+
+    m, d, g, n = 300, 256, 256, 256
+    flat_x = torch.from_numpy(_x(1, m * d + 1, seed=5)).cuda().reshape(-1)
+    flat_w = torch.from_numpy(
+        (_x(1, d * n + 1, seed=6) / np.sqrt(d)).astype(np.float32)).cuda()
+    x = flat_x[1:].reshape(m, d)
+    w = flat_w.reshape(-1)[1:].reshape(d, n)
+    _check_matmul_quant(t_fk, x, w, g, levels)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,n", [(256, 256), (512, 256), (512, 40)])
+def test_cuda_matmul_quant_bit_identical_repeat(cuda, d, n):
+    """Each output is summed by one warp in a fixed order and the stash is
+    written once: two calls at the slice's layer widths give the same bits
+    in y and in the stash."""
+    from repro_torch.kernels import fused_matmul as t_fk
+
+    x = torch.from_numpy(_x(3000, d, seed=d + n)).cuda() * 1.7
+    w = torch.from_numpy(
+        (_x(d, n, seed=n) / np.sqrt(d)).astype(np.float32)).cuda()
+    first = _check_matmul_quant(t_fk, x, w, 256, VM2)
+    again = t_fk.matmul_quant(x, w, 2, 42, VM2, group_size=256)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

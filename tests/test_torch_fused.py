@@ -184,17 +184,29 @@ def test_backward_splits_are_whole_steps_covering_rows(m, d, n):
 
 def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     """A changed header rebuilds every source that includes it, and only
-    those."""
+    those: the SR rounding (quant_common.cuh) and the tensor-core helpers
+    (tensor_core.cuh)."""
     for p in build.CSRC.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)
-    before = {n: build.lib_path(n) for n in build.SOURCES}
-    header = tmp_path / "quant_common.cuh"
-    header.write_text(header.read_text() + "\n// changed\n")
-    after = {n: build.lib_path(n) for n in build.SOURCES}
-    assert after["rp_matmul"] == before["rp_matmul"]
-    for n in ("quant_blockwise", "fused_matmul"):
-        assert after[n] != before[n]
+    for name, users in (("quant_common.cuh", {"quant_blockwise",
+                                              "fused_matmul"}),
+                        ("tensor_core.cuh", {"rp_matmul", "fused_matmul"})):
+        before = {n: build.lib_path(n) for n in build.SOURCES}
+        header = tmp_path / name
+        header.write_text(header.read_text() + "\n// changed\n")
+        after = {n: build.lib_path(n) for n in build.SOURCES}
+        assert {n for n in build.SOURCES if after[n] != before[n]} == users
+
+
+def test_build_digest_covers_defines():
+    """A measurement build (extra -D flags) gets a library of its own; the
+    plain build's name does not change with it."""
+    plain = build.lib_path("fused_matmul")
+    part = build.lib_path("fused_matmul", ("-DMATMUL_QUANT_PART=1",))
+    assert part != plain and part.parent == plain.parent
+    assert build.lib_path("fused_matmul", ()) == plain
+    assert build.lib_path("fused_matmul", ("-DMATMUL_QUANT_PART=1",)) == part
 
 
 # ----------------------------------------------- the slice, at small size

@@ -23,25 +23,11 @@ import torch
 from repro.core import random_projection as j_rp
 from repro.kernels.rp_matmul import irp_project_call, rp_project_call
 from repro_torch.core.random_projection import rp_matrix, rp_scale
+from tf32_split import split, tf32_rna
 
 SHAPES = [(677, 256, 32), (130, 512, 64), (33, 40, 5)]
 SCALES = [1e-3, 1.0, 1e3]
 BAND = 2e-4
-
-
-def tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """float32 -> the nearest TF32 value (10 mantissa bits), ties away from
-    zero: add half of the dropped 13 bits to the magnitude, then clear them
-    (finite inputs)."""
-    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    bits = ((bits + 0x1000) & 0xFFFFE000) & 0xFFFFFFFF
-    return torch.where(bits >= 2**31, bits - 2**32,
-                       bits).to(torch.int32).view(torch.float32)
-
-
-def split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    hi = tf32_rna(x)
-    return hi, tf32_rna(x - hi)          # x - hi is exact in float32
 
 
 def kernel_product(x: torch.Tensor, signs: torch.Tensor, r: int,
