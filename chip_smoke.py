@@ -212,21 +212,42 @@ def check_rp(torch, rk, ref, rpmod, flush, gen) -> dict:
 FUSED_LAYERS = ((256, 256), (512, 256), (512, 40))   # slice 2: (D, N)
 
 
+def aligned_excess(torch, fk, qk, ref, levels, d, n, gen) -> float:
+    """The backward where no rounding error cancels, at the slice's
+    N_NODES rows and so over its longest row ranges: every stash row the
+    INT2 stash of one row of x, every g row one |N(0, 1)| row.  Returns
+    max |dw - exact| / (1e-4 * |x_hat|^T |g|), the exact product (float64)
+    being N_NODES times the one row's; above 1 leaves the band."""
+    G = 256
+    one = qk.quant_pack((torch.randn((1, d), device="cuda", generator=gen)
+                         * 1.7).reshape(-1, G), 2, 99, levels)
+    g1 = torch.randn((1, n), device="cuda", generator=gen).abs()
+    dw = fk.dequant_matmul(one[0].repeat(N_NODES, 1), one[1].repeat(N_NODES),
+                           one[2].repeat(N_NODES), g1.repeat(N_NODES, 1), 2,
+                           G, d, levels).double()
+    x1 = ref.dequantize_packed(*one, 2, G, levels).reshape(1, d).double()
+    exact = N_NODES * (x1.T @ g1.double())
+    scale = N_NODES * (x1.abs().T @ g1.double())
+    return float(((dw - exact).abs() / (1e-4 * scale + 1e-300)).max())
+
+
 def check_fused(torch, fk, qk, ref, levels, flush, gen) -> dict:
     """matmul_quant / dequant_matmul at the rp_ratio-0 slice's three layer
     shapes.  The forward's stash must be bit-equal to the plain version and
     to the quant_pack kernel on the same x, its y within 2e-4 of cuBLAS
     (three TF32 products of split x and w on the tensor cores), and two
     calls must give the same bits; the backward within 1e-4 * (|x_hat|^T
-    |g|) elementwise of the plain version (a long row sum in another order)
-    and bit-identical from call to call.  Timed beside the plain version,
+    |g|) elementwise of the plain version (a long row sum in another order),
+    also where no rounding error cancels (aligned_excess), and bit-identical
+    from call to call.  Timed beside the plain version,
     the product alone in one torch.matmul (library_ms), and the two-pass
     spelling each replaces (unfused_ms: cuBLAS + quant_pack, or
     dequant_unpack + cuBLAS), with the card's name and power limit in each
-    row.  The forward's bound_ms is the tensor-core kernel's: the largest of
-    the bytes, the product's 2*M*D*N at the TF32 peak and the quantizer's
-    ~18 operations an element at the float32 rate; f32_bound_ms, logged
-    beside it, is the bound of a float32 SIMT product (67 TFLOP/s)."""
+    row.  Each bound_ms is the tensor-core kernel's: the largest of the
+    bytes, the product's 2*M*D*N at the TF32 (forward) or bf16 (backward)
+    peak, and the quantizer's ~18 or the dequantizer's ~4 operations an
+    element at the float32 rate; f32_bound_ms, logged beside it, is the
+    bound of a float32 SIMT product (67 TFLOP/s)."""
     log(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
     rows, G, smi = {}, 256, card()
@@ -262,6 +283,10 @@ def check_fused(torch, fk, qk, ref, levels, flush, gen) -> dict:
         if not bool(((dw - dw_p).abs() <= 1e-4 * scale).all()):
             raise AssertionError(f"dequant_matmul {tag}: outside 1e-4 of "
                                  f"|x_hat|^T|g| (max abs err {dw_err})")
+        aligned = aligned_excess(torch, fk, qk, ref, levels, d, n, gen)
+        if not aligned <= 1.0:
+            raise AssertionError(f"dequant_matmul {tag}: aligned errors "
+                                 f"{aligned} of the 1e-4 band")
         nb = N_NODES * d // G
         stash_bytes = nb * (G * 2 // 8) + 8 * nb
         flops = 2 * N_NODES * d * n
@@ -271,10 +296,13 @@ def check_fused(torch, fk, qk, ref, levels, flush, gen) -> dict:
         f_bytes = 4 * (N_NODES * d + d * n + N_NODES * n) + stash_bytes
         f_bound = max(bound(f_bytes, flops, PEAK_TF32_OPS_PER_S),
                       bound(f_bytes, 18 * N_NODES * d), key=lambda b: b[0])
-        # backward: the stash and g read, dw written; the product plus ~4
-        # operations an element to dequantize
-        b_bound = bound(stash_bytes + 4 * (N_NODES * n + d * n),
-                        flops + 4 * N_NODES * d)
+        # backward: the stash and g read, dw written; the product at the
+        # bf16 peak (three bf16 products of split x_hat and g on the tensor
+        # cores), ~4 operations an element to dequantize at the float32
+        # rate, whichever takes longest
+        b_bytes = stash_bytes + 4 * (N_NODES * n + d * n)
+        b_bound = max(bound(b_bytes, flops, PEAK_BF16_OPS_PER_S),
+                      bound(b_bytes, 4 * N_NODES * d), key=lambda b: b[0])
         f = dict(ms=time_ms(torch, lambda: fk.matmul_quant(x, w, 2, 99, levels, group_size=G), flush),
                  plain_ms=time_ms(torch, lambda: ref.matmul_quantize_packed(x, w, 2, 99, levels, group_size=G), flush),
                  library_ms=time_ms(torch, lambda: torch.matmul(x, w), flush),
@@ -286,13 +314,15 @@ def check_fused(torch, fk, qk, ref, levels, flush, gen) -> dict:
                  plain_ms=time_ms(torch, lambda: ref.dequant_matmul_packed(*stash_p, g, 2, G, d, levels), flush),
                  library_ms=time_ms(torch, lambda: torch.matmul(x_hat.T, g), flush),
                  unfused_ms=time_ms(torch, lambda: torch.matmul(qk.dequant_unpack(*stash, 2, G, levels).reshape(-1, d).T, g), flush),
-                 bound_ms=b_bound[0], bound_by=b_bound[1], max_abs_err=dw_err,
-                 flops=flops, scratch_bytes=fk.scratch_nbytes(N_NODES, d, n),
+                 bound_ms=b_bound[0], bound_by=b_bound[1],
+                 f32_bound_ms=bound(b_bytes, flops + 4 * N_NODES * d)[0],
+                 max_abs_err=dw_err, aligned_excess=aligned, flops=flops,
+                 bytes=b_bytes, scratch_bytes=fk.scratch_nbytes(N_NODES, d, n),
                  splits=fk.splits(N_NODES, d, n)[0], card=smi)
         log(f"matmul_quant   {tag}: stash bit-equal, bit-identical repeat, y "
             f"max abs err {y_err}; {f}")
         log(f"dequant_matmul {tag}: bit-identical repeat, max abs err "
-            f"{dw_err}; {b}")
+            f"{dw_err}, aligned errors {aligned} of the band; {b}")
         rows[("matmul_quant", tag)] = f
         rows[("dequant_matmul", tag)] = b
         del x, w, g, y, y_p, stash, stash_p, stash_q, dw, again, dw_p, x_hat

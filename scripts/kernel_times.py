@@ -15,7 +15,7 @@ shapes, without the training phases, in about 20 s:
   shapes of the rp_ratio-0 SAGE slice (the stash bit-equal to the plain
   version and to quant_pack, y and dw within their bounds, two calls of
   each bit-identical), timed beside the plain version, the product alone
-  and the two-pass spelling, with the tensor-core bound of the forward and
+  and the two-pass spelling, with the tensor-core bound of each kernel and
   its float32 SIMT bound (``f32_bound_ms``);
 - ``flash``: ``check_flash``, flash attention at the serving prefill's
   (80, 1000, 128), causal, bf16 and float32, and at ragged shapes with
@@ -25,10 +25,12 @@ shapes, without the training phases, in about 20 s:
   of the kernel, the plain version and float32 and bf16 SDPA, beside the
   bound.
 
-``fused --parts`` also times two measurement builds of the forward at the
-same shapes, one with its product alone and one with its quantizer alone
-(``-DMATMUL_QUANT_PART=1`` / ``2`` in ``csrc/fused_matmul.cu``; their
-outputs are not the function's), beside the whole kernel.
+``fused --parts`` also times measurement builds of the pair at the same
+shapes (their outputs are not the function's), beside each whole kernel:
+the forward with its product alone and with its quantizer alone
+(``-DMATMUL_QUANT_PART=1`` / ``2`` in ``csrc/fused_matmul.cu``), and the
+backward with its decode and staging alone and with its product alone
+(``-DDEQUANT_MATMUL_PART=1`` / ``2``).
 
 The last line is a JSON object of the rows.  ``--root`` runs the kernels,
 wrappers and checks of another checkout of the repository instead (its own
@@ -39,6 +41,7 @@ import argparse
 import json
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 
@@ -50,30 +53,50 @@ def print_builds(build, sources, defines=()) -> None:
         print(text.strip(), flush=True)
 
 
-PARTS = (("all", ()), ("product", ("-DMATMUL_QUANT_PART=1",)),
-         ("quantizer", ("-DMATMUL_QUANT_PART=2",)))
+#: Measurement builds of csrc/fused_matmul.cu: each kernel whole, its
+#: product alone, and its quantizer (forward) or its decode and staging
+#: (backward) alone.
+PARTS = {"matmul_quant": (("all", ()),
+                          ("product", ("-DMATMUL_QUANT_PART=1",)),
+                          ("quantizer", ("-DMATMUL_QUANT_PART=2",))),
+         "dequant_matmul": (("all", ()),
+                            ("product", ("-DDEQUANT_MATMUL_PART=2",)),
+                            ("stage", ("-DDEQUANT_MATMUL_PART=1",)))}
 
 
 def time_parts(torch, chip_smoke, fk, build, levels, flush, gen) -> dict:
-    """CUDA-event medians of the forward and of its product and quantizer
-    alone, at the rp_ratio-0 slice's layer shapes."""
-    for _, defines in PARTS[1:]:
-        print_builds(build, ("fused_matmul",), defines)
+    """CUDA-event medians of the forward and the backward and of their
+    parts alone, at the rp_ratio-0 slice's layer shapes."""
+    defines = [d for parts in PARTS.values() for _, d in parts[1:]]
+    with ThreadPoolExecutor(len(defines)) as pool:   # one nvcc each, at once
+        logs = list(pool.map(lambda d: build.build(("fused_matmul",), d),
+                             defines))
+    for log in logs:
+        for text in log.values():
+            print(text.strip(), flush=True)
     rows, whole = {}, fk._lib
     try:
         for d, n in chip_smoke.FUSED_LAYERS:
             x = torch.randn((chip_smoke.N_NODES, d), device="cuda",
                             generator=gen) * 1.7
             w = torch.randn((d, n), device="cuda", generator=gen) / d ** 0.5
-            row = {}
-            for part, defines in PARTS:
-                fk._lib = lambda defines=defines: whole(defines)
-                row[f"{part}_ms"] = chip_smoke.time_ms(
-                    torch, lambda: fk.matmul_quant(x, w, 2, 99, levels,
-                                                   group_size=256), flush)
+            g = torch.randn((chip_smoke.N_NODES, n), device="cuda",
+                            generator=gen) / 400
+            _, *stash = fk.matmul_quant(x, w, 2, 99, levels, group_size=256)
+            calls = {"matmul_quant": lambda: fk.matmul_quant(
+                         x, w, 2, 99, levels, group_size=256),
+                     "dequant_matmul": lambda: fk.dequant_matmul(
+                         *stash, g, 2, 256, d, levels)}
             tag = f"{chip_smoke.N_NODES}x{d}@{d}x{n}"
-            print(f"matmul_quant parts {tag}: {row}", flush=True)
-            rows[("matmul_quant parts", tag)] = row
+            for name, parts in PARTS.items():
+                row = {}
+                for part, flags in parts:
+                    fk._lib = lambda flags=flags: whole(flags)
+                    row[f"{part}_ms"] = chip_smoke.time_ms(torch, calls[name],
+                                                           flush)
+                print(f"{name} parts {tag}: {row}", flush=True)
+                rows[(f"{name} parts", tag)] = row
+            del x, w, g, stash
     finally:
         fk._lib = whole
     return rows
@@ -83,8 +106,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("kernel", choices=("rp", "fused", "flash"))
     ap.add_argument("--parts", action="store_true",
-                    help="fused: also time the product and the quantizer "
-                    "of the forward alone")
+                    help="fused: also time the parts of the forward and "
+                    "the backward alone")
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="checkout whose kernels and checks run")
     args = ap.parse_args()

@@ -65,20 +65,92 @@
 // 2^-12 of FLT_MAX, which rounds to inf in TF32 (as cvt.rna).  The stash is
 // quantized from the float32 x and does not see the split.
 //
-// Backward (dequant_matmul_kernel): what bounds it on an H100 is
-// operations: 2 * M * D * N float32 operations on the SIMT cores (no
-// tensor cores yet), 0.668 ms at 512 -> 256 against about 0.06 ms of
-// bytes (the stash and g).  One 64 x 64 tile of dw per CTA and one of S
-// contiguous row ranges per blockIdx.z.  The CTA walks its rows
-// 32 at a time; each thread decodes a run of 16 columns of one row straight
-// from the words into shared memory (one block lookup and one scale per
-// run; no (M, D) float32 reconstruction reaches device memory) beside the
-// matching g rows, and the CTA accumulates in row order with __fmaf_rn,
-// each thread an 8 x 4 register tile.  Each range writes
-// its own (D, N) partial to scratch (S * D * N * 4 bytes, allocated by the
-// wrapper; S is a function of the shapes only: 8 MiB at S = 16 for layer
-// 1), and tree_sum_kernel adds them in the reference's fixed pairwise
-// order, so a result is bit-identical from call to call.  No atomics.
+// Backward (dequant_matmul_kernel, namespace bwd).  What bounds it on an
+// H100: bytes.  It reads the stash and g once and writes dw: 198 MB at
+// 512 -> 256 (0.0592 ms at 3.35 TB/s), 0.0555 ms at 256 -> 256, 0.0154 ms
+// at 512 -> 40; the product's 2 * M * D * N = 44.4 GFLOP at 512 -> 256 take
+// 0.0449 ms at the bf16 peak of 989 TFLOP/s, the dequantizer's ~4
+// operations an element 0.005 ms (chip_smoke.check_fused counts all three).
+// The kernel does three bf16 products for the one float32 product (below)
+// through mma.sync, decodes every stash element on the CUDA cores and
+// splits both operands.  Design:
+// 1. Tensor cores: mma.sync m16n8k16 bf16 with f32 accumulators on hi/lo
+//    splits of both operands (split_bf16: hi = rn(v), lo = rn(v - hi),
+//    ties to even).  Three products, lo.hi, hi.lo, hi.hi, a k16 step
+//    (the accumulator below); the dropped terms (lo.lo and the two split
+//    residuals) miss at most 3 * 2^-16 |x_hat||g| a term.  The VM levels
+//    are arbitrary float32 values, so x_hat is a general float32 and needs
+//    the split as g does: where no rounding error cancels (identical stash rows and
+//    identical non-negative g rows) one pass misses the kernel's band of
+//    1e-4 * (|x_hat|^T |g|) 59x, a split of x_hat alone 33x, of g alone 26x,
+//    and the three products stay at 0.20 of it
+//    (tests/test_torch_dequant_split.py).  Three TF32 products would keep
+//    2^-22 a term but take twice the tensor-core time and, at k8 against
+//    k16, twice the accumulator roundings per row.
+//    The accumulator: mma.sync adds its products to C truncating, not
+//    rounding to nearest (Fasi et al. 2021, "Numerical behavior of NVIDIA
+//    tensor cores", for the generations before Hopper: each product
+//    aligned to the largest exponent and cut).  In a chain along a range's
+//    rows where nothing cancels the cuts add up in proportion to its
+//    length: under that model one chain over the slice's 5,312- and
+//    10,592-row ranges misses the band 5-6x and 12x.  So each k16 step's
+//    three products go into a fresh accumulator (a chain of three from
+//    zero, each cut relative to that step's own sum: about 3 * 2^-23 of
+//    16 rows' |x_hat||g|), which is then added to the output's float32 sum
+//    rounding to nearest (__fadd_rn: 2^-24 of the sum an addition, at most
+//    steps / 2 * 2^-24 = 2.0e-5 over a 10,592-row range's 662 steps where
+//    nothing cancels).  The budget, relative to |x_hat|^T |g|: the split's
+//    dropped terms 3 * 2^-16 = 4.6e-5 at most (1.65e-5 aligned), the
+//    steps' cuts 3.6e-7, the sums 2.0e-5, the tree log2(S) * 2^-24 =
+//    3.6e-7, inside 1e-4 by the arithmetic.  It costs four FADDs a thread
+//    for every three mma.
+// 2. Decode and split each x_hat element once: a CTA takes BD rows of dw
+//    and every column (N <= 256; wider dw in slabs of 256 on neighbouring
+//    CTAs), so the D tiles partition the stash and each element is decoded
+//    once over the grid.  Tiles by N (template parameters): 64 x 256 with
+//    stages of 32 stash rows (the slice's hidden width), 128 x 64 and
+//    128 x 40 with stages of 64 (the slice's classes).
+// 3. Roles: the decode and the splits are CUDA-core work that, done by the
+//    same warps as the product, adds to it.  So 8 producer warps stage and
+//    8 consumer warps multiply, meeting at named barriers: "full" for a
+//    stage buffer the producers have written, "free" for one the consumers
+//    are done with (two buffers, so stage s + 1 is staged while stage s is
+//    multiplied).  Producers copy g, and the stash's words and block
+//    stats, by cp.async into a ring of 4 stages (3 for the 128 x 64 tile;
+//    16-byte copies, or 4-byte ones when N % 4 != 0 or g is not 16-byte
+//    aligned, zero-filled past the range and column N); then they split
+//    each g element once for the CTA and decode each x_hat element in runs
+//    of 8 columns of a row (8 consecutive words, one shift, one scale) into
+//    bf16 hi and lo buffers laid out [stash row][column], which the
+//    consumers read with ldmatrix.trans as the A (x_hat^T) and B (g)
+//    fragments.  bf16 rows are padded to an odd multiple of 16 bytes, so
+//    every 8 x 8 ldmatrix hits 32 distinct banks.  One CTA an SM: 226,304
+//    bytes of shared memory at N = 256.
+// 4. Traffic: the stash leaves device memory once; g once per D tile (8
+//    times at 512 -> 256), but the D tiles of a row range are neighbouring
+//    CTAs (blockIdx.x) and run together, so all but the first read hit L2.
+//    That re-read is most of what the staging costs at the 256-wide layers
+//    (PERF.md).
+// 5. Determinism and memory: S contiguous row ranges (blockIdx.y), a
+//    function of the shapes only (kernels/fused_matmul.py splits(): about
+//    128 CTAs, at most 64 ranges).  Each range writes its own (D, N)
+//    partial to scratch (S * D * N * 4 bytes, allocated by the wrapper:
+//    8 MiB at the slice's 256-wide layers and 2.5 MiB at 512 -> 40, no more
+//    than the SIMT kernel's), each output summed by one warp in row order,
+//    and tree_sum_kernel adds the partials in the reference's fixed
+//    pairwise order: a result is bit-identical from call to call.  No
+//    atomics.
+// 6. Every eligible layout: the ring carries the words when G % BD == 0,
+//    a block holds whole runs of 8 words and at most MAXW words (64, or 16
+//    at N = 256 for shared memory); otherwise a producer reads a run's
+//    words, range and zero from device memory as it decodes it, walking the
+//    strided layout word by word and into the next block where D % G == 0
+//    (G % D == 0 puts G / D rows in a block).
+// The rounding differs from the float32 product in order, in the dropped
+// terms and in the tensor cores' truncating steps (design 1).  Where hi is not finite, lo
+// is not either, and dw is NaN where the float32 product may be finite or
+// +-inf: for an infinite g, and for a finite |g| within a relative 2^-9 of
+// FLT_MAX, which rounds to inf in bf16.
 //
 // Level tables are copied into shared memory: lanes index them with
 // different codes, which a kernel parameter in the constant bank
@@ -99,159 +171,409 @@ namespace {
 
 using quant::Levels;
 
-constexpr int kThreads = 128;
-constexpr int kTM = 64;   // rows of dw per CTA
-constexpr int kTN = 64;   // columns of dw per CTA
-constexpr int kTK = 32;   // rows of one stash tile
-constexpr int kRM = 8;    // rows per thread: 8 * ty .. 8 * ty + 7
-// thread t: tx = t & 15 owns columns 4 * tx .. 4 * tx + 3, ty = t >> 4 rows
+// ---------------------------------------------------------------- backward
+namespace bwd {
 
-__device__ __forceinline__ void fma_8x4(float acc[kRM][4], const float* a8,
-                                        const float* b4) {
-  const float4 a0 = *reinterpret_cast<const float4*>(a8);
-  const float4 a1 = *reinterpret_cast<const float4*>(a8 + 4);
-  const float4 b = *reinterpret_cast<const float4*>(b4);
-  const float a[kRM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-  for (int i = 0; i < kRM; ++i) {
-    acc[i][0] = __fmaf_rn(a[i], b.x, acc[i][0]);
-    acc[i][1] = __fmaf_rn(a[i], b.y, acc[i][1]);
-    acc[i][2] = __fmaf_rn(a[i], b.z, acc[i][2]);
-    acc[i][3] = __fmaf_rn(a[i], b.w, acc[i][3]);
-  }
+// Measurement builds time the backward's parts alone
+// (scripts/kernel_times.py fused --parts): -DDEQUANT_MATMUL_PART=1 stages
+// every stage but runs no product, 2 stages the first two stages and runs
+// the product on their buffers for every stage; such a build's dw is not
+// the function's.
+#ifndef DEQUANT_MATMUL_PART
+#define DEQUANT_MATMUL_PART 0
+#endif
+constexpr bool kProduct = DEQUANT_MATMUL_PART != 1;
+constexpr bool kStage = DEQUANT_MATMUL_PART != 2;
+
+constexpr int kCW = 8;          // consumer warps: the product
+constexpr int kNB = 2;          // bf16 stage buffers
+constexpr int kRun = 8;         // columns a producer thread decodes at a time
+
+// A row of `cols` bf16 padded to an odd multiple of 16 bytes, so the 8 rows
+// of an ldmatrix 8 x 8 matrix hit 32 distinct banks.
+__host__ __device__ constexpr int padded(int cols) {
+  return cols % 16 == 0 ? cols + 8 : cols;
 }
 
-// out[row, col] for the thread's 8 x 4 tile at (r0 + 8 ty, c0 + 4 tx),
-// masked to rows < m and columns < n.
-__device__ __forceinline__ void store_8x4(float* __restrict__ out,
-                                          const float acc[kRM][4],
-                                          long long r0, int c0, long long m,
-                                          int n, int ty, int tx) {
-  const int col = c0 + 4 * tx;
+// bf16 elements of a stage buffer of ks stash rows: g hi, g lo (ks x LG),
+// x_hat hi, x_hat lo (ks x LX), [stash row][column] each.
+__host__ __device__ constexpr int buffer_elems(int ks, int bd, int bn) {
+  return 2 * ks * (padded(bn) + padded(bd));
+}
+
+struct Params {
+  const uint32_t* packed;
+  const float* zero;
+  const float* rng;
+  const float* g;
+  float* part;  // S partials of d * n floats (dw itself when S == 1)
+  long long m, rows_per_split;
+  int d, n, G, bits;
+  int W;        // words a block
+  int vec_g;    // 16-byte copies of g
+  int ring;     // the stage's words and block stats come through the ring
+  int slot;     // floats a ring slot: g, then (ring) words and stats
+};
+
+// Named barriers (0 is __syncthreads): the producers and the consumers
+// meet at "buffer full" and "buffer free" barriers, the producers alone at
+// kProducers after a stage's copies land.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+constexpr int kFull = 1, kFree = 1 + kNB, kProducers = 1 + 2 * kNB;
+
+// Any layout: the run's words, range and zero read from device memory
+// here.  A run walks the strided layout word by word and crosses into the
+// next block where D % G == 0; G % D == 0 puts G / D rows in a block.
+__device__ __forceinline__ void decode_any(const Params& p, long long row,
+                                           int col, const float* table,
+                                           int n_lv, float* v) {
+  long long b;
+  int e;
+  if (p.d % p.G == 0) {
+    const int cb = col / p.G;
+    e = col - cb * p.G;
+    b = row * (p.d / p.G) + cb;
+  } else {
+    const long long rpb = p.G / p.d, q = row / rpb;
+    e = static_cast<int>(row - q * rpb) * p.d + col;
+    b = q;
+  }
+  const uint32_t mask = static_cast<uint32_t>((1ull << p.bits) - 1ull);
+  int wi = e % p.W, sh = (e / p.W) * p.bits;
+  float scale = quant::dequant_scale(__ldg(p.rng + b), p.bits);
+  float z = __ldg(p.zero + b);
 #pragma unroll
-  for (int i = 0; i < kRM; ++i) {
-    const long long row = r0 + kRM * ty + i;
-    if (row >= m) break;
-    float* o = out + row * n + col;
-    if ((n & 3) == 0 && col + 3 < n) {
-      *reinterpret_cast<float4*>(o) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (col + j < n) o[j] = acc[i][j];
+  for (int c = 0; c < kRun; ++c) {
+    if (col + c < p.d)
+      v[c] = quant::dequant_value((__ldg(p.packed + b * p.W + wi) >> sh) & mask,
+                                  scale, z, table, n_lv);
+    if (++wi == p.W) {
+      wi = 0;
+      sh += p.bits;
+    }
+    if (++e == p.G && c + 1 < kRun && col + c + 1 < p.d) {
+      e = wi = sh = 0;
+      ++b;
+      scale = quant::dequant_scale(__ldg(p.rng + b), p.bits);
+      z = __ldg(p.zero + b);
     }
   }
 }
 
-constexpr int kRun = kTK * kTM / kThreads;  // columns one thread decodes: 16
-constexpr int kLD = kTM + 4;  // padded rows: a step's float4 stores spread
-static_assert(kTN == kTM && kRun % 4 == 0 && kThreads * kRun == kTK * kTM,
-              "a step's decode and g staging share one thread map");
+// dw (d, n) = x_hat^T @ g over one row range (blockIdx.y) for a tile of BD
+// rows of dw and BN columns (blockIdx.x: D tiles first, then slabs of BN
+// columns).  Warps 0 .. kCW - 1 run the product: warp w owns rows
+// (w % WD) * 16MT .. + 16MT - 1 and columns (w / WD) * 8NT .. + 8NT - 1 of
+// the tile.  The PW warps after them stage: g, the words and the block
+// stats of stage s + R - 1 by cp.async into ring slot (s + R - 1) % R,
+// then stage s split into bf16 hi and lo in buffer s % kNB.
+template <int BD, int BN, int KS, int WD, int MT, int NT, int PW, int R,
+          int MAXW>
+__global__ void __launch_bounds__(32 * (kCW + PW), 1)
+dequant_matmul_kernel(const Params p, const Levels lv) {
+  constexpr int kCT = 32 * kCW, kPT = 32 * PW, kT = kCT + kPT;
+  constexpr int WN = BN / (8 * NT);
+  constexpr int LX = padded(BD), LG = padded(BN);
+  constexpr int kRuns = KS * BD / kRun;  // runs of a stage
+  static_assert(WD * WN == kCW && 16 * MT * WD == BD && kRuns % kPT == 0 &&
+                    BN % 8 == 0 && KS % 16 == 0 && R >= 2,
+                "the warps tile the CTA; the runs tile a stage");
 
-__global__ void __launch_bounds__(kThreads)
-dequant_matmul_kernel(const uint32_t* __restrict__ packed,
-                      const float* __restrict__ zero,
-                      const float* __restrict__ rng,
-                      const float* __restrict__ g, float* __restrict__ part,
-                      long long m, int d, int n, long long rows_per_split,
-                      int G, int bits, Levels lv) {
-  __shared__ __align__(16) float xh[kTK][kLD];  // stash rows x dw rows
-  __shared__ __align__(16) float gs[kTK][kLD];  // stash rows x dw columns
+  extern __shared__ __align__(16) float smem[];
+  uint16_t* bufs = reinterpret_cast<uint16_t*>(smem);   // kNB buffers
+  float* ring = smem + kNB * buffer_elems(KS, BD, BN) / 2;  // R slots
   __shared__ float table[quant::kMaxLevels];
   quant::load_levels(lv, table);
   __syncthreads();
-  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
-  const int d0 = blockIdx.x * kTM, n0 = blockIdx.y * kTN;
-  const long long begin = blockIdx.z * rows_per_split;
-  const long long end =
-      begin + rows_per_split < m ? begin + rows_per_split : m;
-  const int W = G / (32 / bits);
-  const uint32_t mask = static_cast<uint32_t>((1ull << bits) - 1ull);
-  // each step, thread t decodes columns c0 .. c0 + kRun - 1 of stash row
-  // mm (and stages the same place of g): one block lookup and one scale
-  // per run.  D % G == 0 puts bpr blocks in a row; G % D == 0 puts rpb
-  // rows in a block
-  const int mm = t / (kTM / kRun), c0 = (t % (kTM / kRun)) * kRun;
-  const int col0 = d0 + c0;
-  const int bpr = d % G == 0 ? d / G : 0, rpb = bpr ? 0 : G / d;
-  const bool gvec = (n & 3) == 0 && (reinterpret_cast<uintptr_t>(g) & 15) == 0;
-  float acc[kRM][4];
-#pragma unroll
-  for (int i = 0; i < kRM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
-  for (long long mc = begin; mc < end; mc += kTK) {
-    const long long row = mc + mm;
-    float v[kRun];
-#pragma unroll
-    for (int c = 0; c < kRun; ++c) v[c] = 0.0f;
-    if (row < end && col0 < d) {
-      const uint32_t r = static_cast<uint32_t>(row);
-      long long block;
-      int e;
-      if (bpr) {
-        const int cb = col0 / G;
-        block = static_cast<long long>(r) * bpr + cb;
-        e = col0 - cb * G;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int dtiles = (p.d + BD - 1) / BD;
+  const int d0 = static_cast<int>(blockIdx.x % dtiles) * BD;
+  const int n0 = static_cast<int>(blockIdx.x / dtiles) * BN;
+  const long long begin = blockIdx.y * p.rows_per_split;
+  const long long end =
+      begin + p.rows_per_split < p.m ? begin + p.rows_per_split : p.m;
+  const int n_stages = static_cast<int>((end - begin + KS - 1) / KS);
+  auto buffer = [&](int b) { return bufs + b * buffer_elems(KS, BD, BN); };
+
+  if (warp >= kCW) {
+    // ------------------------------------------------------ producers
+    const int pt = tid - kCT;
+    // stage s's copies into ring slot s % R, zero-filled past `end` and
+    // past column n: g, and on the ring path each row's block of words
+    // and its range and zero (G % BD == 0: a row's columns of the tile
+    // lie in one block)
+    auto load = [&](int s) {
+      float* slot = ring + (s % R) * p.slot;
+      const long long r0 = begin + static_cast<long long>(s) * KS;
+      if (p.vec_g) {
+        for (int i = pt; i < KS * BN / 4; i += kPT) {
+          const int r = i / (BN / 4), c = i % (BN / 4) * 4;
+          const bool ok = r0 + r < end && n0 + c < p.n;
+          tc::cp_async16(slot + r * BN + c,
+                         ok ? p.g + (r0 + r) * p.n + n0 + c : p.g, ok ? 16 : 0);
+        }
       } else {
-        const uint32_t q = r / rpb;
-        block = q;
-        e = static_cast<int>(r - q * rpb) * d + col0;
+        for (int i = pt; i < KS * BN; i += kPT) {
+          const int r = i / BN, c = i % BN;
+          const bool ok = r0 + r < end && n0 + c < p.n;
+          tc::cp_async4(slot + r * BN + c,
+                        ok ? p.g + (r0 + r) * p.n + n0 + c : p.g, ok ? 4 : 0);
+        }
       }
-      int wi = e % W, sh = (e / W) * bits;
-      float scale = quant::dequant_scale(rng[block], bits), z = zero[block];
+      if (!p.ring) return;
+      float* words = slot + KS * BN;
+      const long long cb = d0 / p.G, bpr = p.d / p.G;
+      float* stats = words + KS * p.W;
+      const float* src = reinterpret_cast<const float*>(p.packed);
+      for (int i = pt; i < KS * p.W / 4; i += kPT) {
+        const int r = i / (p.W / 4), c = i % (p.W / 4) * 4;
+        const bool ok = r0 + r < end;
+        tc::cp_async16(words + r * p.W + c,
+                       ok ? src + ((r0 + r) * bpr + cb) * p.W + c : src,
+                       ok ? 16 : 0);
+      }
+      for (int i = pt; i < 2 * KS; i += kPT) {
+        const int r = i >> 1;
+        const bool ok = r0 + r < end;
+        const float* st = (i & 1) ? p.zero : p.rng;
+        tc::cp_async4(stats + i, ok ? st + (r0 + r) * bpr + cb : st,
+                      ok ? 4 : 0);
+      }
+    };
+    // run j of a stage for this thread: row u / (BD / kRun), columns
+    // (u % (BD / kRun)) * kRun .. + kRun - 1 of the tile, u = pt + j * kPT;
+    // its place in the block is the same at every stage
+    constexpr int kJ = kRuns / kPT;
+    int wofs[kJ], shift[kJ];
 #pragma unroll
-      for (int c = 0; c < kRun; ++c) {
-        if (col0 + c < d) {
-          const uint32_t code = (__ldg(packed + block * W + wi) >> sh) & mask;
-          v[c] = quant::dequant_value(code, scale, z, table, lv.n);
-        }
-        // the next column: the strided layout's next word, or the next
-        // block of the row (only when D % G == 0 and the row goes on)
-        if (++wi == W) {
-          wi = 0;
-          sh += bits;
-        }
-        if (++e == G && col0 + c + 1 < d) {
-          e = wi = sh = 0;
-          ++block;
-          scale = quant::dequant_scale(rng[block], bits);
-          z = zero[block];
-        }
-      }
+    for (int j = 0; j < kJ; ++j) {
+      const int e = (d0 % p.G) + ((pt + j * kPT) % (BD / kRun)) * kRun;
+      wofs[j] = e % p.W;
+      shift[j] = (e / p.W) * p.bits;
     }
-#pragma unroll
-    for (int c = 0; c < kRun; c += 4)
-      *reinterpret_cast<float4*>(&xh[mm][c0 + c]) =
-          make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]);
-#pragma unroll
-    for (int c = 0; c < kRun; c += 4) {
-      const int gn = n0 + c0 + c;
-      float4 gv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (row < end) {
-        const float* gr = g + row * n + gn;
-        if (gvec) {
-          if (gn < n) gv = *reinterpret_cast<const float4*>(gr);
-        } else {
-          gv.x = gn < n ? gr[0] : 0.0f;
-          gv.y = gn + 1 < n ? gr[1] : 0.0f;
-          gv.z = gn + 2 < n ? gr[2] : 0.0f;
-          gv.w = gn + 3 < n ? gr[3] : 0.0f;
-        }
-      }
-      *reinterpret_cast<float4*>(&gs[mm][c0 + c]) = gv;
-    }
-    __syncthreads();
+    const uint32_t mask = static_cast<uint32_t>((1ull << p.bits) - 1ull);
+    auto stage = [&](int s, int b) {
+      const float* slot = ring + (s % R) * p.slot;
+      uint16_t* gh = buffer(b);
+      uint16_t* gl = gh + KS * LG;
+      uint16_t* xh = gl + KS * LG;
+      uint16_t* xl = xh + KS * LX;
+      // g: each element split once for the CTA
 #pragma unroll 4
-    for (int k = 0; k < kTK; ++k)
-      fma_8x4(acc, &xh[k][kRM * ty], &gs[k][4 * tx]);
-    __syncthreads();
+      for (int i = pt; i < KS * BN / 4; i += kPT) {
+        const int r = i / (BN / 4), c = i % (BN / 4) * 4;
+        const float4 v = *reinterpret_cast<const float4*>(slot + r * BN + c);
+        uint2 h, l;
+        tc::split_bf16(v.x, v.y, h.x, l.x);
+        tc::split_bf16(v.z, v.w, h.y, l.y);
+        *reinterpret_cast<uint2*>(gh + r * LG + c) = h;
+        *reinterpret_cast<uint2*>(gl + r * LG + c) = l;
+      }
+      // x_hat: decoded once, 0 past row `end` and column d
+      const uint32_t* words = reinterpret_cast<const uint32_t*>(slot + KS * BN);
+      const float* stats = slot + KS * BN + KS * p.W;
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        const int u = pt + j * kPT;
+        const int r = u / (BD / kRun), cc = (u % (BD / kRun)) * kRun;
+        const long long row = begin + static_cast<long long>(s) * KS + r;
+        float v[kRun];
+#pragma unroll
+        for (int c = 0; c < kRun; ++c) v[c] = 0.0f;
+        if (row < end && d0 + cc < p.d) {
+          if (p.ring) {  // 8 consecutive words, one shift, one block
+            const uint4* w4 =
+                reinterpret_cast<const uint4*>(words + r * p.W + wofs[j]);
+            const float scale = quant::dequant_scale(stats[2 * r], p.bits);
+            const float z = stats[2 * r + 1];
+            const uint4 a = w4[0], c4 = w4[1];
+            const uint32_t w[kRun] = {a.x, a.y, a.z, a.w, c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+            for (int c = 0; c < kRun; ++c)
+              v[c] = quant::dequant_value((w[c] >> shift[j]) & mask, scale, z,
+                                          table, lv.n);
+          } else {
+            decode_any(p, row, d0 + cc, table, lv.n, v);
+          }
+        }
+        uint32_t h[kRun / 2], l[kRun / 2];
+#pragma unroll
+        for (int c = 0; c < kRun / 2; ++c)
+          tc::split_bf16(v[2 * c], v[2 * c + 1], h[c], l[c]);
+        *reinterpret_cast<uint4*>(xh + r * LX + cc) =
+            make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(xl + r * LX + cc) =
+            make_uint4(l[0], l[1], l[2], l[3]);
+      }
+    };
+
+    const int staged = kStage ? n_stages : (n_stages < kNB ? n_stages : kNB);
+#pragma unroll
+    for (int s = 0; s < R - 1; ++s) {
+      if (s < staged) load(s);
+      tc::cp_async_commit();
+    }
+    for (int s = 0; s < n_stages; ++s) {
+      const int b = s % kNB;
+      if (s < staged) {
+        tc::cp_async_wait<R - 2>();
+        // stage s landed for every producer; all are done with slot s - 1
+        bar_sync(kProducers, kPT);
+        if (s + R - 1 < staged) load(s + R - 1);
+        tc::cp_async_commit();
+      }
+      if (s >= kNB) bar_sync(kFree + b, kT);  // the product of s - kNB is done
+      if (s < staged) stage(s, b);
+      bar_arrive(kFull + b, kT);
+    }
+    tc::cp_async_wait<0>();
+    return;
   }
-  store_8x4(part + static_cast<long long>(blockIdx.z) * d * n, acc, d0, n0, d,
-            n, ty, tx);
+
+  // -------------------------------------------------------- consumers
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wd = warp % WD, wn = warp / WD;
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.0f;
+
+  // One k16 step of one m16n8 tile: lo.hi, hi.lo, hi.hi into a fresh
+  // accumulator, which is then added to the tile's sum rounding to nearest.
+  // The tensor cores truncate where they add (design 1), so each truncating
+  // chain is these three products alone, never a range's whole row sum.
+  auto step = [](float* c, const uint32_t* ah, const uint32_t* al,
+                 uint32_t bh0, uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+    float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    tc::mma_bf16(t, al, bh0, bh1);  // lo . hi
+    tc::mma_bf16(t, ah, bl0, bl1);  // hi . lo
+    tc::mma_bf16(t, ah, bh0, bh1);  // hi . hi
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] = __fadd_rn(c[e], t[e]);
+  };
+
+  // The product of a stage buffer: per k16 step the warp reads its A
+  // fragments (x_hat^T: ldmatrix.trans of the [row][column] tile) and, a
+  // pair of n-tiles at a time, its B fragments (g, the same), hi and lo,
+  // and runs one step for each of its m16n8 tiles.
+  auto product = [&](int b) {
+    const uint16_t* gh = buffer(b);
+    const uint16_t* gl = gh + KS * LG;
+    const uint16_t* xh = gl + KS * LG;
+    const uint16_t* xl = xh + KS * LX;
+#pragma unroll
+    for (int kk = 0; kk < KS; kk += 16) {
+      // A: matrix q = lane / 8 holds rows k + 8 (q / 2), columns + 8 (q % 2)
+      const int a_off = (kk + (lane & 7) + ((lane >> 4) << 3)) * LX +
+                        wd * 16 * MT + (((lane >> 3) & 1) << 3);
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        tc::ldmatrix_x4_trans(ah[mi], xh + a_off + 16 * mi);
+        tc::ldmatrix_x4_trans(al[mi], xl + a_off + 16 * mi);
+      }
+      // B: matrix q holds rows k + 8 (q % 2), columns + 8 (q / 2): b0, b1
+      // of n-tiles 2jp and 2jp + 1
+      const int b_row = (kk + (lane & 7) + (((lane >> 3) & 1) << 3)) * LG +
+                        wn * 8 * NT;
+#pragma unroll
+      for (int jp = 0; jp < NT / 2; ++jp) {
+        uint32_t bh[4], bl[4];
+        const int off = b_row + 16 * jp + ((lane >> 4) << 3);
+        tc::ldmatrix_x4_trans(bh, gh + off);
+        tc::ldmatrix_x4_trans(bl, gl + off);
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int t = 0; t < 2; ++t)
+            step(acc[mi][2 * jp + t], ah[mi], al[mi], bh[2 * t],
+                 bh[2 * t + 1], bl[2 * t], bl[2 * t + 1]);
+      }
+      if (NT & 1) {  // the last n-tile alone (lanes 16-31 repeat 0-15)
+        uint32_t bh[2], bl[2];
+        const int off = b_row + 8 * (NT - 1);
+        tc::ldmatrix_x2_trans(bh, gh + off);
+        tc::ldmatrix_x2_trans(bl, gl + off);
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+          step(acc[mi][NT - 1], ah[mi], al[mi], bh[0], bh[1], bl[0], bl[1]);
+      }
+    }
+  };
+
+  for (int s = 0; s < n_stages; ++s) {
+    const int b = s % kNB;
+    bar_sync(kFull + b, kT);
+    if (kProduct) product(b);
+    if (s + kNB < n_stages) bar_arrive(kFree + b, kT);
+  }
+
+  float* out = p.part + static_cast<long long>(blockIdx.y) * p.d * p.n;
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = n0 + wn * 8 * NT + 8 * j + 2 * t4;
+      if (col >= p.n) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = d0 + wd * 16 * MT + 16 * mi + g + 8 * h;
+        if (row >= p.d) continue;
+        float* o = out + static_cast<long long>(row) * p.n + col;
+        const float v0 = acc[mi][j][2 * h], v1 = acc[mi][j][2 * h + 1];
+        if (col + 1 >= p.n) {
+          o[0] = v0;
+        } else if ((p.n & 1) == 0) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          o[0] = v0;
+          o[1] = v1;
+        }
+      }
+    }
 }
+
+template <int BD, int BN, int KS, int WD, int MT, int NT, int PW, int R,
+          int MAXW>
+int launch(Params p, const Levels& lv, int splits, cudaStream_t stream) {
+  const auto kern = dequant_matmul_kernel<BD, BN, KS, WD, MT, NT, PW, R, MAXW>;
+  // the ring path needs a row's columns of the tile in one block, whole
+  // 32-byte runs of words and at most MAXW words a block (shared memory)
+  p.ring = p.d % p.G == 0 && p.G % BD == 0 && p.W % kRun == 0 &&
+           p.W <= MAXW && reinterpret_cast<uintptr_t>(p.packed) % 16 == 0;
+  p.slot = KS * BN + (p.ring ? KS * p.W + 2 * KS : 0);
+  const size_t smem = sizeof(uint16_t) * kNB * buffer_elems(KS, BD, BN) +
+                      sizeof(float) * R * static_cast<size_t>(p.slot);
+  constexpr size_t max_smem =
+      sizeof(uint16_t) * kNB * buffer_elems(KS, BD, BN) +
+      sizeof(float) * R * (KS * BN + KS * MAXW + 2 * KS);
+  static const cudaError_t attr = [&] {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    return cudaFuncSetAttribute(kern,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(max_smem));
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const unsigned tiles =
+      static_cast<unsigned>((p.d + BD - 1) / BD * ((p.n + BN - 1) / BN));
+  kern<<<dim3(tiles, static_cast<unsigned>(splits)), 32 * (kCW + PW), smem,
+         stream>>>(p, lv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace bwd
 
 // dw[i] = the fixed-order pairwise sum of part[0..S)[i]: level by level,
 // partial 2k plus partial 2k + 1, an odd tail carried unadded (the
@@ -681,6 +1003,19 @@ extern "C" int matmul_quant(const float* x, const float* w, float* y,
   return fwd::launch<8, 4, 2, 16, 2, 2>(p, lv, s);
 }
 
+// The backward's tiles, {rows of dw, columns, stash rows a stage}, and the
+// one dequant_matmul launches for a gradient of n columns.  The wrapper's
+// tile() sizes the row ranges and the scratch from the same table without
+// the library (on the CPU too); a gpu test holds the two equal.
+constexpr int kTiles[3][3] = {{128, 40, 64}, {128, 64, 64}, {64, 256, 32}};
+static int tile_index(int n) {
+  return n <= kTiles[0][1] ? 0 : n <= kTiles[1][1] ? 1 : 2;
+}
+
+extern "C" void dequant_matmul_tile(int n, int* tile) {
+  for (int i = 0; i < 3; ++i) tile[i] = kTiles[tile_index(n)][i];
+}
+
 // dw (d, n) = dequant(packed)^T (d, m) @ g (m, n) over `splits` row ranges
 // of rows_per_split rows; part holds splits * d * n floats of scratch (it
 // may be dw itself when splits == 1).
@@ -690,15 +1025,41 @@ extern "C" int dequant_matmul(const uint32_t* packed, const float* zero,
                               int splits, long long rows_per_split,
                               int group_size, int bits, const float* levels,
                               int n_levels, void* stream) {
+  bwd::Params p{};
+  p.packed = packed;
+  p.zero = zero;
+  p.rng = rng;
+  p.g = g;
+  p.part = splits == 1 ? dw : part;
+  p.m = m;
+  p.rows_per_split = rows_per_split;
+  p.d = d;
+  p.n = n;
+  p.G = group_size;
+  p.bits = bits;
+  p.W = group_size / (32 / bits);
+  p.vec_g = n % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const Levels lv = quant::make_levels(levels, n_levels);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>((d + kTM - 1) / kTM),
-                  static_cast<unsigned>((n + kTN - 1) / kTN),
-                  static_cast<unsigned>(splits));
-  dequant_matmul_kernel<<<grid, kThreads, 0, s>>>(
-      packed, zero, rng, g, splits == 1 ? dw : part, m, d, n, rows_per_split,
-      group_size, bits, quant::make_levels(levels, n_levels));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  // the tile by the width of dw: <kTiles row, warps along D, m-tiles and
+  // n-tiles a consumer warp, producer warps, ring slots, words a block at
+  // most on the ring path>
+  constexpr auto& t = kTiles;
+  int err;
+  switch (tile_index(n)) {
+    case 0:
+      err = bwd::launch<t[0][0], t[0][1], t[0][2], 8, 1, 5, 8, 4, 64>(
+          p, lv, splits, s);
+      break;
+    case 1:
+      err = bwd::launch<t[1][0], t[1][1], t[1][2], 4, 2, 4, 8, 3, 64>(
+          p, lv, splits, s);
+      break;
+    default:
+      err = bwd::launch<t[2][0], t[2][1], t[2][2], 2, 2, 8, 8, 4, 16>(
+          p, lv, splits, s);
+  }
+  if (err != cudaSuccess || splits == 1) return err;
   const long long count = static_cast<long long>(d) * n;
   tree_sum_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0, s>>>(
       part, dw, count, splits);

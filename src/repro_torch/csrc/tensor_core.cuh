@@ -1,6 +1,7 @@
-// Tensor-core and async-copy helpers shared by the kernels that run a
-// float32 product on Hopper's tensor cores in split TF32: rp_matmul.cu
-// (rp_project) and fused_matmul.cu (matmul_quant).
+// Tensor-core and async-copy helpers shared by the kernels that run their
+// products on Hopper's tensor cores: rp_matmul.cu (rp_project, split TF32),
+// fused_matmul.cu (matmul_quant in split TF32, dequant_matmul in split
+// bf16) and flash_attention.cu (bf16).
 //
 // cp.async copies device memory into shared memory without passing through
 // registers, 16 bytes (cg: L2 only) or 4 bytes (ca) a thread; a src_bytes
@@ -12,14 +13,20 @@
 // as two TF32 parts (see split_tf32); mma_tf32 is one m16n8k8 product with
 // float32 accumulators (A row-major, B column-major fragments as the PTX
 // ISA lays them out for .tf32).
+//
+// pack_bf16, split_bf16, ldmatrix_* and mma_bf16: the same in bf16 (see
+// split_bf16); mma_bf16 is one m16n8k16 product with float32 accumulators,
+// its fragments read from shared memory by ldmatrix (.trans: the stored
+// 8 x 8 matrices transposed, so a [k][m] or [k][n] layout gives A or B).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace tc {
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
@@ -27,7 +34,7 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
                                           int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
@@ -59,6 +66,57 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
 __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as a bf16 pair, x0 in the low half (the lower column),
+// each rounded to nearest, ties to even, as cvt.rn.bf16x2.f32 rounds.
+__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Two floats as bf16 hi and lo pairs: x = hi + lo + e with |e| <= 2^-16 |x|,
+// hi = rn(x), lo = rn(x - hi).  x - hi is exact in float32.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  lo = pack_bf16(__fsub_rn(x0, hf.x), __fsub_rn(x1, hf.y));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s)
+               : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

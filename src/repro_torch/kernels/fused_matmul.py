@@ -28,11 +28,21 @@ _P = ctypes.c_void_p
 #: Dynamic shared memory one CTA of the forward may use on an H100 (bytes:
 #: 227 KiB less the kernel's static level table).
 MAX_SMEM = 232_448 - 64
-#: Backward tile (rows of dw x columns) and rows staged per step.
-TILE, ROWS_PER_STEP = 64, 32
-#: The backward aims at this many CTAs over all row ranges (at most
-#: MAX_SPLITS ranges): enough to fill the card several CTAs deep.
-TARGET_CTAS, MAX_SPLITS = 512, 64
+#: The backward's row ranges aim at TARGET_CTAS CTAs over all of them, one
+#: an SM (at most MAX_SPLITS ranges).
+TARGET_CTAS, MAX_SPLITS = 128, 64
+
+
+def tile(n: int) -> tuple[int, int, int]:
+    """(rows of dw, columns, stash rows a stage) of the backward's CTA tile
+    for an (M, n) gradient: every column of dw up to 256 in one CTA.  The
+    kernel launches the same tile (``dequant_matmul_tile`` in
+    ``csrc/fused_matmul.cu``, held equal by a ``gpu`` test)."""
+    if n <= 40:
+        return 128, 40, 64
+    if n <= 64:
+        return 128, 64, 64
+    return 64, 256, 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,17 +59,20 @@ def _lib(defines: tuple = ()) -> ctypes.CDLL:
                                    ctypes.c_longlong, ctypes.c_int,
                                    ctypes.c_int, _P, ctypes.c_int, _P]
     lib.matmul_quant.restype = lib.dequant_matmul.restype = ctypes.c_int
+    lib.dequant_matmul_tile.argtypes = [ctypes.c_int, _P]
+    lib.dequant_matmul_tile.restype = None
     return lib
 
 
 def splits(m: int, d: int, n: int) -> tuple[int, int]:
     """(S, rows per range) of the backward's row contraction for an (m, d)
     stash and an (m, n) gradient; the scratch is ``S * d * n`` floats when
-    ``S > 1``.  Ranges are whole steps of ``ROWS_PER_STEP`` rows."""
-    tiles = math.ceil(d / TILE) * math.ceil(n / TILE)
-    steps = max(1, math.ceil(m / ROWS_PER_STEP))
+    ``S > 1``.  Ranges are whole stages of the kernel's tile."""
+    bd, bn, ks = tile(n)
+    tiles = math.ceil(d / bd) * math.ceil(n / bn)
+    steps = max(1, math.ceil(m / ks))
     s = min(MAX_SPLITS, steps, max(1, math.ceil(TARGET_CTAS / tiles)))
-    rows = math.ceil(steps / s) * ROWS_PER_STEP
+    rows = math.ceil(steps / s) * ks
     return max(1, math.ceil(m / rows)), rows
 
 

@@ -251,6 +251,21 @@ def test_cuda_matmul_quant_bit_identical_repeat(cuda, d, n):
         assert torch.equal(a, b)
 
 
+def _check_dequant_matmul(t_fk, packed, zero, rng, gr, bits, g, d, levels):
+    """dw within 1e-4 * (|x_hat|^T |g|) of the plain version and two calls
+    bit-identical; returns dw."""
+    dw = t_fk.dequant_matmul(packed, zero, rng, gr, bits, g, d, levels)
+    again = t_fk.dequant_matmul(packed, zero, rng, gr, bits, g, d, levels)
+    assert torch.equal(dw, again)
+    x_hat = t_ref.dequantize_packed(packed, zero, rng, bits, g,
+                                    levels).reshape(-1, d)
+    want = t_ref.dequant_matmul_packed(packed, zero, rng, gr, bits, g, d,
+                                       levels)
+    scale = x_hat.abs().T @ gr.abs()
+    assert bool(((dw - want).abs() <= 1e-4 * scale + 1e-30).all())
+    return dw
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("levels", [None, VM2], ids=["uniform", "vm"])
 @pytest.mark.parametrize("m,d,g,n", FUSED_SHAPES)
@@ -263,15 +278,115 @@ def test_cuda_dequant_matmul_matches_plain(cuda, levels, m, d, g, n):
     x = torch.from_numpy(_x(m, d, seed=m)).cuda()
     gr = torch.from_numpy(_x(m, n, seed=n)).cuda()
     packed, zero, rng = t_qk.quant_pack(x.reshape(-1, g), 2, 42, levels)
+    _check_dequant_matmul(t_fk, packed, zero, rng, gr, 2, g, d, levels)
+
+
+#: (m, d, g, n, bits) for each path of the tensor-core backward: every
+#: column width it is instantiated for (40, 64, 256) at and below its full
+#: width (48, odd 43, below 8), slabs of 256 beyond, M just past a row step
+#: of 64 or 32 rows (a one-row last range), blocks spanning rows
+#: (G % D == 0), D not a multiple of the 64- or 128-row tile, and blocks
+#: shorter than a thread's run of 8 columns (G = 4 at 8 bits).
+DEQUANT_PATHS = {"n40": (1000, 512, 256, 40, 2),
+                 "n48": (1000, 256, 256, 48, 2),
+                 "n256": (1000, 256, 256, 256, 2),
+                 "n_odd": (300, 64, 64, 43, 2),
+                 "n_below_8": (300, 64, 64, 5, 2),
+                 "n520_slabs": (150, 64, 64, 520, 2),
+                 "m_past_step": (65, 256, 256, 64, 2),
+                 "m_past_step_n256": (33, 256, 256, 256, 2),
+                 "spanning_rows": (136, 32, 256, 40, 2),
+                 "d_ragged": (100, 96, 96, 256, 2),
+                 "short_blocks": (200, 64, 4, 40, 8)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levels", [None, VM2], ids=["uniform", "vm"])
+@pytest.mark.parametrize("case", sorted(DEQUANT_PATHS))
+def test_cuda_dequant_matmul_kernel_paths(cuda, levels, case):
+    from repro_torch.kernels import fused_matmul as t_fk
+
+    m, d, g, n, bits = DEQUANT_PATHS[case]
+    lv = levels if bits == 2 else None
+    x = torch.from_numpy(_x(m, d, seed=m + d)).cuda()
+    gr = torch.from_numpy(_x(m, n, seed=n)).cuda()
+    packed, zero, rng = t_qk.quant_pack(x.reshape(-1, g), bits, 42, lv)
+    _check_dequant_matmul(t_fk, packed, zero, rng, gr, bits, g, d, lv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levels", [None, VM2], ids=["uniform", "vm"])
+def test_cuda_dequant_matmul_misaligned_gradient(cuda, levels):
+    """A gradient view starting 4 bytes past a 16-byte boundary takes the
+    4-byte copies."""
+    from repro_torch.kernels import fused_matmul as t_fk
+
+    m, d, g, n = 300, 256, 256, 256
+    x = torch.from_numpy(_x(m, d, seed=8)).cuda()
+    flat = torch.from_numpy(_x(1, m * n + 1, seed=7)).cuda().reshape(-1)
+    gr = flat[1:].reshape(m, n)
+    packed, zero, rng = t_qk.quant_pack(x.reshape(-1, g), 2, 42, levels)
+    _check_dequant_matmul(t_fk, packed, zero, rng, gr, 2, g, d, levels)
+
+
+@pytest.mark.gpu
+def test_cuda_dequant_matmul_tile_is_the_wrappers(cuda):
+    """The kernel launches the tile the wrapper sizes the row ranges and
+    the scratch for."""
+    import ctypes
+
+    from repro_torch.kernels import fused_matmul as t_fk
+
+    got = (ctypes.c_int * 3)()
+    for n in (1, 5, 40, 41, 48, 64, 65, 256, 520):
+        t_fk._lib().dequant_matmul_tile(n, got)
+        assert tuple(got) == t_fk.tile(n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levels", [None, VM2], ids=["uniform", "vm"])
+@pytest.mark.parametrize("m,d,n", [(4096, 256, 64), (4096, 256, 256),
+                                   (4096, 512, 256), (4096, 512, 40),
+                                   (169_343, 256, 256), (169_343, 512, 256),
+                                   (169_343, 512, 40)])
+def test_cuda_dequant_matmul_aligned_errors_in_band(cuda, levels, m, d, n):
+    """Identical stash rows and identical non-negative g rows, so no
+    rounding error cancels (the split's, the tensor cores' truncating
+    steps, the float32 sums): dw within 1e-4 * (|x_hat|^T |g|) of the exact
+    product of x_hat and g (float64), also at the slice's 169,343 rows,
+    whose row ranges (splits()) are the longest sums.  One bf16 pass, a
+    split of one operand alone, or one truncating chain along a range
+    would leave it (tests/test_torch_dequant_split.py)."""
+    from repro_torch.kernels import fused_matmul as t_fk
+
+    g = 256
+    x = torch.from_numpy(_x(1, d, seed=d)).cuda()
+    packed, zero, rng = t_qk.quant_pack(x.reshape(-1, g), 2, 42, levels)
+    packed, zero, rng = packed.repeat(m, 1), zero.repeat(m), rng.repeat(m)
+    gr = torch.from_numpy(np.abs(_x(1, n, seed=n))).cuda().repeat(m, 1)
     dw = t_fk.dequant_matmul(packed, zero, rng, gr, 2, g, d, levels)
-    again = t_fk.dequant_matmul(packed, zero, rng, gr, 2, g, d, levels)
-    assert torch.equal(dw, again)
     x_hat = t_ref.dequantize_packed(packed, zero, rng, 2, g,
-                                    levels).reshape(m, d)
-    want = t_ref.dequant_matmul_packed(packed, zero, rng, gr, 2, g, d,
-                                       levels)
-    scale = x_hat.abs().T @ gr.abs()
-    assert bool(((dw - want).abs() <= 1e-4 * scale + 1e-30).all())
+                                    levels).reshape(m, d).double()
+    exact = x_hat.T @ gr.double()
+    scale = x_hat.abs().T @ gr.double().abs()
+    excess = float(((dw.double() - exact).abs() / (1e-4 * scale)).max())
+    assert excess <= 1.0, f"aligned errors {excess} of the band"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,n", [(256, 256), (512, 256), (512, 40)])
+def test_cuda_dequant_matmul_bit_identical_repeat(cuda, d, n):
+    """Fixed row ranges, each output summed by one warp in a fixed order,
+    the fixed-order tree, no atomics: two calls at the slice's layer widths
+    give the same bits (over 16 to 64 ranges)."""
+    from repro_torch.kernels import fused_matmul as t_fk
+
+    m, g = 20000, 256
+    x = torch.from_numpy(_x(m, d, seed=d + n)).cuda() * 1.7
+    gr = torch.from_numpy(_x(m, n, seed=n)).cuda() / 400
+    packed, zero, rng = t_qk.quant_pack(x.reshape(-1, g), 2, 42, VM2)
+    assert t_fk.splits(m, d, n)[0] > 1
+    _check_dequant_matmul(t_fk, packed, zero, rng, gr, 2, g, d, VM2)
 
 
 @pytest.mark.gpu

@@ -176,22 +176,32 @@ def test_route_fused_matches_reference(bits, g, levels, rp_ratio):
                                    (9, 64, 48), (1, 8, 8)])
 def test_backward_splits_are_whole_steps_covering_rows(m, d, n):
     s, rows = t_fk.splits(m, d, n)
-    assert 1 <= s <= t_fk.MAX_SPLITS and rows % t_fk.ROWS_PER_STEP == 0
+    assert 1 <= s <= t_fk.MAX_SPLITS and rows % t_fk.tile(n)[2] == 0
     assert (s - 1) * rows < m <= s * rows
     assert t_fk.splits(m, d, n) == (s, rows)
     assert t_fk.scratch_nbytes(m, d, n) == (4 * s * d * n if s > 1 else 0)
 
 
+@pytest.mark.parametrize("d,n,limit", [(256, 256, 8_388_608),
+                                       (512, 256, 8_388_608),
+                                       (512, 40, 5_242_880)])
+def test_backward_scratch_no_larger_at_the_slice_shapes(d, n, limit):
+    """At the rp_ratio-0 slice's layers (169,343 rows) the backward's
+    partials take no more device memory than the 64 x 64 SIMT tiles' did."""
+    assert 0 < t_fk.scratch_nbytes(169_343, d, n) <= limit
+
+
 def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     """A changed header rebuilds every source that includes it, and only
-    those: the SR rounding (quant_common.cuh) and the tensor-core helpers
-    (tensor_core.cuh)."""
+    those: the SR rounding (quant_common.cuh) and the tensor-core and
+    async-copy helpers (tensor_core.cuh)."""
     for p in build.CSRC.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)
     for name, users in (("quant_common.cuh", {"quant_blockwise",
                                               "fused_matmul"}),
-                        ("tensor_core.cuh", {"rp_matmul", "fused_matmul"})):
+                        ("tensor_core.cuh", {"rp_matmul", "fused_matmul",
+                                             "flash_attention"})):
         before = {n: build.lib_path(n) for n in build.SOURCES}
         header = tmp_path / name
         header.write_text(header.read_text() + "\n// changed\n")
