@@ -148,8 +148,13 @@ def check_quant(torch, qk, ref, levels, flush, gen) -> dict:
                                      f"{d_err}")
             w = n_blocks * 256 // 16
             q_bytes = n_blocks * 256 * 4 + w * 4 + 8 * n_blocks
-            # per element: ~6 float ops (normalize, clip, SR compare) and
-            # ~12 integer ops (hash, pack); 4 per element to dequantize
+            # the function's own work an element: ~18 operations (the
+            # murmur3 hash ~9; normalize, clip, floor and SR compare ~7; the
+            # pack 2), 4 to dequantize.  The kernels issue 41 SASS
+            # instructions an element to quantize with uniform levels, 82
+            # with VM, 9 and 14 to dequantize (`scripts/kernel_times.py
+            # quant --sass`): at ~33.5 T lane-instructions/s the uniform
+            # quantizer's issue time is about its bytes' time, VM twice it
             q_bound = bound(q_bytes, 18 * n_blocks * 256)
             d_bound = bound(q_bytes, 4 * n_blocks * 256)
             q = dict(ms=time_ms(torch, lambda: qk.quant_pack(x, 2, 1234, lv), flush),
@@ -380,6 +385,21 @@ def check_small_training(torch, train_gnn, cfg, small_graph) -> None:
         f"cpu {b}")
 
 
+#: Name fragments of the port's own kernels: a profile lists them below
+#: its top rows too, so each one's device time is read in every profile.
+OWN_KERNELS = ("quant_vec_kernel", "quant_scalar_kernel", "rp_kernel",
+               "matmul_quant_kernel", "dequant_matmul_kernel", "tree_sum",
+               "flash_")
+
+
+def log_profile(rows, top: int) -> None:
+    """Device time by kernel, largest first: the first ``top`` rows and
+    every row of the port's own kernels."""
+    for i, (ms, count, key) in enumerate(rows):
+        if i < top or any(k in key for k in OWN_KERNELS):
+            log(f"  {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+
+
 def profile_step(torch, g, cfg, model) -> None:
     """Where one training step's time goes: device time per kernel name
     (torch.profiler, CUPTI) and the device's idle share of the step's wall
@@ -407,8 +427,7 @@ def profile_step(torch, g, cfg, model) -> None:
     busy = sum(r[0] for r in rows)
     log(f"profiled step: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
         f"idle share {1 - busy / wall_ms:.3f}")
-    for ms, count, key in rows[:15]:
-        log(f"  {ms:9.3f} ms  x{count:<4d} {key[:100]}")
+    log_profile(rows, 15)
 
 
 FUSED = ("matmul_quant", "dequant_matmul")
@@ -709,8 +728,7 @@ def profile_serve(torch, engine, requests) -> dict:
         busy = sum(r[0] for r in rows)
         log(f"profiled {what}: wall {wall_ms:.3f} ms, device busy "
             f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}")
-        for ms, count, key in rows[:12]:
-            log(f"  {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+        log_profile(rows, 12)
         return out
 
     out = {}

@@ -30,8 +30,22 @@ def _lib() -> ctypes.CDLL:
     lib.dequant_unpack.argtypes = [_P, _P, _P, _P, ctypes.c_longlong,
                                    ctypes.c_int, ctypes.c_int, _P,
                                    ctypes.c_int, _P]
+    lib.quant_lanes_per_block.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.quant_pack.restype = lib.dequant_unpack.restype = ctypes.c_int
+    lib.quant_lanes_per_block.restype = ctypes.c_int
     return lib
+
+
+def lanes_per_block(group_size: int, bits: int) -> int:
+    """Lanes of the kernels' vector path that take one block (``G / 16``,
+    four 16-byte chunks a lane), or 0 where the kernels take their scalar
+    path (one warp a block): the vector path takes ``G`` of 64, 128 or 256
+    whose words are whole 16-byte groups (``G * bits`` a multiple of 128),
+    with 16-byte aligned inputs and outputs.  The rule of
+    ``quant_lanes_per_block`` in ``csrc/quant_blockwise.cu``."""
+    if group_size not in (64, 128, 256) or group_size * bits % 128:
+        return 0
+    return group_size // 16
 
 
 def unsupported(bits: int, group_size: int, levels) -> str | None:

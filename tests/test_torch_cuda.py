@@ -57,6 +57,133 @@ def test_cuda_quant_misaligned_input(cuda):
         assert torch.equal(a, b)
 
 
+def _assert_quant_round_trip(x, bits, seed, levels, rows_per_seed=None):
+    """quant_pack's words, zero and range and dequant_unpack's values
+    bit-equal to the plain version's; returns the kernel's triplet."""
+    g = x.shape[1]
+    got = t_qk.quant_pack(x, bits, seed, levels, rows_per_seed=rows_per_seed)
+    want = t_ref.quantize_packed(x, bits, seed, levels,
+                                 rows_per_seed=rows_per_seed)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(t_qk.dequant_unpack(*got, bits, g, levels),
+                       t_ref.dequantize_packed(*want, bits, g, levels))
+    return got
+
+
+#: Every shape the quant kernels take on the main path (PERF.md section 6):
+#: the RP-8 slice's layers and the rp_ratio-0 slice's fused="off" layer
+#: inputs (2 bits, uniform and VM levels), and the KV cache's prefill (one
+#: seed a token of 40 blocks), decode step and window (4 bits, uniform).
+MAIN_QUANT_SHAPES = {
+    **{f"{name}_{lv}": (n, 256, 2, None, lv) for name, n in (
+        ("rp8_21168", 21_168), ("rp8_42336", 42_336),
+        ("rp0_169343", 169_343), ("rp0_338686", 338_686))
+       for lv in ("uniform", "vm")},
+    "kv_prefill": (161_280, 64, 4, 40, "uniform"),
+    "kv_decode": (160, 64, 4, 40, "uniform"),
+    "kv_window": (166_400, 64, 4, None, "uniform")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(MAIN_QUANT_SHAPES))
+def test_cuda_quant_main_path_shapes_bit_equal(cuda, shape):
+    from repro_torch.engine.seeds import kv_seed
+
+    n, g, bits, rps, lv = MAIN_QUANT_SHAPES[shape]
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.randn((n, g), device="cuda", generator=gen) * 1.9 + 0.3
+    seed = 1234
+    if rps:
+        tok = torch.arange(n // rps, device="cuda")
+        seed = kv_seed(tok % 1008, tok // 1008, 7, 1)
+    _assert_quant_round_trip(x, bits, seed, VM2 if lv == "vm" else None, rps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levels", [None, VM2], ids=["uniform", "vm"])
+@pytest.mark.parametrize("n,g,bits", [
+    (1, 256, 2), (1, 64, 4), (1, 250, 16),     # one block
+    (25_357, 256, 2), (100_003, 64, 4),         # past whole sweeps of the
+    (8_191, 128, 16), (3_001, 8, 16),           # persistent grid, ragged
+    (4_099, 128, 1), (4_099, 64, 1),            # bits 1: vector / scalar
+    (2_053, 64, 8), (2_053, 256, 8),            # bits 8
+    (517, 250, 16), (517, 32, 16),              # bits 16: scalar / vector
+    (300, 512, 2), (77, 96, 4)])                # scalar: G off the vector path
+def test_cuda_quant_paths_bit_equal(cuda, levels, n, g, bits):
+    """Both paths of both kernels, at counts that are not a multiple of the
+    blocks a CTA or the persistent grid takes."""
+    if levels is not None and bits != 2:
+        levels = optimize_levels(32, bits) if bits <= 4 else None
+    x = torch.from_numpy(_x(n, g, seed=n + bits)).cuda()
+    _assert_quant_round_trip(x, bits, 99, levels)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levels", [None, VM2], ids=["uniform", "vm"])
+@pytest.mark.parametrize("g,bits", [(256, 2), (64, 4)])
+def test_cuda_dequant_misaligned_words(cuda, levels, g, bits):
+    """Words whose start is 4 bytes past a 16-byte boundary take the
+    scalar unpack, with the same values."""
+    x = torch.from_numpy(_x(301, g, seed=g)).cuda()
+    p, z, r = t_qk.quant_pack(x, bits, 3, levels)
+    flat = torch.empty(p.numel() + 1, dtype=torch.int32, device="cuda")
+    flat[1:] = p.reshape(-1)
+    p_mis = flat[1:].reshape(p.shape)
+    assert p_mis.data_ptr() % 16
+    assert torch.equal(t_qk.dequant_unpack(p_mis, z, r, bits, g, levels),
+                       t_ref.dequantize_packed(p, z, r, bits, g, levels))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,bits", [(256, 2), (64, 4), (250, 16)])
+def test_cuda_quant_zero_range_and_denormal_blocks(cuda, g, bits):
+    """Constant blocks (range 0, clamped to EPS), blocks of denormals and
+    of a denormal spread on a large offset, beside ordinary blocks."""
+    x = _x(64, g, seed=5)
+    x[1] = 3.25
+    x[2] = 0.0
+    tiny = np.random.default_rng(6).integers(1, 2**23, size=(3, g))
+    x[3:6] = tiny.astype(np.uint32).view(np.float32)   # positive denormals
+    x[6] = -x[3]
+    x[7] = np.float32(1e-38) + x[4]
+    x[8, ::2] = np.float32(-0.0)
+    x[8, 1::2] = np.float32(0.0)
+    for levels in (None, VM2 if bits == 2 else None):
+        _assert_quant_round_trip(torch.from_numpy(x).cuda(), bits, 17, levels)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,g,bits,rps", [(42_336, 256, 2, None),
+                                          (161_280, 64, 4, 40),
+                                          (301, 250, 16, None)])
+def test_cuda_quant_bit_identical_repeat(cuda, n, g, bits, rps):
+    from repro_torch.engine.seeds import kv_seed
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((n, g), device="cuda", generator=gen)
+    seed = 8
+    if rps:
+        seed = kv_seed(torch.arange(n // rps, device="cuda"), 0, 3, 0)
+    a = t_qk.quant_pack(x, bits, seed, rows_per_seed=rps)
+    b = t_qk.quant_pack(x, bits, seed, rows_per_seed=rps)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    assert torch.equal(t_qk.dequant_unpack(*a, bits, g),
+                       t_qk.dequant_unpack(*b, bits, g))
+
+
+@pytest.mark.gpu
+def test_cuda_quant_lanes_per_block_is_the_kernels(cuda):
+    """The Python rule of the vector path (what the CPU layout test
+    mirrors) is the one the library applies."""
+    lib = t_qk._lib()
+    for g in (4, 8, 16, 32, 64, 96, 128, 250, 256, 512, 1024):
+        for bits in (1, 2, 4, 8, 16):
+            assert lib.quant_lanes_per_block(g, bits) == \
+                t_qk.lanes_per_block(g, bits), (g, bits)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,d,r", [(677, 256, 32), (130, 512, 64),
                                    (33, 40, 5), (300, 24, 8)])
