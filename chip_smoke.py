@@ -20,7 +20,10 @@ Phases, in order; any failure raises and exits non-zero:
    the full-size aggregation (spmm) checked for bit-reproducibility;
    (the fused matmul-quant pair at the rp_ratio-0 slice's layer shapes
    is also held against the quant kernels and timed beside its two-pass
-   spelling);
+   spelling; the quant kernels also at Table 1's flickr shapes, G = 125
+   and G = 1000 at 2 bits, whose words are ragged, at 8-bit VM, a
+   256-level table, at 42,336 and 21,168 blocks of 256, and at the 8-bit
+   AdamW moments' blocks);
 4. slice 1: full-graph i-EXACT GraphSAGE training (arxiv-like at full
    size, hidden 256-256, INT2, G=256, RP 8, VM) through ``train_gnn`` on
    the card, with launch counts, the live stash against the byte ledger,
@@ -33,7 +36,19 @@ Phases, in order; any failure raises and exits non-zero:
    ``fused="off"`` from the same weights (losses within rtol 1e-3, equal
    stash bytes, epoch times and peak memory side by side) and one
    profiled step;
-6. slice 3: serving full-width qwen1.5-4b (random bf16 weights, seed 0)
+6. slice 4, the rest of the full-graph main path: autoprec on slice 1
+   (``bit_budget=2.0``, ``autoprec_refresh=2``, 4 epochs: every width in
+   ``BIT_CHOICES``, the allocation within the budget, a bit-identical
+   repeat) and where its re-solve's time goes; every layer at 8-bit VM
+   for 2 epochs; the mixed widths MIXED_BITS for 2 epochs, and a step
+   recompiled from the template's widths to them; Table 1's flickr rows (flickr-like at full size, 89,250
+   nodes, SAGE 256-256: FP32, INT2 per-row G = 125, block G/R = 8 and
+   INT2+VM, FLICKR_EPOCHS each: test accuracy, epoch times, the M column
+   and peak memory), then the VM row again with 8-bit AdamW states.  Each run
+   with its launch counts as planned, its live stash equal to the ledger
+   (``graph.analysis.live_stash_bytes``: ``activation_memory_report``'s
+   for a compressed layer) and a finite, falling loss;
+7. slice 3: serving full-width qwen1.5-4b (random bf16 weights, seed 0)
    through ``repro_torch.launch.serve``'s engine: 8 requests of 1000 prompt
    tokens and 32 generated, 4 slots, continuous batching, 4-bit KV pages
    (G=64, 16 tokens a page).  Every request served with 32 tokens; launch
@@ -45,13 +60,16 @@ Phases, in order; any failure raises and exits non-zero:
    layers of full width the prefill logits with the kernel agree with the
    plain attention on the card; prefill and decode step times, and one
    profiled prefill and decode step;
-7. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+8. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX; without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
+import copy
+import dataclasses
 import json
 import math
 import statistics
@@ -71,6 +89,16 @@ PEAK_TF32_OPS_PER_S = 495e12
 PEAK_BF16_OPS_PER_S = 989e12
 
 N_NODES = 169_343                 # arxiv_like(scale=1.0)
+FLICKR_NODES = 89_250             # flickr_like(scale=1.0)
+#: Epochs of each flickr Table-1 row: at the default lr of 5e-3 the FP32
+#: row's loss overshoots at epoch 1 (2.084, 7.347, 3.793 over 3 epochs on
+#: an H100), so a run must be longer for its loss to fall below its start.
+#: The JAX reference overshoots the same way at these widths
+#: (tests/test_torch_table1.py::test_flickr_fp32_overshoot_matches_reference).
+FLICKR_EPOCHS = 10
+#: A mixed allocation of the arxiv slice's widths, pinned (autoprec chose
+#: the uniform 2 bits at budget 2.0 there).
+MIXED_BITS = (8, 1, 4)
 EPOCHS = 5
 #: Slice 1's peak device memory over its 5 epochs and 2 repeats with the
 #: segment-sum spmm (graph/models.SPMM_MAX_EDGES).  The kernels allocate
@@ -117,58 +145,100 @@ def time_ms(torch, fn, flush, iters: int = 20) -> float:
     return statistics.median(times)
 
 
+#: The quant kernels' shapes beyond slice 1's 2-bit blocks of 256 (n_blocks,
+#: G, bits, table): Table 1's flickr rows at 89,250 nodes (layer 0's 125
+#: columns after RP 8 and layers 1-2's 64, as G = 125 and G = 1000 blocks:
+#: ragged words), an autoprec 8-bit layer of the arxiv slice with its
+#: 256-level VM table (42,336 and 21,168 blocks of 256), and the 8-bit
+#: AdamW moments of the flickr SAGE (W0 1000x256, W1 512x256, W2 512x7 and
+#: a bias: 1,000, 512, 14 and 1 blocks of 256, uniform levels).
+EXTRA_QUANT = (("flickr", 89_250, 125, 2, None),
+               ("flickr", 89_250, 125, 2, "vm"),
+               ("flickr", 45_696, 125, 2, None),
+               ("flickr", 45_696, 125, 2, "vm"),
+               ("flickr", 11_157, 1000, 2, None),
+               ("flickr", 5_712, 1000, 2, None),
+               ("vm8", 42_336, 256, 8, "vm"),
+               ("vm8", 21_168, 256, 8, "vm"),
+               ("adamw8", 1_000, 256, 8, None),
+               ("adamw8", 512, 256, 8, None),
+               ("adamw8", 14, 256, 8, None),
+               ("adamw8", 1, 256, 8, None))
+
+
+def quant_case(torch, qk, ref, n_blocks, G, bits, lv, flush, gen) -> tuple:
+    """quant_pack / dequant_unpack at one shape: bit-equal to the plain
+    version, then timed beside it and the bound.  Returns the two rows."""
+    from repro_torch.core.pack import packed_len
+
+    x = torch.randn((n_blocks, G), device="cuda", generator=gen) * 2.3
+    pk, zk, rk = qk.quant_pack(x, bits, 1234, lv)
+    pr, zr, rr = ref.quantize_packed(x, bits, 1234, lv)
+    torch.cuda.synchronize()
+    tag = (f"{n_blocks}x{G}" + (f" int{bits}" if bits != 2 else "")
+           + f" {'vm' if lv else 'uniform'}")
+    if not (torch.equal(pk, pr) and torch.equal(zk, zr)
+            and torch.equal(rk, rr)):
+        raise AssertionError(f"quant_pack {tag}: not bit-equal to the plain "
+                             "version")
+    dk = qk.dequant_unpack(pk, zk, rk, bits, G, lv)
+    dr = ref.dequantize_packed(pr, zr, rr, bits, G, lv)
+    # the kernel's triplet read back through the plain decoder: any
+    # differing word, zero or range shows as a value error
+    q_err = max(float((zk - zr).abs().max()), float((rk - rr).abs().max()),
+                float((ref.dequantize_packed(pk, zk, rk, bits, G, lv)
+                       - dr).abs().max()))
+    torch.cuda.synchronize()
+    # bit-equal by construction (the same roundings in the same order);
+    # allowed 1e-6 in case a library kernel fuses differently
+    d_err = float((dk - dr).abs().max())
+    if d_err > 1e-6:
+        raise AssertionError(f"dequant_unpack {tag}: max abs err {d_err}")
+    q_bytes = n_blocks * (G * 4 + packed_len(G, bits) * 4 + 8)
+    # the function's own work an element: ~18 operations (the murmur3 hash
+    # ~9; normalize, clip, floor and SR compare ~7; the pack 2), and 16
+    # more over a table of more than 16 levels (8 search steps of a compare
+    # and a select); 4 to dequantize.  The vector kernels issue 41 SASS
+    # instructions an element to quantize with uniform levels, 82 with VM,
+    # 9 and 14 to dequantize (`scripts/kernel_times.py quant --sass`): at
+    # ~33.5 T lane-instructions/s the uniform quantizer's issue time is
+    # about its bytes' time, VM twice it
+    ops = 18 + (16 if lv and len(lv) > 16 else 0)
+    q_bound = bound(q_bytes, ops * n_blocks * G)
+    d_bound = bound(q_bytes, 4 * n_blocks * G)
+    q = dict(ms=time_ms(torch, lambda: qk.quant_pack(x, bits, 1234, lv), flush),
+             plain_ms=time_ms(torch, lambda: ref.quantize_packed(x, bits, 1234, lv), flush),
+             bound_ms=q_bound[0], bound_by=q_bound[1], max_abs_err=q_err,
+             library_ms=None, bytes=q_bytes)
+    d = dict(ms=time_ms(torch, lambda: qk.dequant_unpack(pk, zk, rk, bits, G, lv), flush),
+             plain_ms=time_ms(torch, lambda: ref.dequantize_packed(pr, zr, rr, bits, G, lv), flush),
+             bound_ms=d_bound[0], bound_by=d_bound[1], max_abs_err=d_err,
+             library_ms=None, bytes=q_bytes)
+    log(f"quant_pack     {tag}: bit-equal, max abs err {q_err}; {q}")
+    log(f"dequant_unpack {tag}: max abs err {d_err}; {d}")
+    return tag, q, d
+
+
 def check_quant(torch, qk, ref, levels, flush, gen) -> dict:
-    """quant_pack / dequant_unpack at the main path's block counts."""
+    """quant_pack / dequant_unpack at the main path's block counts: slice
+    1's 2-bit blocks of 256 (uniform and VM), then EXTRA_QUANT (ragged
+    words and the 256-level table)."""
+    from repro_torch.core.variance import optimize_levels
+
+    cases = [(n, 256, 2, lv) for n in (21_168, 42_336)
+             for lv in (None, levels)]
+    # flickr's VM table is its rows' (CN_[1/D] at D = 125 // 8), VM-8's
+    # the arxiv template's at 8 bits (D = 256 // 8)
+    tables = {"flickr": optimize_levels(125 // 8, 2),
+              "vm8": optimize_levels(256 // 8, 8)}
+    cases += [(n, G, bits, tables[what] if vm else None)
+              for what, n, G, bits, vm in EXTRA_QUANT]
     rows = {}
-    for n_blocks in (21_168, 42_336):
-        x = torch.randn((n_blocks, 256), device="cuda", generator=gen) * 2.3
-        for lv in (None, levels):
-            tag = f"{n_blocks}x256 {'vm' if lv else 'uniform'}"
-            pk, zk, rk = qk.quant_pack(x, 2, 1234, lv)
-            pr, zr, rr = ref.quantize_packed(x, 2, 1234, lv)
-            torch.cuda.synchronize()
-            if not (torch.equal(pk, pr) and torch.equal(zk, zr)
-                    and torch.equal(rk, rr)):
-                raise AssertionError(f"quant_pack {tag}: not bit-equal to "
-                                     "the plain version")
-            dk = qk.dequant_unpack(pk, zk, rk, 2, 256, lv)
-            dr = ref.dequantize_packed(pr, zr, rr, 2, 256, lv)
-            # the kernel's triplet read back through the plain decoder: any
-            # differing word, zero or range shows as a value error
-            q_err = max(float((zk - zr).abs().max()),
-                        float((rk - rr).abs().max()),
-                        float((ref.dequantize_packed(pk, zk, rk, 2, 256, lv)
-                               - dr).abs().max()))
-            torch.cuda.synchronize()
-            # bit-equal by construction (the same roundings in the same
-            # order); allowed 1e-6 in case a library kernel fuses differently
-            d_err = float((dk - dr).abs().max())
-            if d_err > 1e-6:
-                raise AssertionError(f"dequant_unpack {tag}: max abs err "
-                                     f"{d_err}")
-            w = n_blocks * 256 // 16
-            q_bytes = n_blocks * 256 * 4 + w * 4 + 8 * n_blocks
-            # the function's own work an element: ~18 operations (the
-            # murmur3 hash ~9; normalize, clip, floor and SR compare ~7; the
-            # pack 2), 4 to dequantize.  The kernels issue 41 SASS
-            # instructions an element to quantize with uniform levels, 82
-            # with VM, 9 and 14 to dequantize (`scripts/kernel_times.py
-            # quant --sass`): at ~33.5 T lane-instructions/s the uniform
-            # quantizer's issue time is about its bytes' time, VM twice it
-            q_bound = bound(q_bytes, 18 * n_blocks * 256)
-            d_bound = bound(q_bytes, 4 * n_blocks * 256)
-            q = dict(ms=time_ms(torch, lambda: qk.quant_pack(x, 2, 1234, lv), flush),
-                     plain_ms=time_ms(torch, lambda: ref.quantize_packed(x, 2, 1234, lv), flush),
-                     bound_ms=q_bound[0], bound_by=q_bound[1], max_abs_err=q_err,
-                     library_ms=None, bytes=q_bytes)
-            d = dict(ms=time_ms(torch, lambda: qk.dequant_unpack(pk, zk, rk, 2, 256, lv), flush),
-                     plain_ms=time_ms(torch, lambda: ref.dequantize_packed(pr, zr, rr, 2, 256, lv), flush),
-                     bound_ms=d_bound[0], bound_by=d_bound[1], max_abs_err=d_err,
-                     library_ms=None, bytes=q_bytes)
-            log(f"quant_pack     {tag}: bit-equal, max abs err {q_err}; {q}")
-            log(f"dequant_unpack {tag}: max abs err {d_err}; {d}")
-            rows[("quant_pack", tag)] = q
-            rows[("dequant_unpack", tag)] = d
+    for n_blocks, G, bits, lv in cases:
+        tag, q, d = quant_case(torch, qk, ref, n_blocks, G, bits, lv, flush,
+                               gen)
+        rows[("quant_pack", tag)] = q
+        rows[("dequant_unpack", tag)] = d
     return rows
 
 
@@ -499,6 +569,235 @@ def slice_rp0(torch, g, cfg, model0, wrappers, saved_bytes_per_layer) -> dict:
         "stash bytes equal")
     profile_step(torch, g, cfg, res["model"])
     return {name: launches[name] for name in FUSED}
+
+
+def planned(n_comp: int, n_rp: int, steps: int, probes: int = 0,
+            stats: int = 0, moments: int = 0) -> dict:
+    """Launches of a run of the unfused (RP or declined) spelling: each
+    training step and each autoprec probe quantizes, dequantizes, projects
+    and recovers every compressed layer once (RP and IRP only for RP
+    layers); an autoprec stats pass projects every RP layer once; 8-bit
+    AdamW quantizes its ``moments`` moment leaves once at init and after
+    every step, and dequantizes them every step."""
+    passes = steps + probes
+    return {"quant_pack": n_comp * passes + moments * (steps + 1),
+            "dequant_unpack": n_comp * passes + moments * steps,
+            "rp_project": n_rp * (passes + stats),
+            "irp_project": n_rp * passes, "matmul_quant": 0,
+            "dequant_matmul": 0, "flash_attention": 0}
+
+
+def counted_run(torch, wrappers, want: dict, what: str, fn):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after; raises unless they are ``want``.  Returns (result, counts, peak
+    device bytes)."""
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = fn()
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in wrappers}
+    log(f"[{what}] launches {counts}")
+    if counts != want:
+        raise AssertionError(f"[{what}] launches {counts}, planned {want}")
+    return res, counts, torch.cuda.max_memory_allocated()
+
+
+def check_run(res: dict, ledger: list, what: str) -> list:
+    """Finite, falling losses and the live stash equal to the ledger."""
+    losses = [h[1] for h in res["history"]]
+    for epoch, loss, ms in res["history"]:
+        log(f"[{what}] epoch {epoch}: loss {loss!r} {ms:.3f} ms")
+    log(f"[{what}] live stash bytes per layer {res['stash_bytes']} ledger "
+        f"{ledger}")
+    if res["stash_bytes"] != ledger:
+        raise AssertionError(f"[{what}] live stash differs from the ledger")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"[{what}] losses not finite and falling: "
+                             f"{losses}")
+    return losses
+
+
+def profile_allocate(torch, g, cfg, model) -> None:
+    """Where autoprec's re-solve goes: host time of the stats pass, of the
+    two-seed probe (two forward and backward passes) and of the whole
+    allocate, each synchronized, then one profiled allocate (device busy
+    time and idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine.precision import AutoprecController
+    from repro_torch.graph.analysis import collect_layer_stats
+    from repro_torch.graph.models import device_graph
+
+    dg = device_graph(g, cfg.arch, "cuda")
+    ctrl = AutoprecController(dg, cfg, 2.0, 2, 0)
+    ctrl.allocate(model)           # level tables computed and cached
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    stats, stats_ms = timed(lambda: collect_layer_stats(model, dg, cfg))
+    _, probe_ms = timed(lambda: ctrl._probe_grad_sens(model, stats))
+    _, alloc_ms = timed(lambda: ctrl.allocate(model))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall_ms = timed(lambda: ctrl.allocate(model))
+    rows = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"[autoprec] re-solve: stats pass {stats_ms:.3f} ms, two-seed probe "
+        f"{probe_ms:.3f} ms, whole allocate {alloc_ms:.3f} ms; profiled "
+        f"allocate wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, idle "
+        f"share {1 - busy / wall_ms:.3f}")
+    log_profile(rows, 10)
+
+
+def slice_table1(torch, g, cfg, model0, wrappers) -> dict:
+    """Slice 4, the rest of the full-graph main path, at full width:
+    autoprec on the arxiv slice (template ``cfg``: INT2, G=256, RP 8, VM),
+    every layer at 8-bit VM, mixed widths, then Table 1's flickr rows and
+    8-bit AdamW
+    states (see the module docstring).  Returns the launch counts summed
+    over the phase."""
+    from repro_torch.core import autoprec
+    from repro_torch.core.compressor import CompressionConfig
+    from repro_torch.engine.compile import CompiledFull
+    from repro_torch.graph.analysis import (collect_layer_stats,
+                                            live_stash_bytes)
+    from repro_torch.graph.data import flickr_like
+    from repro_torch.graph.models import GNN, GNNConfig, device_graph
+    from repro_torch.graph.train import activation_memory_report, train_gnn
+    from repro_torch.optim import AdamWConfig
+
+    total = collections.Counter()
+
+    # 1. autoprec: allocate and recompile before epoch 0, re-solve at
+    # epoch 2; stats passes twice, two probes each
+    def autoprec_run():
+        return train_gnn(g, cfg, n_epochs=4, seed=0, params=model0,
+                         bit_budget=2.0, autoprec_refresh=2)
+
+    want = planned(3, 3, steps=4, probes=4, stats=2)
+    res, counts, peak = counted_run(torch, wrappers, want, "autoprec",
+                                    autoprec_run)
+    total.update(counts)
+    bits, budget = res["bits_per_layer"], res["bit_budget_bytes"]
+    per = res["cfg"].layer_compression()
+    stats = collect_layer_stats(res["model"], device_graph(g, cfg.arch,
+                                                           "cuda"), cfg)
+    alloc_bytes = autoprec.total_stash_bytes(stats, per)
+    log(f"[autoprec] bits_per_layer {bits} bit_budget_bytes {budget} "
+        f"allocation bytes {alloc_bytes} val_acc {res['val_acc']} test_acc "
+        f"{res['test_acc']} epochs/s {res['epochs_per_sec']} "
+        f"max_memory_allocated {peak} bytes")
+    if not all(b in autoprec.BIT_CHOICES for b in bits) or \
+            alloc_bytes > budget:
+        raise AssertionError(f"[autoprec] allocation {bits} ({alloc_bytes} "
+                             f"bytes) outside BIT_CHOICES or the budget")
+    report = activation_memory_report(g, res["cfg"])
+    if res["stash_bytes"] != [r["compressed_bytes"]
+                              for r in report["per_layer"]]:
+        raise AssertionError("[autoprec] live stash differs from "
+                             "activation_memory_report's per_layer")
+    losses = check_run(res, live_stash_bytes(res["cfg"], g.n_feats,
+                                             g.n_nodes), "autoprec")
+    again = autoprec_run()
+    if again["bits_per_layer"] != bits or \
+            [h[1] for h in again["history"]] != losses:
+        raise AssertionError("[autoprec] a repeated run differs: bits "
+                             f"{again['bits_per_layer']}, losses "
+                             f"{[h[1] for h in again['history']]}")
+    log("[autoprec] repeated run: the same bits, bit-identical losses")
+    profile_allocate(torch, g, cfg, res["model"])
+    del res, again, stats
+
+    # 2. every layer at 8 bits with the 256-level VM table
+    cfg8 = cfg.with_layer_bits((8, 8, 8))
+    res, counts, peak = counted_run(
+        torch, wrappers, planned(3, 3, steps=2), "vm8",
+        lambda: train_gnn(g, cfg8, n_epochs=2, seed=0, params=model0))
+    total.update(counts)
+    check_run(res, live_stash_bytes(cfg8, g.n_feats, g.n_nodes), "vm8")
+    log(f"[vm8] val_acc {res['val_acc']} max_memory_allocated {peak} bytes")
+    del res
+
+    # 2b. mixed widths: a pinned mixed allocation trained, then the
+    # refresh hook's recompile from the template's widths to it between
+    # two steps of one CompiledFull (the next step stashes the new widths)
+    mixed = cfg.with_layer_bits(MIXED_BITS)
+
+    def mixed_runs():
+        r = train_gnn(g, mixed, n_epochs=2, seed=0, params=model0)
+        step = CompiledFull(device_graph(g, cfg.arch, "cuda"), cfg,
+                            copy.deepcopy(model0).to("cuda"),
+                            AdamWConfig(lr=5e-3, weight_decay=0.0))
+        before = (float(step.step(0)), step.stash_bytes)
+        step.recompile(mixed)
+        return r, before, (float(step.step(1)), step.stash_bytes)
+
+    (res, before, after), counts, peak = counted_run(
+        torch, wrappers, planned(3, 3, steps=4), "mixed", mixed_runs)
+    total.update(counts)
+    check_run(res, live_stash_bytes(mixed, g.n_feats, g.n_nodes), "mixed")
+    want = (live_stash_bytes(cfg, g.n_feats, g.n_nodes),
+            live_stash_bytes(mixed, g.n_feats, g.n_nodes))
+    log(f"[mixed] recompile {cfg.layer_compression()[0].bits}-bit -> "
+        f"{MIXED_BITS}: losses {before[0]!r} -> {after[0]!r}, stash "
+        f"{before[1]} -> {after[1]}")
+    if (before[1], after[1]) != want or not all(
+            math.isfinite(x) for x in (before[0], after[0])):
+        raise AssertionError(f"[mixed] recompile: stash {before[1]} -> "
+                             f"{after[1]}, ledgers {want[0]} -> {want[1]}")
+    del res
+
+    # 3. Table 1's flickr rows (benchmarks/table1_gnn.py: base_r = 2 * 500
+    # // 8 = 125), SAGE 256-256, FLICKR_EPOCHS each from the same weights
+    t0 = time.perf_counter()
+    fg = flickr_like(scale=1.0)
+    log(f"flickr-like: {fg.n_nodes} nodes, {fg.n_edges} edges, "
+        f"{fg.n_feats} features, built in {time.perf_counter() - t0:.1f} s")
+    if (fg.n_nodes, fg.n_feats, fg.num_classes) != (FLICKR_NODES, 500, 7):
+        raise AssertionError(f"flickr-like is not {FLICKR_NODES} x 500, "
+                             "7 classes")
+    base_r = 2 * fg.n_feats // 8
+    rows = (("FP32", None, None),
+            ("INT2 (EXACT, per-row)", CompressionConfig(2, base_r, 8), None),
+            ("INT2 block G/R=8", CompressionConfig(2, base_r * 8, 8), None),
+            ("INT2+VM", CompressionConfig(2, base_r, 8, vm=True), None),
+            ("INT2+VM, 8-bit AdamW states",
+             CompressionConfig(2, base_r, 8, vm=True),
+             AdamWConfig(lr=5e-3, weight_decay=0.0, state_bits=8)))
+    fp32 = GNNConfig(arch="sage", hidden=(256, 256), n_classes=fg.num_classes)
+    fmodel0 = GNN(fp32, fg.n_feats, generator=torch.Generator().manual_seed(0))
+    for name, comp, opt in rows:
+        fcfg = dataclasses.replace(fp32, compression=comp)
+        n_comp = 0 if comp is None else 3
+        # 8-bit AdamW: m and v of 3 weights and 3 biases
+        want = planned(n_comp, n_comp, steps=FLICKR_EPOCHS,
+                       moments=12 if opt is not None else 0)
+        res, counts, peak = counted_run(
+            torch, wrappers, want, f"table1 {name}",
+            lambda: train_gnn(fg, fcfg, opt, n_epochs=FLICKR_EPOCHS, seed=0,
+                              params=fmodel0))
+        total.update(counts)
+        report = activation_memory_report(fg, fcfg)
+        live = live_stash_bytes(fcfg, fg.n_feats, fg.n_nodes)
+        check_run(res, live, f"table1 {name}")
+        m = report.get("compressed_bytes", report["fp32_bytes"])
+        epoch_ms = [h[2] for h in res["history"]]
+        log(f"[table1] flickr {name}: test_acc {res['test_acc']} epoch ms "
+            f"{epoch_ms} M {m} bytes ({m / 1e6:.3f} MB, fp32 "
+            f"{report['fp32_bytes']} bytes) live stash {sum(live)} bytes "
+            f"max_memory_allocated {peak} bytes")
+        del res
+    return dict(total)
 
 
 FLASH_SHAPE = (80, 1000, 128)    # slice 3 prefill: 4 requests x 20 heads
@@ -845,7 +1144,6 @@ def slice_serve(torch, wrappers, fa, ref) -> dict:
 
     # 2 layers of full width: the prefill logits with the kernel against
     # the plain attention, on the card, from the same weights and prompts
-    import dataclasses
     cfg2 = dataclasses.replace(get("qwen1.5-4b"), n_layers=2,
                                act_mode="none")
     two = Model(cfg2, generator=torch.Generator("cuda").manual_seed(1))
@@ -973,14 +1271,22 @@ def main() -> int:
     profile_step(torch, g, cfg, res["model"])
     launches.update(slice_rp0(torch, g, cfg0, model0, wrappers,
                               saved_bytes_per_layer))
-    del g, model0, res, rep_a, rep_b
+    del res, rep_a, rep_b
     torch.cuda.empty_cache()
 
-    # 6. slice 3: serving
+    # 6. slice 4: autoprec, 8-bit VM, Table 1's flickr rows, 8-bit AdamW
+    table1 = slice_table1(torch, g, cfg, model0, wrappers)
+    for name in ("quant_pack", "dequant_unpack", "rp_project",
+                 "irp_project"):
+        launches[name] += table1[name]
+    del g, model0
+    torch.cuda.empty_cache()
+
+    # 7. slice 3: serving
     served = slice_serve(torch, wrappers, fa, ref)
     launches["flash_attention"] = served["flash_attention"]
 
-    # 7. results
+    # 8. results
     sources = {"quant_pack": ("src/repro_torch/csrc/quant_blockwise.cu",
                               "src/repro/kernels/quant_blockwise.py:62"),
                "dequant_unpack": ("src/repro_torch/csrc/quant_blockwise.cu",

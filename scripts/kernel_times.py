@@ -26,7 +26,10 @@ shapes, without the training phases, in about 20 s:
   bound;
 - ``quant``: ``check_quant`` and ``check_kv_quant``, quantize+pack and
   unpack+dequantize at the RP-8 slice's 21,168 and 42,336 blocks of 256
-  (2 bits, uniform and VM) and at the KV cache's prefill (161,280 blocks
+  (2 bits, uniform and VM), at Table 1's flickr shapes (89,250 and 45,696
+  blocks of 125, 11,157 and 5,712 of 1000, 2 bits: ragged words), at 8-bit
+  VM (42,336 and 21,168 blocks of 256, a 256-level table) and at the KV
+  cache's prefill (161,280 blocks
   of 64, 4 bits, one seed per 40 blocks), decode (160 blocks) and window
   (166,400 blocks), then the same at the rp_ratio-0 slice's ``fused="off"``
   layer inputs (169,343 and 338,686 blocks of 256, 2 bits, uniform and

@@ -10,8 +10,11 @@ Callers (``core.compressor`` and through it the GNN engine) name an
 No fallback hides the device or a kernel: on CUDA a config the kernels do
 not take raises, whether it was asked for by name or by ``"auto"``.  (The
 reference's ``auto`` quietly falls back to jnp there; in the port the plain
-path is only ever the CPU's.)  The eligibility predicates make the
-reference's decisions for the same shapes, bits and levels.
+path is only ever the CPU's.)  So the quant kernels take every config the
+main path reaches: ragged words and VM tables of up to 256 levels, which
+the reference's kernels leave to its jnp path.  The fused pair's
+eligibility makes the reference's decisions for the same shapes, bits and
+levels.
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ import torch
 
 from repro_torch.core import quant as quantmod
 from repro_torch.kernels import ops
+from repro_torch.kernels.fused_matmul import (
+    unsupported as fused_kernel_unsupported)
 from repro_torch.kernels.ops import resolve_impl, static_levels
 from repro_torch.kernels.quant_blockwise import (
     unsupported as quant_kernel_unsupported)
@@ -32,7 +37,8 @@ def route_quant(impl: str, bits: int, group_size: int, levels=None,
     """Concrete impl for quantize/dequantize of tensors on ``device``.
 
     Raises when the CUDA kernels would be needed for a config they cannot
-    run (see :func:`quant_kernel_unsupported`)."""
+    run (see :func:`quant_kernel_unsupported`: ``32 % bits != 0``, or a VM
+    table of more than 256 levels)."""
     concrete = resolve_impl(impl, device)
     if concrete == "torch":
         return "torch"
@@ -46,11 +52,12 @@ def route_quant(impl: str, bits: int, group_size: int, levels=None,
 def fused_unsupported(shape, bits: int, group_size: int,
                       levels=None) -> str | None:
     """Why the fused matmul+quant pair cannot run this stash (None = it
-    can): the base quant-kernel constraints hold, the operand is 2-D, its
+    can): the fused kernels' own constraints hold (whole words and at most
+    16 levels, narrower than the quant kernels'), the operand is 2-D, its
     blocks align to rows (``D % G == 0`` or ``G % D == 0``), and the element
     count is whole blocks (the fused pad cannot reproduce the replicate-
     padded ragged tail)."""
-    reason = quant_kernel_unsupported(bits, group_size, static_levels(levels))
+    reason = fused_kernel_unsupported(bits, group_size, static_levels(levels))
     if reason is not None:
         return reason
     if len(shape) != 2:

@@ -19,6 +19,17 @@ def vals_per_word(bits: int) -> int:
     return 32 // bits
 
 
+def ragged_words(group_size: int, bits: int) -> str | None:
+    """Why a block of ``group_size`` codes does not fill whole words (None
+    = it does): the rule of the kernels that take only whole words a block
+    (the fused pair, and the KV page layout)."""
+    v = vals_per_word(bits)
+    if group_size % v:
+        return (f"group_size={group_size} is not a multiple of the {v} "
+                "codes-per-word pack width")
+    return None
+
+
 def packed_len(n: int, bits: int) -> int:
     v = vals_per_word(bits)
     return (n + v - 1) // v

@@ -129,3 +129,24 @@ def dequantize_grouped(codes: torch.Tensor, zero: torch.Tensor,
     B = rng.new_tensor(float(2**bits - 1))
     vals = lv[codes.to(torch.int64)]
     return vals * (rng[:, None] / B) + zero[:, None]
+
+
+def quantize(x: torch.Tensor, bits: int, group_size: int, seed, levels=None
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """Block-wise quantize a tensor of any shape: (codes (n_blocks, G)
+    int32, zero, range, n_valid), over :func:`group_reshape`."""
+    blocks, n_valid = group_reshape(x, group_size)
+    codes, zero, rng = quantize_grouped(blocks, bits, seed, levels)
+    return codes, zero, rng, n_valid
+
+
+def dequantize(codes: torch.Tensor, zero: torch.Tensor, rng: torch.Tensor,
+               bits: int, shape: tuple[int, ...], levels=None,
+               dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`quantize`: the first ``prod(shape)`` values of the
+    dequantized blocks, in ``shape`` and ``dtype``."""
+    n = 1
+    for s in shape:
+        n *= s
+    blocks = dequantize_grouped(codes, zero, rng, bits, levels)
+    return blocks.reshape(-1)[:n].reshape(shape).to(dtype)

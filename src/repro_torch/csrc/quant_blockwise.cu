@@ -56,13 +56,19 @@
 // next 16-byte loads in flight.
 //
 // The vector path needs G of 64, 128 or 256, a block's words in whole
-// uint4s (G * bits a multiple of 128) and 16-byte aligned x and words
-// (quant_lanes_per_block states the rule).  Everything else (bits 1 at
-// G = 64, G = 250, a misaligned view) takes the scalar path: one warp a
-// block, the min and max over the whole warp, each lane building whole
-// words from their strided codes (x re-read from L1), one 4-byte store a
-// word; dequantize one word a lane, its fields stored to their strided
-// columns.
+// uint4s (G * bits a multiple of 128), 16-byte aligned x and words
+// (quant_lanes_per_block states the rule) and a table of at most 16
+// levels.  Everything else takes the scalar path: one warp a block, the min
+// and max over the whole warp, each lane building whole words from their
+// strided codes (x re-read from L1), one 4-byte store a word; dequantize
+// one word a lane, its fields stored to their strided columns.  That path
+// takes every config the main path reaches besides: bits 1 at G = 64, a
+// misaligned view, ragged words (G not a multiple of the 32 / bits codes a
+// word holds, as at G = 125 or 1000 in Table 1's flickr rows: the last
+// word's spare fields are zero) and VM tables of up to 256 levels (8-bit
+// layers of an autoprec allocation), held in shared memory and searched
+// in eight steps.  It is simple, not tuned: at flickr's 89,250 blocks of
+// 125 only 8 of a warp's lanes build words.
 //
 // Bit equality with the plain PyTorch version (and the JAX reference): this
 // file is built with --fmad=false and no fast math, and every rounding step
@@ -310,21 +316,27 @@ dequant_vec_kernel(const uint4* __restrict__ packed,
   }
 }
 
-// The scalar path: one warp a block, any G that whole words divide, any
-// alignment.  Each lane builds words j = lane, lane + 32, ... from their
-// codes j, j + W, j + 2W, ... (x re-read from L1 after the min and max).
-template <int BITS>
+// The scalar path: one warp a block, any G, any alignment, any table.
+// Each lane builds words j = lane, lane + 32, ... of the block's W =
+// ceil(G * BITS / 32) from their codes j, j + W, j + 2W, ... (x re-read
+// from L1 after the min and max); where G is not a multiple of the codes a
+// word holds, the last fields of the last words lie past the block and
+// stay zero, as the plain pack pads them.  LV is the level table: Levels
+// (at most 16 levels, counted) or WideLevels (up to 256, VM at 8 bits,
+// searched in eight steps, quant::interior_rank), in shared memory.
+template <int BITS, class LV>
 __global__ void __launch_bounds__(kThreads)
 quant_scalar_kernel(const float* __restrict__ x, uint32_t* __restrict__ packed,
                     float* __restrict__ zero, float* __restrict__ rng,
                     uint32_t n_blocks, int G, uint32_t seed_hash,
                     const uint32_t* __restrict__ seeds,
-                    uint32_t rows_per_seed, Levels lv) {
-  __shared__ float table[quant::kMaxLevels];
+                    uint32_t rows_per_seed, LV lv) {
+  constexpr int kSearch = LV::kSize > quant::kMaxLevels ? LV::kSize : 0;
+  __shared__ float table[LV::kSize];
   quant::load_levels(lv, table);
   __syncthreads();
   const int lane = threadIdx.x & 31;
-  const int W = G / Code<BITS>::kPerWord;
+  const int W = (G + Code<BITS>::kPerWord - 1) / Code<BITS>::kPerWord;
   const uint32_t stride = gridDim.x * kWarps;
   for (uint32_t b = blockIdx.x * kWarps + (threadIdx.x >> 5); b < n_blocks;
        b += stride) {
@@ -346,8 +358,10 @@ quant_scalar_kernel(const float* __restrict__ x, uint32_t* __restrict__ packed,
     for (int j = lane; j < W; j += 32) {
       packed[static_cast<size_t>(b) * W + j] = quant::pack_word(
           [&](int e) {
-            return quant::sr_code(xb[e], mn, safe, Code<BITS>::kB,
-                                  quant::uniform(sh, c0 + e), table, lv.n);
+            return e < G ? quant::sr_code<kSearch>(
+                               xb[e], mn, safe, Code<BITS>::kB,
+                               quant::uniform(sh, c0 + e), table, lv.n)
+                         : 0u;
           },
           j, W, BITS);
     }
@@ -358,17 +372,17 @@ quant_scalar_kernel(const float* __restrict__ x, uint32_t* __restrict__ packed,
   }
 }
 
-template <int BITS>
+template <int BITS, class LV>
 __global__ void __launch_bounds__(kThreads)
 dequant_scalar_kernel(const uint32_t* __restrict__ packed,
                       const float* __restrict__ zero,
                       const float* __restrict__ rng, float* __restrict__ out,
-                      uint32_t n_blocks, int G, Levels lv) {
-  __shared__ float table[quant::kMaxLevels];
+                      uint32_t n_blocks, int G, LV lv) {
+  __shared__ float table[LV::kSize];
   quant::load_levels(lv, table);
   __syncthreads();
   const int lane = threadIdx.x & 31;
-  const int W = G / Code<BITS>::kPerWord;
+  const int W = (G + Code<BITS>::kPerWord - 1) / Code<BITS>::kPerWord;
   const uint32_t stride = gridDim.x * kWarps;
   for (uint32_t b = blockIdx.x * kWarps + (threadIdx.x >> 5); b < n_blocks;
        b += stride) {
@@ -379,8 +393,10 @@ dequant_scalar_kernel(const uint32_t* __restrict__ packed,
       const uint32_t w = __ldg(packed + static_cast<size_t>(b) * W + j);
 #pragma unroll 4
       for (int k = 0; k < Code<BITS>::kPerWord; ++k) {
-        ob[j + k * W] = quant::dequant_value((w >> (k * BITS)) & Code<BITS>::kMask,
-                                             scale, z, table, lv.n);
+        const int e = j + k * W;
+        if (e < G)
+          ob[e] = quant::dequant_value((w >> (k * BITS)) & Code<BITS>::kMask,
+                                       scale, z, table, lv.n);
       }
     }
   }
@@ -460,7 +476,14 @@ int dequant_vec(const uint32_t* packed, const float* zero, const float* rng,
 template <int BITS>
 int quant_bits(const float* x, uint32_t* packed, float* zero, float* rng,
                uint32_t n, int G, uint32_t seed_hash, const uint32_t* seeds,
-               uint32_t rps, const Levels& lv, cudaStream_t s) {
+               uint32_t rps, const float* levels, int n_levels,
+               cudaStream_t s) {
+  if (n_levels > quant::kMaxLevels) {
+    return launch<quant_scalar_kernel<BITS, quant::WideLevels>>(
+        n, s, x, packed, zero, rng, n, G, seed_hash, seeds, rps,
+        quant::make_levels<quant::WideLevels>(levels, n_levels));
+  }
+  const Levels lv = quant::make_levels(levels, n_levels);
   if (aligned16(x) && lv.n <= (1 << BITS)) {
     switch (vector_log_g(G, BITS)) {
       case 6: return quant_vec<BITS, 6>(x, packed, zero, rng, n, seed_hash, seeds, rps, lv, s);
@@ -468,14 +491,21 @@ int quant_bits(const float* x, uint32_t* packed, float* zero, float* rng,
       case 8: return quant_vec<BITS, 8>(x, packed, zero, rng, n, seed_hash, seeds, rps, lv, s);
     }
   }
-  return launch<quant_scalar_kernel<BITS>>(n, s, x, packed, zero, rng, n, G,
-                                           seed_hash, seeds, rps, lv);
+  return launch<quant_scalar_kernel<BITS, Levels>>(n, s, x, packed, zero, rng,
+                                                   n, G, seed_hash, seeds,
+                                                   rps, lv);
 }
 
 template <int BITS>
 int dequant_bits(const uint32_t* packed, const float* zero, const float* rng,
-                 float* out, uint32_t n, int G, const Levels& lv,
-                 cudaStream_t s) {
+                 float* out, uint32_t n, int G, const float* levels,
+                 int n_levels, cudaStream_t s) {
+  if (n_levels > quant::kMaxLevels) {
+    return launch<dequant_scalar_kernel<BITS, quant::WideLevels>>(
+        n, s, packed, zero, rng, out, n, G,
+        quant::make_levels<quant::WideLevels>(levels, n_levels));
+  }
+  const Levels lv = quant::make_levels(levels, n_levels);
   if (aligned16(packed) && aligned16(out)) {
     switch (vector_log_g(G, BITS)) {
       case 6: return dequant_vec<BITS, 6>(packed, zero, rng, out, n, lv, s);
@@ -483,8 +513,8 @@ int dequant_bits(const uint32_t* packed, const float* zero, const float* rng,
       case 8: return dequant_vec<BITS, 8>(packed, zero, rng, out, n, lv, s);
     }
   }
-  return launch<dequant_scalar_kernel<BITS>>(n, s, packed, zero, rng, out, n,
-                                             G, lv);
+  return launch<dequant_scalar_kernel<BITS, Levels>>(n, s, packed, zero, rng,
+                                                     out, n, G, lv);
 }
 
 }  // namespace
@@ -495,27 +525,29 @@ extern "C" int quant_lanes_per_block(int group_size, int bits) {
   return vector_log_g(group_size, bits) >= 0 ? group_size / 16 : 0;
 }
 
-// x (n_blocks, G) f32 -> packed (n_blocks, G*bits/32) u32, zero, rng (n_blocks,).
-// levels: host array of n_levels floats (n_levels = 0: uniform levels).
-// seeds: null (every row takes seed), or a device array of
-// n_blocks / rows_per_seed seeds, one per run of rows_per_seed rows.
+// x (n_blocks, G) f32 -> packed (n_blocks, ceil(G*bits/32)) u32, zero, rng
+// (n_blocks,).  levels: host array of n_levels floats (n_levels = 0:
+// uniform levels; at most 256).  seeds: null (every row takes seed), or a
+// device array of n_blocks / rows_per_seed seeds, one per run of
+// rows_per_seed rows.
 extern "C" int quant_pack(const float* x, uint32_t* packed, float* zero,
                           float* rng, long long n_blocks, int group_size,
                           int bits, unsigned int seed, const uint32_t* seeds,
                           int rows_per_seed, const float* levels,
                           int n_levels, void* stream) {
-  if (n_blocks <= 0 || n_blocks >= (1ll << 31)) return cudaErrorInvalidValue;
-  const Levels lv = quant::make_levels(levels, n_levels);
+  if (n_blocks <= 0 || n_blocks >= (1ll << 31) || group_size <= 0 ||
+      n_levels < 0 || n_levels > quant::kMaxTableLevels)
+    return cudaErrorInvalidValue;
   const auto n = static_cast<uint32_t>(n_blocks);
   const uint32_t sh = quant::fmix32(seed);
   const auto rps = static_cast<uint32_t>(rows_per_seed);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (bits) {
-    case 1: return quant_bits<1>(x, packed, zero, rng, n, group_size, sh, seeds, rps, lv, s);
-    case 2: return quant_bits<2>(x, packed, zero, rng, n, group_size, sh, seeds, rps, lv, s);
-    case 4: return quant_bits<4>(x, packed, zero, rng, n, group_size, sh, seeds, rps, lv, s);
-    case 8: return quant_bits<8>(x, packed, zero, rng, n, group_size, sh, seeds, rps, lv, s);
-    case 16: return quant_bits<16>(x, packed, zero, rng, n, group_size, sh, seeds, rps, lv, s);
+    case 1: return quant_bits<1>(x, packed, zero, rng, n, group_size, sh, seeds, rps, levels, n_levels, s);
+    case 2: return quant_bits<2>(x, packed, zero, rng, n, group_size, sh, seeds, rps, levels, n_levels, s);
+    case 4: return quant_bits<4>(x, packed, zero, rng, n, group_size, sh, seeds, rps, levels, n_levels, s);
+    case 8: return quant_bits<8>(x, packed, zero, rng, n, group_size, sh, seeds, rps, levels, n_levels, s);
+    case 16: return quant_bits<16>(x, packed, zero, rng, n, group_size, sh, seeds, rps, levels, n_levels, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -525,16 +557,17 @@ extern "C" int dequant_unpack(const uint32_t* packed, const float* zero,
                               const float* rng, float* out, long long n_blocks,
                               int group_size, int bits, const float* levels,
                               int n_levels, void* stream) {
-  if (n_blocks <= 0 || n_blocks >= (1ll << 31)) return cudaErrorInvalidValue;
-  const Levels lv = quant::make_levels(levels, n_levels);
+  if (n_blocks <= 0 || n_blocks >= (1ll << 31) || group_size <= 0 ||
+      n_levels < 0 || n_levels > quant::kMaxTableLevels)
+    return cudaErrorInvalidValue;
   const auto n = static_cast<uint32_t>(n_blocks);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (bits) {
-    case 1: return dequant_bits<1>(packed, zero, rng, out, n, group_size, lv, s);
-    case 2: return dequant_bits<2>(packed, zero, rng, out, n, group_size, lv, s);
-    case 4: return dequant_bits<4>(packed, zero, rng, out, n, group_size, lv, s);
-    case 8: return dequant_bits<8>(packed, zero, rng, out, n, group_size, lv, s);
-    case 16: return dequant_bits<16>(packed, zero, rng, out, n, group_size, lv, s);
+    case 1: return dequant_bits<1>(packed, zero, rng, out, n, group_size, levels, n_levels, s);
+    case 2: return dequant_bits<2>(packed, zero, rng, out, n, group_size, levels, n_levels, s);
+    case 4: return dequant_bits<4>(packed, zero, rng, out, n, group_size, levels, n_levels, s);
+    case 8: return dequant_bits<8>(packed, zero, rng, out, n, group_size, levels, n_levels, s);
+    case 16: return dequant_bits<16>(packed, zero, rng, out, n, group_size, levels, n_levels, s);
   }
   return cudaErrorInvalidValue;
 }

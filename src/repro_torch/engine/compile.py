@@ -30,8 +30,14 @@ class CompiledFull:
                  opt: AdamWConfig, fused: str = "auto"):
         self.graph, self.cfg, self.model, self.opt = graph, cfg, model, opt
         self.fused = fused
-        self.state = adamw_init(model.flat_params())
+        self.state = adamw_init(model.flat_params(), opt)
         self.stash_bytes: list[int] = []
+
+    def recompile(self, cfg: GNNConfig) -> "CompiledFull":
+        """The autoprec refresh hook: new widths, the same model, optimizer
+        state and graph."""
+        self.cfg = cfg
+        return self
 
     def step(self, epoch: int) -> torch.Tensor:
         params = self.model.flat_params()

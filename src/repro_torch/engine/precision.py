@@ -1,0 +1,107 @@
+"""Autoprec's lifecycle: the variance-guided bit allocation behind
+``train_gnn(bit_budget=...)`` (the reference's ``repro.engine.precision``,
+full-graph, ``calibration="probe"``).
+
+Owns the budget (frozen on the first allocation, so refreshes re-split the
+same byte ceiling), the current per-layer widths and the refresh cadence.
+The run loop asks :meth:`AutoprecController.due` each epoch and, when an
+:meth:`allocate` changes the widths, recompiles the step
+(:meth:`repro_torch.engine.compile.CompiledFull.recompile`).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import autoprec
+from repro_torch.engine import seeds
+from repro_torch.engine.compile import masked_nll
+from repro_torch.engine.forward import stash_gnn_forward
+from repro_torch.graph.analysis import collect_layer_stats
+from repro_torch.graph.models import GNN, DeviceGraph, GNNConfig
+
+
+class AutoprecController:
+    """Variance-guided bit allocation on the full graph.
+
+    ``allocate`` runs the cheap stats pass
+    (:func:`repro_torch.graph.analysis.collect_layer_stats`) and calibrates
+    each layer's ``grad_sens`` with a two-seed gradient probe: ``dx`` and
+    the ReLU mask are free of SR noise, so ``dw_l(s1) - dw_l(s2)`` isolates
+    exactly the dequantization noise layer l's stash injects.  The probe is
+    the port's stash forward and manual backward with ``fused="off"``: the
+    same ``dw = x_hat^T g`` as the reference's per-op probe.
+
+    ``calibration="obs"`` (sensitivities from the quant-health telemetry)
+    needs the ``obs`` package, queue A.10, and raises.
+    """
+
+    def __init__(self, graph: DeviceGraph, cfg: GNNConfig, bit_budget: float,
+                 refresh: int, seed: int, calibration: str = "probe"):
+        if calibration != "probe":
+            raise NotImplementedError(
+                f"calibration={calibration!r} sources sensitivities from the "
+                "quant-health telemetry of obs, which is not ported yet "
+                "(ROADMAP A.10); use calibration='probe'")
+        self.templates = cfg.layer_compression()
+        if all(c is None for c in self.templates):
+            raise ValueError(
+                "bit_budget= needs a GNNConfig with compression configured")
+        self.graph = graph
+        self.base_cfg = cfg
+        self.bit_budget = float(bit_budget)
+        self.refresh = int(refresh)
+        self.seed = seed
+        self.budget_bytes: int | None = None
+        self.bits: tuple[int, ...] | None = None
+
+    def _probe_dw(self, model: GNN, seed: int) -> list[torch.Tensor]:
+        """Every layer's weight gradient at the template widths under the
+        SR seed ``seed``."""
+        g = self.graph
+        with torch.enable_grad():
+            logits = stash_gnn_forward(model, g, self.base_cfg, seed, "off")
+            loss = masked_nll(logits, g.labels, g.train_mask)
+            return list(torch.autograd.grad(loss, list(model.weights)))
+
+    def _probe_grad_sens(self, model: GNN, stats):
+        """Realized per-layer dw SR noise at the template widths, divided by
+        the bit-scaling curve, so any candidate width re-prices as
+        ``grad_sens * normalized_sr_variance(candidate)``."""
+        s1, s2 = seeds.probe_seeds(self.seed)
+        g1 = self._probe_dw(model, s1)
+        g2 = self._probe_dw(model, s2)
+        out = []
+        for st, tmpl, p1, p2 in zip(stats, self.templates, g1, g2):
+            if st is None or tmpl is None:
+                out.append(st)
+                continue
+            noise = float(0.5 * torch.sum((p1 - p2) ** 2))
+            sens = noise / max(autoprec.normalized_sr_variance(tmpl), 1e-30)
+            # a zero probe (e.g. an untrained head with zero grads) keeps
+            # the range-moment fallback rather than marking the layer free
+            out.append(dataclasses.replace(st, grad_sens=sens or None))
+        return out
+
+    def allocate(self, model: GNN) -> tuple[GNNConfig, bool]:
+        """(Re)solve the allocation from ``model``'s current weights;
+        returns (cfg, changed)."""
+        stats = collect_layer_stats(model, self.graph, self.base_cfg,
+                                    seed=self.seed)
+        if self.budget_bytes is None:
+            self.budget_bytes = autoprec.budget_bytes_for(
+                stats, self.templates, self.bit_budget)
+        stats = self._probe_grad_sens(model, stats)
+        bits = autoprec.allocate_bits(stats, self.templates,
+                                      self.budget_bytes)
+        changed = bits != self.bits
+        self.bits = bits
+        return self.base_cfg.with_layer_bits(bits), changed
+
+    def due(self, epoch: int) -> bool:
+        return self.refresh > 0 and epoch > 0 and epoch % self.refresh == 0
+
+    def extras(self) -> dict:
+        return {"bits_per_layer": list(self.bits),
+                "bit_budget_bytes": self.budget_bytes}

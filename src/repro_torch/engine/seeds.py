@@ -5,7 +5,9 @@
   base SR seed ``(o + 1) * 7919``;
 * layer ``li`` offsets the base seed by ``li * 1013``;
 * an LM step hashes to ``step * KNUTH_MULT``, and a serving KV write to
-  :func:`kv_seed` of its position, slot, layer and field.
+  :func:`kv_seed` of its position, slot, layer and field;
+* the autoprec gradient probe draws two seeds from the training seed
+  (:func:`probe_seeds`).
 
 Seeds are python ints (or int64 tensors) wrapped mod 2**32, the uint32 the
 counter PRNG takes.
@@ -21,6 +23,10 @@ SR_SEED_PRIME = 7919
 
 #: Per-layer seed stride: layer li stashes with ``base + li * 1013``.
 LAYER_SEED_STRIDE = 1013
+
+#: Knuth multiplicative hash deriving the autoprec probe seeds (and the LM
+#: per-step activation seed).
+_PROBE_MULT = int(KNUTH_MULT)
 
 
 def sr_seed(ordinal: int) -> int:
@@ -68,3 +74,9 @@ def kv_seed(pos, slot, li, field):
     base = step_seed(pos) + _wrap(slot) * KV_SLOT_STRIDE
     off = (_wrap(li) * 2 + _wrap(field)) * LAYER_SEED_STRIDE
     return _wrap(base + off)
+
+
+def probe_seeds(seed: int) -> tuple[int, int]:
+    """Two decorrelated uint32 seeds for the autoprec two-seed grad probe."""
+    h = int(seed) * _PROBE_MULT
+    return (h + 101) & MASK32, (h + 211) & MASK32

@@ -1,4 +1,5 @@
-"""Synthetic graph datasets with OGB-Arxiv / Cora matched statistics.
+"""Synthetic graph datasets with OGB-Arxiv / Flickr / Cora matched
+statistics.
 
 The same numpy draws as the reference's ``repro.graph.data``, in the same
 order (the per-edge rewiring loop included: its draw order defines the
@@ -39,6 +40,18 @@ class Graph:
     @property
     def n_edges(self) -> int:
         return int(self.edge_src.shape[0])
+
+
+def in_adjacency(edge_src, edge_dst, n_nodes: int):
+    """CSR over *destination*: ``(nbr, starts)`` with the in-neighbors
+    (message sources) of node ``u`` at ``nbr[starts[u]:starts[u+1]]``, as
+    numpy arrays (a helper for partitioners and samplers; training reads
+    the edge list through :func:`repro_torch.graph.models.device_graph`)."""
+    src = np.asarray(edge_src)
+    dst = np.asarray(edge_dst)
+    order = np.argsort(dst, kind="stable")
+    starts = np.searchsorted(dst[order], np.arange(n_nodes + 1))
+    return src[order], starts
 
 
 def synthetic_graph(name: str, n_nodes: int, n_edges: int, n_feats: int,
@@ -101,6 +114,16 @@ def arxiv_like(scale: float = 0.1, seed: int = 0) -> Graph:
     e = max(4 * n, int(1_166_243 * scale))
     return synthetic_graph("arxiv-like", n, e, 128, 40, homophily=0.5,
                            feature_noise=2.0, seed=seed)
+
+
+def flickr_like(scale: float = 0.1, seed: int = 0) -> Graph:
+    """Flickr stand-in: 89,250 nodes / ~900K edges / 500 feats / 7 classes
+    (the paper's Table 1 second dataset; a hard task, tuned toward its
+    ~51.8 % FP32 operating point)."""
+    n = max(512, int(89_250 * scale))
+    e = max(4 * n, int(899_756 * scale))
+    return synthetic_graph("flickr-like", n, e, 500, 7, homophily=0.4,
+                           feature_noise=3.0, seed=seed)
 
 
 def cora_like(scale: float = 1.0, seed: int = 0) -> Graph:

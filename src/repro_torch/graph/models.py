@@ -115,29 +115,64 @@ def spmm(h: torch.Tensor, a: CSR) -> torch.Tensor:
 # ----------------------------------------------------------------- model
 @dataclasses.dataclass(frozen=True)
 class GNNConfig:
-    """``compression`` applies to every layer; ``None`` is the float32
-    baseline.  (The reference's per-layer tuples serve autoprec, which a
-    later slice ports.)"""
+    """``compression`` is heterogeneous-precision aware: a single
+    ``CompressionConfig`` is broadcast to every layer, while a tuple
+    carries one entry per GNN layer (``len(hidden) + 1``; ``None`` entries
+    leave that layer uncompressed, its linear input stashed as raw f32).
+    :meth:`layer_compression` is the per-layer view every consumer (the
+    stash forward, the byte ledger, autoprec) reads.
+
+    ``dropout`` is carried for configs written for the reference; training
+    applies none, as the reference's training engine reads no dropout
+    either (only its per-op ``gnn_forward`` takes a dropout key)."""
 
     arch: str = "sage"                 # "gcn" | "sage"
     hidden: tuple[int, ...] = (256, 256)
     n_classes: int = 40
-    compression: CompressionConfig | None = None
+    compression: (CompressionConfig | None
+                  | tuple[CompressionConfig | None, ...]) = None
+    dropout: float = 0.0
 
     @property
     def n_layers(self) -> int:
         return len(self.hidden) + 1
 
     def layer_compression(self) -> tuple[CompressionConfig | None, ...]:
-        """Per-layer compression configs (the shared one, broadcast)."""
-        return (self.compression,) * self.n_layers
+        """Per-layer compression configs, broadcasting a shared one."""
+        if self.compression is None:
+            return (None,) * self.n_layers
+        if isinstance(self.compression, CompressionConfig):
+            return (self.compression,) * self.n_layers
+        per = tuple(self.compression)
+        if len(per) != self.n_layers:
+            raise ValueError(
+                f"per-layer compression tuple has {len(per)} entries for a "
+                f"{self.n_layers}-layer model")
+        return per
+
+    def with_layer_bits(self, bits) -> "GNNConfig":
+        """Pin each layer's quantization width (autoprec's output): one
+        entry per layer; a falsy entry (0 or None), or one on an
+        uncompressed layer, leaves that layer as it is."""
+        per = self.layer_compression()
+        if len(bits) != self.n_layers:
+            raise ValueError(
+                f"got {len(bits)} bit-widths for {self.n_layers} layers")
+        return dataclasses.replace(self, compression=tuple(
+            c if c is None or not b else dataclasses.replace(c, bits=int(b))
+            for c, b in zip(per, bits)))
 
     def with_impl(self, impl: str) -> "GNNConfig":
-        """Same model, compression routed through another kernel backend."""
+        """Same model, compression routed through another kernel backend
+        (an uncompressed config is returned as it is)."""
         if self.compression is None:
             return self
-        return dataclasses.replace(
-            self, compression=self.compression.with_impl(impl))
+        if isinstance(self.compression, CompressionConfig):
+            return dataclasses.replace(
+                self, compression=self.compression.with_impl(impl))
+        return dataclasses.replace(self, compression=tuple(
+            None if c is None else c.with_impl(impl)
+            for c in self.compression))
 
 
 def _dims(cfg: GNNConfig, in_dim: int):

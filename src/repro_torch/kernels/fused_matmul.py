@@ -20,11 +20,14 @@ import math
 
 import torch
 
+from repro_torch.core.pack import ragged_words
 from repro_torch.core.prng import MASK32
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.quant_blockwise import MAX_LEVELS, unsupported
 
 _P = ctypes.c_void_p
+#: Most levels of a VM table the fused pair takes (a register-sized table,
+#: bits <= 4; the quant kernels alone take up to 256).
+MAX_LEVELS = 16
 #: Dynamic shared memory one CTA of the forward may use on an H100 (bytes:
 #: 227 KiB less the kernel's static level table).
 MAX_SMEM = 232_448 - 64
@@ -80,6 +83,23 @@ def scratch_nbytes(m: int, d: int, n: int) -> int:
     """Bytes of the backward's partials (0 when one range covers all rows)."""
     s, _ = splits(m, d, n)
     return 4 * s * d * n if s > 1 else 0
+
+
+def unsupported(bits: int, group_size: int, levels) -> str | None:
+    """Why the fused pair cannot take this config (None = it can): the
+    reference's rule for its fused kernels, narrower than the quant
+    kernels' own: ``bits`` divides 32, ``G`` is a multiple of the ``32 /
+    bits`` codes a word holds (whole words), and a VM table has at most 16
+    levels."""
+    if 32 % bits:
+        return f"bits={bits} does not divide 32"
+    reason = ragged_words(group_size, bits)
+    if reason is not None:
+        return reason
+    if levels is not None and len(levels) > MAX_LEVELS:
+        return (f"VM table has {len(levels)} levels; the fused kernels take "
+                f"at most {MAX_LEVELS} (bits <= 4)")
+    return None
 
 
 def _levels(bits: int, group_size: int, levels):

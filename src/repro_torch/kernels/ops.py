@@ -47,7 +47,8 @@ def _plain(impl: str, device) -> bool:
 
 def static_levels(levels):
     """Coerce a VM level table to a hashable tuple of python floats (the
-    kernels take the table by value, at most 16 float32 entries)."""
+    kernels take the table by value: at most 256 float32 entries, 16 for
+    the fused pair)."""
     return None if levels is None else tuple(float(lv) for lv in levels)
 
 

@@ -14,10 +14,14 @@ import functools
 
 import torch
 
+from repro_torch.core import pack as packmod
 from repro_torch.core.prng import MASK32
 from repro_torch.kernels import build, ref
 
-MAX_LEVELS = 16
+#: Most levels of a VM table the kernels take: 256, an 8-bit table (tables
+#: of up to 16 levels stay in the vector path's registers; larger ones go
+#: to the scalar path's shared-memory table).
+MAX_LEVELS = 256
 _P = ctypes.c_void_p
 
 
@@ -49,16 +53,16 @@ def lanes_per_block(group_size: int, bits: int) -> int:
 
 
 def unsupported(bits: int, group_size: int, levels) -> str | None:
-    """Why the kernels cannot take this config (None = they can)."""
+    """Why the kernels cannot take this config (None = they can): ``bits``
+    must divide 32 and a VM table hold at most 256 levels.  Any group size
+    runs: one that is not a multiple of the ``32 / bits`` codes a word
+    holds packs into ``ceil(G * bits / 32)`` words whose spare fields are
+    zero (the reference's pack layout)."""
     if 32 % bits:
         return f"bits={bits} does not divide 32"
-    vpw = 32 // bits
-    if group_size % vpw:
-        return (f"group_size={group_size} is not a multiple of the "
-                f"{vpw} codes-per-word pack width")
     if levels is not None and len(levels) > MAX_LEVELS:
-        return (f"VM table has {len(levels)} levels; the kernel supports "
-                f"at most {MAX_LEVELS} (bits <= 4)")
+        return (f"VM table has {len(levels)} levels; the kernels take at "
+                f"most {MAX_LEVELS} (bits <= 8)")
     return None
 
 
@@ -66,14 +70,13 @@ def _checked(bits: int, group_size: int, levels, *tensors) -> tuple:
     reason = unsupported(bits, group_size, levels)
     if reason is not None:
         raise ValueError(f"CUDA quant kernel cannot run this config: {reason}")
-    if 8 * group_size * 4 > 232_448:
-        raise ValueError(f"group_size={group_size} needs more shared memory "
-                         "than a CTA has")
+    if group_size < 1:
+        raise ValueError(f"group_size={group_size} must be positive")
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError("CUDA quant kernels need contiguous tensors")
-    lv = (ctypes.c_float * MAX_LEVELS)(*(levels or ()))
-    return lv, (0 if levels is None else len(levels))
+    levels = levels or ()
+    return (ctypes.c_float * max(1, len(levels)))(*levels), len(levels)
 
 
 def _stream() -> _P:
@@ -99,7 +102,8 @@ def _seed_run_length(seed, n: int, rows_per_seed: int | None) -> int:
 
 def quant_pack(x2d: torch.Tensor, bits: int, seed, levels=None, *,
                rows_per_seed: int | None = None):
-    """(n_blocks, G) f32 -> (packed int32 (n, G*bits/32), zero (n,), rng (n,)).
+    """(n_blocks, G) f32 -> (packed int32 (n, ceil(G*bits/32)), zero (n,),
+    rng (n,)).
 
     ``seed`` is a python int: element (row, col) draws its SR noise from
     counter ``row * G + col``.  Or it is a tensor of one seed per run of
@@ -122,7 +126,7 @@ def quant_pack(x2d: torch.Tensor, bits: int, seed, levels=None, *,
             raise ValueError("the seed table must lie on the input's device")
         # uint32 values as int32 bits (the int64 -> int32 cast wraps)
         seeds = (seed.to(torch.int64) & MASK32).to(torch.int32).contiguous()
-    packed = torch.empty((n, g * bits // 32), dtype=torch.int32,
+    packed = torch.empty((n, packmod.packed_len(g, bits)), dtype=torch.int32,
                          device=x2d.device)
     zero = torch.empty((n,), dtype=torch.float32, device=x2d.device)
     rng = torch.empty((n,), dtype=torch.float32, device=x2d.device)
@@ -139,17 +143,18 @@ def quant_pack(x2d: torch.Tensor, bits: int, seed, levels=None, *,
 def dequant_unpack(packed: torch.Tensor, zero: torch.Tensor,
                    rng: torch.Tensor, bits: int, group_size: int,
                    levels=None) -> torch.Tensor:
-    """(packed (n, W), zero (n,), rng (n,)) -> (n, G) f32."""
+    """(packed (n, ceil(G*bits/32)), zero (n,), rng (n,)) -> (n, G) f32."""
     if not packed.is_cuda:
         return ref.dequantize_packed(packed, zero, rng, bits, group_size,
                                      levels)
     n = packed.shape[0]
-    if (packed.dtype != torch.int32 or packed.shape[1] * 32 // bits
-            != group_size or zero.dtype != torch.float32
+    if (packed.dtype != torch.int32 or packed.dim() != 2
+            or packed.shape[1] != packmod.packed_len(group_size, bits)
+            or zero.dtype != torch.float32
             or rng.dtype != torch.float32 or zero.shape != (n,)
             or rng.shape != (n,)):
-        raise ValueError("dequant_unpack needs int32 words (n, G*bits/32) "
-                         "and float32 zero/rng (n,)")
+        raise ValueError("dequant_unpack needs int32 words (n, "
+                         "ceil(G*bits/32)) and float32 zero/rng (n,)")
     lv, n_lv = _checked(bits, group_size, levels, packed, zero, rng)
     out = torch.empty((n, group_size), dtype=torch.float32,
                       device=packed.device)

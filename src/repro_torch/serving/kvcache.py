@@ -36,7 +36,6 @@ import numpy as np
 import torch
 
 from repro_torch.core import pack as packmod
-from repro_torch.core.backend import quant_kernel_unsupported
 from repro_torch.core.device import resolve_device
 from repro_torch.engine.seeds import kv_seed
 from repro_torch.kernels import ops
@@ -159,10 +158,11 @@ def plan_kv_layout(kv: KVCacheConfig, *, n_layers: int, n_kv_heads: int,
             f"group_size={kv.group_size} (effective {g}) must divide the "
             f"{elems}-element KV token row (Hkv={n_kv_heads} x Dh={d_head}) "
             "so quant blocks never straddle tokens")
-    if kv.bits < 16:
-        reason = quant_kernel_unsupported(kv.bits, g, None)
-        if reason is not None:
-            raise ValueError(f"kv cache quantization infeasible: {reason}")
+    # whole words a block, as the reference's kernel rule asks (the quant
+    # kernels would also take ragged words; the page layout keeps to this)
+    reason = None if kv.bits == 16 else packmod.ragged_words(g, kv.bits)
+    if reason is not None:
+        raise ValueError(f"kv cache quantization infeasible: {reason}")
     return KVPageLayout(n_layers=n_layers, n_kv_heads=n_kv_heads,
                         d_head=d_head, bits=kv.bits, group_size=g,
                         page_tokens=kv.page_tokens, n_pages=kv.n_pages,

@@ -27,22 +27,45 @@ def _raises(fn):
     return False
 
 
+def _port_takes(bits, levels):
+    """The quant kernels' rule: bits divides 32 and a VM table has at most
+    256 levels (any group size: ragged words pack with zero fields)."""
+    return 32 % bits == 0 and (levels is None or len(levels) <= 256)
+
+
 @pytest.mark.parametrize("bits,g,levels", GRID)
 def test_route_quant_decisions_match_reference(bits, g, levels):
-    """The port's "cuda" (explicit or by "auto" on a CUDA device) takes or
-    refuses exactly the configs the reference's kernel impl does; the CPU
-    path ("auto" there) always runs the plain version, as the reference's
-    jnp path does off the TPU."""
+    """The port's "cuda" (explicit or by "auto" on a CUDA device) takes
+    every config the reference's kernel impl takes, and besides the ones
+    the reference leaves to its jnp path on the TPU (ragged words, VM
+    tables of up to 256 levels); it refuses only ``32 % bits`` and larger
+    tables.  The CPU path ("auto" there) always runs the plain version, as
+    the reference's jnp path does off the TPU."""
     ref_reason = j_backend.quant_kernel_unsupported(bits, g, levels)
-    assert (t_backend.quant_kernel_unsupported(bits, g, levels) is None) \
-        == (ref_reason is None)
+    port_reason = t_backend.quant_kernel_unsupported(bits, g, levels)
+    assert (port_reason is None) == _port_takes(bits, levels)
+    if ref_reason is None:
+        assert port_reason is None
     ref_raises = _raises(lambda: j_backend.route_quant("interp", bits, g,
                                                        levels))
+    assert ref_raises == (ref_reason is not None)
     for impl in ("cuda", "auto"):
         assert _raises(lambda: t_backend.route_quant(
-            impl, bits, g, levels, "cuda")) == ref_raises
+            impl, bits, g, levels, "cuda")) == (port_reason is not None)
     assert j_backend.route_quant("auto", bits, g, levels) == "jnp"
     assert t_backend.route_quant("auto", bits, g, levels, "cpu") == "torch"
+
+
+@pytest.mark.parametrize("bits,g", [(8, 256), (8, 125), (4, 1000), (2, 4096),
+                                    (16, 64)])
+@pytest.mark.parametrize("n_levels", [17, 256, 257])
+def test_route_quant_takes_tables_up_to_256_levels(bits, g, n_levels):
+    levels = tuple(float(i) for i in range(n_levels))
+    raises = _raises(lambda: t_backend.route_quant("auto", bits, g, levels,
+                                                   "cuda"))
+    assert raises == (n_levels > 256)
+    # the reference's kernel impl stops at 16 levels
+    assert j_backend.quant_kernel_unsupported(bits, g, levels) is not None
 
 
 SHAPES = [(64, 256), (100, 256), (33, 256), (512, 32), (4, 96), (8, 512),

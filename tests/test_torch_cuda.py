@@ -112,11 +112,123 @@ def test_cuda_quant_main_path_shapes_bit_equal(cuda, shape):
     (300, 512, 2), (77, 96, 4)])                # scalar: G off the vector path
 def test_cuda_quant_paths_bit_equal(cuda, levels, n, g, bits):
     """Both paths of both kernels, at counts that are not a multiple of the
-    blocks a CTA or the persistent grid takes."""
+    blocks a CTA or the persistent grid takes (VM at 8 bits: the 256-level
+    table of the scalar path)."""
     if levels is not None and bits != 2:
-        levels = optimize_levels(32, bits) if bits <= 4 else None
+        levels = optimize_levels(32, bits) if bits <= 8 else None
     x = torch.from_numpy(_x(n, g, seed=n + bits)).cuda()
     _assert_quant_round_trip(x, bits, 99, levels)
+
+
+#: Ragged words: G not a multiple of the codes a word holds (Table 1's
+#: flickr group sizes at 2 bits, and G = 125 at 1, 4 and 8 bits).
+RAGGED = [(125, 2), (250, 2), (500, 2), (1000, 2), (125, 1), (125, 4),
+          (125, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vm", [False, True])
+@pytest.mark.parametrize("g,bits", RAGGED)
+@pytest.mark.parametrize("n", [1, 37, 4_099])
+def test_cuda_quant_ragged_words_bit_equal(cuda, vm, g, bits, n):
+    """The scalar path's masked last word: words, zero and range bit-equal
+    to the plain version (which pads the codes with zeros), uniform and
+    with a VM table of 2**bits levels (256 at 8 bits)."""
+    levels = optimize_levels(32, bits) if vm else None
+    x = torch.from_numpy(_x(n, g, seed=g * bits + n)).cuda()
+    p, _, _ = _assert_quant_round_trip(x, bits, 31, levels)
+    assert p.shape == (n, -(-g * bits // 32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [42_336, 21_168, 517])
+def test_cuda_quant_vm8_bit_equal(cuda, n):
+    """8-bit VM (a 256-level table in shared memory, searched in eight
+    steps) at the autoprec phase's block counts, and after a misaligned
+    start."""
+    levels = optimize_levels(32, 8)
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.randn((n, 256), device="cuda", generator=gen) * 1.9 + 0.3
+    _assert_quant_round_trip(x, 8, 1234, levels)
+    flat = torch.cat([x.new_zeros(1), x.reshape(-1)])
+    _assert_quant_round_trip(flat[1:].reshape(n, 256), 8, 77, levels)
+
+
+@pytest.mark.gpu
+def test_cuda_quant_vm8_ties_and_table_edges(cuda):
+    """Values exactly on the table's levels and at both of its ends take
+    the bin searchsorted(right) gives, as the plain version does."""
+    levels = optimize_levels(32, 8)
+    lv = torch.tensor(levels, dtype=torch.float32)
+    assert float(lv[0]) == 0.0 and float(lv[-1]) == 255.0
+    # blocks whose min is 0 and max 255, so h lies on or next to the levels:
+    # every level, then the midpoints between neighbours
+    mid = (lv[1:] + lv[:-1]) / 2
+    x = torch.stack([lv, torch.cat([mid[:254], lv[:1], lv[-1:]])]).cuda()
+    _assert_quant_round_trip(x, 8, 5, levels)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [1, 4, 8])
+def test_cuda_fused_pair_uniform_widths_bit_equal_stash(cuda, bits):
+    """The fused pair at the autoprec widths (uniform levels): the forward's
+    stash bit-equal to the plain version and quant_pack, and the backward
+    within 1e-4 of |x_hat|^T |g| of the plain version."""
+    from repro_torch.kernels import fused_matmul as t_fk
+
+    m, d, g, n = 677, 256, 256, 40
+    x = torch.from_numpy(_x(m, d, seed=bits)).cuda()
+    w = torch.from_numpy((_x(d, n, seed=d) / 16).astype(np.float32)).cuda()
+    y, *stash = t_fk.matmul_quant(x, w, bits, 42, None, group_size=g)
+    y_p, *stash_p = t_ref.matmul_quantize_packed(x, w, bits, 42, None,
+                                                 group_size=g)
+    for a, b, c in zip(stash, stash_p,
+                       t_qk.quant_pack(x.reshape(-1, g), bits, 42)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    torch.testing.assert_close(y, y_p, rtol=2e-4, atol=2e-4)
+    gr = torch.from_numpy(_x(m, n, seed=7) / 300).cuda()
+    dw = t_fk.dequant_matmul(*stash, gr, bits, g, d)
+    dw_p = t_ref.dequant_matmul_packed(*stash_p, gr, bits, g, d)
+    x_hat = t_ref.dequantize_packed(*stash_p, bits, g).reshape(-1, d)
+    assert bool(((dw - dw_p).abs() <= 1e-4 * (x_hat.abs().T @ gr.abs())
+                 + 1e-30).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,bits,vm", [(125, 2, False), (1000, 2, False),
+                                       (256, 8, True), (64, 8, True)])
+def test_cuda_route_fused_auto_declines_without_raising(cuda, g, bits, vm):
+    """Ragged words and 256-level tables are the quant kernels' alone:
+    "auto" runs the two-pass spelling on them (no raise), "on" refuses."""
+    from repro_torch.core import backend
+
+    levels = optimize_levels(32, bits) if vm else None
+    shape = (1000, 2000 if g == 1000 else 2 * g)
+    assert backend.route_quant("auto", bits, g, levels, "cuda") == "cuda"
+    assert backend.route_fused("auto", "auto", shape, bits, g, levels, 0,
+                               "cuda") is None
+    with pytest.raises(ValueError):
+        backend.route_fused("on", "auto", shape, bits, g, levels, 0, "cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("vm", [False, True])
+def test_cuda_quant_takes_every_table1_config(cuda, bits, vm):
+    """BIT_CHOICES x {uniform, VM} x Table 1's group sizes (both datasets'
+    base_r = 2 F / 8 times G/R in 1..64, capped at 4096): route_quant
+    raises for none, and both kernels run each bit-equal to the plain
+    version."""
+    from repro_torch.core import backend
+
+    for base_r in (32, 125):
+        for gr in (1, 2, 4, 8, 16, 32, 64):
+            g = min(base_r * gr, 4096)
+            levels = optimize_levels(32, bits) if vm else None
+            assert backend.route_quant("auto", bits, g, levels, "cuda") \
+                == "cuda"
+            x = torch.from_numpy(_x(9, g, seed=g + bits)).cuda()
+            _assert_quant_round_trip(x, bits, g, levels)
 
 
 @pytest.mark.gpu

@@ -7,6 +7,7 @@ RP 8, VM levels.  Tolerance for losses and gradients: rtol 1e-3, because
 the matmuls and the sparse aggregation sum in another order than XLA, and a
 last-ulp difference can flip a rare stochastic-rounding code in a deeper
 layer."""
+import dataclasses
 import functools
 
 import jax
@@ -247,8 +248,9 @@ def test_adamw_matches_reference():
         for a, b in zip(tp, jp):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
                                        atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        TAdam(state_bits=8)
+    # the same fields and defaults, 8-bit states included (their parity
+    # is in tests/test_torch_table1.py)
+    assert dataclasses.asdict(TAdam()) == dataclasses.asdict(JAdam())
 
 
 def test_train_gnn_never_falls_back_to_cpu():
