@@ -48,7 +48,23 @@ Phases, in order; any failure raises and exits non-zero:
    with its launch counts as planned, its live stash equal to the ledger
    (``graph.analysis.live_stash_bytes``: ``activation_memory_report``'s
    for a compressed layer) and a finite, falling loss;
-7. slice 3: serving full-width qwen1.5-4b (random bf16 weights, seed 0)
+7. slice 10, the mini-batch partition engine through ``train_gnn_batched``
+   on phase 4's graph, config and weights: (a) one batch with tight
+   padding is ``train_gnn`` bit for bit; (b) the examples recipe (8 bfs
+   parts, halo 0, BATCHED_EPOCHS epochs: batches of BATCH_NODES x
+   BATCH_EDGES, 8 updates an epoch, launches as planned, the live stash
+   equal to ``activation_memory_report``'s batched ledger, a falling loss,
+   a bit-identical repeated epoch, epoch times and peak memory beside
+   phase 4's) and one profiled update; (c) the README recipe (halo 1,
+   ``grad_accum=2``, 2 epochs: HALO_BATCH_NODES, 4 updates an epoch, its
+   ledger) and one profiled update; (d) rp_ratio 0, ``fused="auto"`` (3
+   fused launches a batch step, none unfused) and ``"off"`` from the same
+   weights (losses within rtol 1e-3, the same stash); (e) autoprec at
+   ``bit_budget=2.0``, ``autoprec_refresh=2`` on batch 0 (widths in
+   ``BIT_CHOICES``, the allocation within the per-batch budget, a
+   bit-identical repeat).  The quant, RP and fused kernels of phase 3 also
+   run at these batches' shapes;
+8. slice 3: serving full-width qwen1.5-4b (random bf16 weights, seed 0)
    through ``repro_torch.launch.serve``'s engine: 8 requests of 1000 prompt
    tokens and 32 generated, 4 slots, continuous batching, 4-bit KV pages
    (G=64, 16 tokens a page).  Every request served with 32 tokens; launch
@@ -60,7 +76,7 @@ Phases, in order; any failure raises and exits non-zero:
    layers of full width the prefill logits with the kernel agree with the
    plain attention on the card; prefill and decode step times, and one
    profiled prefill and decode step;
-8. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+9. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX; without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -89,6 +105,10 @@ PEAK_TF32_OPS_PER_S = 495e12
 PEAK_BF16_OPS_PER_S = 989e12
 
 N_NODES = 169_343                 # arxiv_like(scale=1.0)
+#: Phase 7's padded batches of arxiv_like(1.0) (make_subgraph_batches,
+#: 8 bfs parts, seed 0, node/edge multiples 64/256): halo 0 and halo 1.
+BATCH_NODES, BATCH_EDGES = 21_184, 96_768
+HALO_BATCH_NODES = 132_032
 FLICKR_NODES = 89_250             # flickr_like(scale=1.0)
 #: Epochs of each flickr Table-1 row: at the default lr of 5e-3 the FP32
 #: row's loss overshoots at epoch 1 (2.084, 7.347, 3.793 over 3 epochs on
@@ -166,6 +186,13 @@ EXTRA_QUANT = (("flickr", 89_250, 125, 2, None),
                ("adamw8", 1, 256, 8, None))
 
 
+#: Phase 7's 2-bit VM blocks of 256: the RP-8 stashes of a halo-0 batch
+#: (21,184 rows at 32 and 64 columns after RP) and of a halo-1 batch
+#: (132,032 rows), and the rp_ratio-0 "off" stashes of a halo-0 batch
+#: (21,184 x 256 and x 512).
+BATCH_QUANT_BLOCKS = (2_648, 5_296, 16_504, 33_008, 21_184, 42_368)
+
+
 def quant_case(torch, qk, ref, n_blocks, G, bits, lv, flush, gen) -> tuple:
     """quant_pack / dequant_unpack at one shape: bit-equal to the plain
     version, then timed beside it and the bound.  Returns the two rows."""
@@ -221,12 +248,14 @@ def quant_case(torch, qk, ref, n_blocks, G, bits, lv, flush, gen) -> tuple:
 
 def check_quant(torch, qk, ref, levels, flush, gen) -> dict:
     """quant_pack / dequant_unpack at the main path's block counts: slice
-    1's 2-bit blocks of 256 (uniform and VM), then EXTRA_QUANT (ragged
-    words and the 256-level table)."""
+    1's 2-bit blocks of 256 (uniform and VM), phase 7's
+    (BATCH_QUANT_BLOCKS), then EXTRA_QUANT (ragged words and the 256-level
+    table)."""
     from repro_torch.core.variance import optimize_levels
 
     cases = [(n, 256, 2, lv) for n in (21_168, 42_336)
              for lv in (None, levels)]
+    cases += [(n, 256, 2, levels) for n in BATCH_QUANT_BLOCKS]
     # flickr's VM table is its rows' (CN_[1/D] at D = 125 // 8), VM-8's
     # the arxiv template's at 8 bits (D = 256 // 8)
     tables = {"flickr": optimize_levels(125 // 8, 2),
@@ -242,19 +271,26 @@ def check_quant(torch, qk, ref, levels, flush, gen) -> dict:
     return rows
 
 
+#: Rows RP and IRP run at: the full graph, phase 7's halo-0 and halo-1
+#: batches.
+RP_ROWS = (N_NODES, BATCH_NODES, HALO_BATCH_NODES)
+
+
 def check_rp(torch, rk, ref, rpmod, flush, gen) -> dict:
-    """RP and IRP at the main path's shapes, rtol/atol 2e-4 (the kernel sums
-    two TF32 parts of x times +-1 on the tensor cores, cuBLAS the float32
-    products, each in its own order), and bit-identical from call to call.
+    """RP and IRP at the main path's shapes (RP_ROWS rows), rtol/atol 2e-4
+    (the kernel sums two TF32 parts of x times +-1 on the tensor cores,
+    cuBLAS the float32 products, each in its own order), and bit-identical
+    from call to call.
     bound_ms is the bound the tensor-core kernel is held to: the bytes, or
     the product's 2*M*K*N operations at the TF32 peak of 495 TFLOP/s,
     whichever is larger (the bytes, at these shapes); f32_bound_ms, logged
     beside it, is the bound of a float32 SIMT product at 67 TFLOP/s."""
-    rows = {}
-    for d_in, r in ((256, 32), (512, 64)):
+    out = {}
+    for rows, d_in, r in [(m, d, r) for m in RP_ROWS
+                          for d, r in ((256, 32), (512, 64))]:
         for name in ("rp_project", "irp_project"):
             k, n = (d_in, r) if name == "rp_project" else (r, d_in)
-            x = torch.randn((N_NODES, k), device="cuda", generator=gen)
+            x = torch.randn((rows, k), device="cuda", generator=gen)
             if name == "rp_project":
                 kern = lambda: rk.rp_project(x, 77, r)
                 plain = lambda: ref.rp_project(x, 77, r)
@@ -269,8 +305,8 @@ def check_rp(torch, rk, ref, rpmod, flush, gen) -> dict:
             if not torch.equal(yk, again):
                 raise AssertionError(f"{name}: two calls differ")
             err = float((yk - yr).abs().max())
-            nbytes = N_NODES * (k + n) * 4
-            flops = 2 * N_NODES * k * n
+            nbytes = rows * (k + n) * 4
+            flops = 2 * rows * k * n
             b = bound(nbytes, flops, PEAK_TF32_OPS_PER_S)
             row = dict(ms=time_ms(torch, kern, flush),
                        plain_ms=time_ms(torch, plain, flush),
@@ -278,38 +314,40 @@ def check_rp(torch, rk, ref, rpmod, flush, gen) -> dict:
                        bound_ms=b[0], bound_by=b[1],
                        f32_bound_ms=bound(nbytes, flops)[0],
                        max_abs_err=err, bytes=nbytes, flops=flops)
-            tag = f"{N_NODES}x{k}->{n}"
+            tag = f"{rows}x{k}->{n}"
             log(f"{name:14s} {tag}: within 2e-4, bit-identical repeat; {row}")
-            rows[(name, tag)] = row
-    return rows
+            out[(name, tag)] = row
+    return out
 
 
 FUSED_LAYERS = ((256, 256), (512, 256), (512, 40))   # slice 2: (D, N)
 
 
-def aligned_excess(torch, fk, qk, ref, levels, d, n, gen) -> float:
-    """The backward where no rounding error cancels, at the slice's
-    N_NODES rows and so over its longest row ranges: every stash row the
-    INT2 stash of one row of x, every g row one |N(0, 1)| row.  Returns
+def aligned_excess(torch, fk, qk, ref, levels, d, n, gen,
+                   rows: int = N_NODES) -> float:
+    """The backward where no rounding error cancels, at ``rows`` rows (the
+    slice's N_NODES: its longest row ranges): every stash row the INT2
+    stash of one row of x, every g row one |N(0, 1)| row.  Returns
     max |dw - exact| / (1e-4 * |x_hat|^T |g|), the exact product (float64)
-    being N_NODES times the one row's; above 1 leaves the band."""
+    being ``rows`` times the one row's; above 1 leaves the band."""
     G = 256
     one = qk.quant_pack((torch.randn((1, d), device="cuda", generator=gen)
                          * 1.7).reshape(-1, G), 2, 99, levels)
     g1 = torch.randn((1, n), device="cuda", generator=gen).abs()
-    dw = fk.dequant_matmul(one[0].repeat(N_NODES, 1), one[1].repeat(N_NODES),
-                           one[2].repeat(N_NODES), g1.repeat(N_NODES, 1), 2,
+    dw = fk.dequant_matmul(one[0].repeat(rows, 1), one[1].repeat(rows),
+                           one[2].repeat(rows), g1.repeat(rows, 1), 2,
                            G, d, levels).double()
     x1 = ref.dequantize_packed(*one, 2, G, levels).reshape(1, d).double()
-    exact = N_NODES * (x1.T @ g1.double())
-    scale = N_NODES * (x1.abs().T @ g1.double())
+    exact = rows * (x1.T @ g1.double())
+    scale = rows * (x1.abs().T @ g1.double())
     return float(((dw - exact).abs() / (1e-4 * scale + 1e-300)).max())
 
 
 def check_fused(torch, fk, qk, ref, levels, flush, gen) -> dict:
     """matmul_quant / dequant_matmul at the rp_ratio-0 slice's three layer
-    shapes.  The forward's stash must be bit-equal to the plain version and
-    to the quant_pack kernel on the same x, its y within 2e-4 of cuBLAS
+    shapes, at the full graph's rows and at phase 7's halo-0 batch's.  The
+    forward's stash must be bit-equal to the plain version and to the
+    quant_pack kernel on the same x, its y within 2e-4 of cuBLAS
     (three TF32 products of split x and w on the tensor cores), and two
     calls must give the same bits; the backward within 1e-4 * (|x_hat|^T
     |g|) elementwise of the plain version (a long row sum in another order),
@@ -325,12 +363,13 @@ def check_fused(torch, fk, qk, ref, levels, flush, gen) -> dict:
     bound of a float32 SIMT product (67 TFLOP/s)."""
     log(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
-    rows, G, smi = {}, 256, card()
-    for d, n in FUSED_LAYERS:
-        x = torch.randn((N_NODES, d), device="cuda", generator=gen) * 1.7
+    out, G, smi = {}, 256, card()
+    for rows, d, n in [(m, d, n) for m in (N_NODES, BATCH_NODES)
+                       for d, n in FUSED_LAYERS]:
+        x = torch.randn((rows, d), device="cuda", generator=gen) * 1.7
         w = torch.randn((d, n), device="cuda", generator=gen) / d ** 0.5
-        g = torch.randn((N_NODES, n), device="cuda", generator=gen) / 400
-        tag = f"{N_NODES}x{d}@{d}x{n}"
+        g = torch.randn((rows, n), device="cuda", generator=gen) / 400
+        tag = f"{rows}x{d}@{d}x{n}"
         y, *stash = fk.matmul_quant(x, w, 2, 99, levels, group_size=G)
         y_p, *stash_p = ref.matmul_quantize_packed(x, w, 2, 99, levels,
                                                    group_size=G)
@@ -358,51 +397,52 @@ def check_fused(torch, fk, qk, ref, levels, flush, gen) -> dict:
         if not bool(((dw - dw_p).abs() <= 1e-4 * scale).all()):
             raise AssertionError(f"dequant_matmul {tag}: outside 1e-4 of "
                                  f"|x_hat|^T|g| (max abs err {dw_err})")
-        aligned = aligned_excess(torch, fk, qk, ref, levels, d, n, gen)
+        aligned = aligned_excess(torch, fk, qk, ref, levels, d, n, gen,
+                                 rows)
         if not aligned <= 1.0:
             raise AssertionError(f"dequant_matmul {tag}: aligned errors "
                                  f"{aligned} of the 1e-4 band")
-        nb = N_NODES * d // G
+        nb = rows * d // G
         stash_bytes = nb * (G * 2 // 8) + 8 * nb
-        flops = 2 * N_NODES * d * n
+        flops = 2 * rows * d * n
         # forward: x and w read, y and the stash written; the product at
         # the TF32 peak, ~18 operations an element to quantize (as
         # check_quant counts) at the float32 rate, whichever takes longest
-        f_bytes = 4 * (N_NODES * d + d * n + N_NODES * n) + stash_bytes
+        f_bytes = 4 * (rows * d + d * n + rows * n) + stash_bytes
         f_bound = max(bound(f_bytes, flops, PEAK_TF32_OPS_PER_S),
-                      bound(f_bytes, 18 * N_NODES * d), key=lambda b: b[0])
+                      bound(f_bytes, 18 * rows * d), key=lambda b: b[0])
         # backward: the stash and g read, dw written; the product at the
         # bf16 peak (three bf16 products of split x_hat and g on the tensor
         # cores), ~4 operations an element to dequantize at the float32
         # rate, whichever takes longest
-        b_bytes = stash_bytes + 4 * (N_NODES * n + d * n)
+        b_bytes = stash_bytes + 4 * (rows * n + d * n)
         b_bound = max(bound(b_bytes, flops, PEAK_BF16_OPS_PER_S),
-                      bound(b_bytes, 4 * N_NODES * d), key=lambda b: b[0])
+                      bound(b_bytes, 4 * rows * d), key=lambda b: b[0])
         f = dict(ms=time_ms(torch, lambda: fk.matmul_quant(x, w, 2, 99, levels, group_size=G), flush),
                  plain_ms=time_ms(torch, lambda: ref.matmul_quantize_packed(x, w, 2, 99, levels, group_size=G), flush),
                  library_ms=time_ms(torch, lambda: torch.matmul(x, w), flush),
                  unfused_ms=time_ms(torch, lambda: (torch.matmul(x, w), qk.quant_pack(x.reshape(-1, G), 2, 99, levels)), flush),
                  bound_ms=f_bound[0], bound_by=f_bound[1],
-                 f32_bound_ms=bound(f_bytes, flops + 18 * N_NODES * d)[0],
+                 f32_bound_ms=bound(f_bytes, flops + 18 * rows * d)[0],
                  max_abs_err=y_err, flops=flops, bytes=f_bytes, card=smi)
         b = dict(ms=time_ms(torch, lambda: fk.dequant_matmul(*stash, g, 2, G, d, levels), flush),
                  plain_ms=time_ms(torch, lambda: ref.dequant_matmul_packed(*stash_p, g, 2, G, d, levels), flush),
                  library_ms=time_ms(torch, lambda: torch.matmul(x_hat.T, g), flush),
                  unfused_ms=time_ms(torch, lambda: torch.matmul(qk.dequant_unpack(*stash, 2, G, levels).reshape(-1, d).T, g), flush),
                  bound_ms=b_bound[0], bound_by=b_bound[1],
-                 f32_bound_ms=bound(b_bytes, flops + 4 * N_NODES * d)[0],
+                 f32_bound_ms=bound(b_bytes, flops + 4 * rows * d)[0],
                  max_abs_err=dw_err, aligned_excess=aligned, flops=flops,
-                 bytes=b_bytes, scratch_bytes=fk.scratch_nbytes(N_NODES, d, n),
-                 splits=fk.splits(N_NODES, d, n)[0], card=smi)
+                 bytes=b_bytes, scratch_bytes=fk.scratch_nbytes(rows, d, n),
+                 splits=fk.splits(rows, d, n)[0], card=smi)
         log(f"matmul_quant   {tag}: stash bit-equal, bit-identical repeat, y "
             f"max abs err {y_err}; {f}")
         log(f"dequant_matmul {tag}: bit-identical repeat, max abs err "
             f"{dw_err}, aligned errors {aligned} of the band; {b}")
-        rows[("matmul_quant", tag)] = f
-        rows[("dequant_matmul", tag)] = b
+        out[("matmul_quant", tag)] = f
+        out[("dequant_matmul", tag)] = b
         del x, w, g, y, y_p, stash, stash_p, stash_q, dw, again, dw_p, x_hat
         del scale
-    return rows
+    return out
 
 
 def check_spmm(torch, g, flush, gen) -> None:
@@ -470,24 +510,21 @@ def log_profile(rows, top: int) -> None:
             log(f"  {ms:9.3f} ms  x{count:<5d} {key[:100]}")
 
 
-def profile_step(torch, g, cfg, model) -> None:
-    """Where one training step's time goes: device time per kernel name
-    (torch.profiler, CUPTI) and the device's idle share of the step's wall
-    time.  Runs after the main path's launch counts were read."""
+def profile_call(torch, fn, what: str, top: int = 15) -> None:
+    """Where one call of ``fn`` (a training step) goes: device time per
+    kernel name (torch.profiler, CUPTI) and the device's idle share of its
+    wall time, after one warm-up call; and the peak device memory the call
+    adds to what was allocated before it."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.engine.compile import CompiledFull
-    from repro_torch.graph.models import device_graph
-    from repro_torch.optim import AdamWConfig
-
-    step = CompiledFull(device_graph(g, cfg.arch, "cuda"), cfg, model,
-                        AdamWConfig(lr=5e-3))
-    step.step(0)
+    fn()
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step.step(1)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.count, e.key)
@@ -495,9 +532,24 @@ def profile_step(torch, g, cfg, model) -> None:
             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"profiled step: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
-        f"idle share {1 - busy / wall_ms:.3f}")
-    log_profile(rows, 15)
+    log(f"profiled {what}: wall {wall_ms:.3f} ms, device busy {busy:.3f} "
+        f"ms, idle share {1 - busy / wall_ms:.3f}, peak "
+        f"{torch.cuda.max_memory_allocated() - base} bytes above the "
+        f"{base} allocated before it")
+    log_profile(rows, top)
+
+
+def profile_step(torch, g, cfg, model) -> None:
+    """Where one full-graph training step's time goes (profile_call).  Runs
+    after the main path's launch counts were read."""
+    from repro_torch.engine.compile import CompiledFull
+    from repro_torch.graph.models import device_graph
+    from repro_torch.optim import AdamWConfig
+
+    step = CompiledFull(device_graph(g, cfg.arch, "cuda"), cfg, model,
+                        AdamWConfig(lr=5e-3))
+    epochs = iter(range(2))
+    profile_call(torch, lambda: step.step(next(epochs)), "step")
 
 
 FUSED = ("matmul_quant", "dequant_matmul")
@@ -797,6 +849,206 @@ def slice_table1(torch, g, cfg, model0, wrappers) -> dict:
             f"{report['fp32_bytes']} bytes) live stash {sum(live)} bytes "
             f"max_memory_allocated {peak} bytes")
         del res
+    return dict(total)
+
+
+#: Phase 7's live stash a batch (activation_memory_report(...)["batched"]
+#: ["per_layer"] of the RP-8 config at the halo-0 and halo-1 batches, and
+#: of the rp_ratio-0 config at halo 0).
+BATCH_LEDGER = [868_548, 1_059_204, 381_316]
+HALO_BATCH_LEDGER = [5_413_316, 6_601_604, 2_376_580]
+BATCH_RP0_LEDGER = [2_203_140, 3_728_388, 3_050_500]
+BATCHED_EPOCHS = 5
+
+
+def profile_update(torch, g, cfg, model, batches, grad_accum: int,
+                   what: str) -> None:
+    """Where one batched optimizer update goes: a partition step over the
+    first ``grad_accum`` of ``batches`` (one update), profiled."""
+    from repro_torch.engine.compile import compile_plan
+    from repro_torch.engine.plan import ExecutionPlan
+    from repro_torch.optim import AdamWConfig
+
+    plan = ExecutionPlan.from_legacy(n_parts=grad_accum,
+                                     grad_accum=grad_accum, shuffle=False)
+    step = compile_plan(g, cfg, plan, model, AdamWConfig(lr=5e-3), "cuda",
+                        batches=batches[:grad_accum])
+    epochs = iter(range(2))
+    profile_call(torch, lambda: step.step(next(epochs), range(grad_accum)),
+                 f"batched update ({what})", top=12)
+
+
+def batch_checks(res: dict, what: str, n_nodes: int, updates: int,
+                 ledger: list, falling: bool = True) -> list:
+    """The run's batch shape and update count, its live stash equal to the
+    ledger, and finite (and, over more than two epochs, falling) losses."""
+    got = (res["n_parts"], res["batch_nodes"], res["updates_per_epoch"])
+    log(f"[{what}] n_parts, batch_nodes, updates_per_epoch {got}, "
+        f"batch_edges {res['batch_edges']}, val_acc {res['val_acc']} "
+        f"test_acc {res['test_acc']}")
+    if got != (8, n_nodes, updates):
+        raise AssertionError(f"[{what}] expected (8, {n_nodes}, {updates})")
+    losses = [h[1] for h in res["history"]]
+    if falling:
+        return check_run(res, ledger, what)
+    for epoch, loss, ms in res["history"]:
+        log(f"[{what}] epoch {epoch}: loss {loss!r} {ms:.3f} ms")
+    log(f"[{what}] live stash bytes per layer {res['stash_bytes']} ledger "
+        f"{ledger}")
+    if res["stash_bytes"] != ledger or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[{what}] stash or losses: "
+                             f"{res['stash_bytes']}, {losses}")
+    return losses
+
+
+def slice_batched(torch, g, cfg, cfg0, model0, wrappers, rp8_peak) -> dict:
+    """Slice 10: the mini-batch partition engine through train_gnn_batched
+    on phase 4's graph, config and weights (the module docstring lists
+    (a)-(e)).  Returns the launch counts summed over the phase."""
+    from repro_torch.core import autoprec
+    from repro_torch.graph.analysis import collect_layer_stats
+    from repro_torch.graph.models import device_graph
+    from repro_torch.graph.sampling import make_subgraph_batches
+    from repro_torch.graph.train import (activation_memory_report,
+                                         train_gnn, train_gnn_batched)
+
+    total = collections.Counter()
+
+    def ledger(c, n_nodes):
+        rep = activation_memory_report(g, c, n_parts=8, batch_nodes=n_nodes)
+        return [r["compressed_bytes"] for r in rep["batched"]["per_layer"]]
+
+    def same(a, b) -> bool:
+        return (a["history"][0][1] == b["history"][0][1]
+                and all(torch.equal(p, q) for p, q in
+                        zip(a["model"].parameters(), b["model"].parameters())))
+
+    # (a) one tightly padded batch is train_gnn, bit for bit
+    (full, one), counts, _ = counted_run(
+        torch, wrappers, planned(3, 3, steps=2), "batched identity",
+        lambda: (train_gnn(g, cfg, n_epochs=1, seed=0, params=model0),
+                 train_gnn_batched(g, cfg, 1, n_epochs=1, seed=0,
+                                   params=model0, node_multiple=1,
+                                   edge_multiple=1)))
+    total.update(counts)
+    if not same(full, one) or one["batch_nodes"] != N_NODES:
+        raise AssertionError("[batched identity] n_parts=1 differs from "
+                             "train_gnn")
+    log(f"[batched identity] n_parts=1, tight padding: loss "
+        f"{one['history'][0][1]!r} and params bit-identical to train_gnn")
+    del full, one
+
+    # (b) the examples recipe: 8 bfs parts, halo 0, BATCHED_EPOCHS epochs,
+    # then two one-epoch repeats on the same batches
+    t0 = time.perf_counter()
+    batches = make_subgraph_batches(g, 8, method="bfs", seed=0)
+    log(f"[batched] 8 bfs parts in {time.perf_counter() - t0:.1f} s: "
+        f"{batches[0].n_nodes} x {batches[0].n_edges} padded, real nodes "
+        f"{[b.n_real_nodes for b in batches]}")
+    if (batches[0].n_nodes, batches[0].n_edges) != (BATCH_NODES,
+                                                    BATCH_EDGES):
+        raise AssertionError(f"[batched] expected {BATCH_NODES} x "
+                             f"{BATCH_EDGES} padded")
+    (res, rep_a, rep_b), counts, peak = counted_run(
+        torch, wrappers, planned(3, 3, steps=8 * (BATCHED_EPOCHS + 2)),
+        "batched", lambda: (
+            train_gnn_batched(g, cfg, 8, n_epochs=BATCHED_EPOCHS, seed=0,
+                              params=model0),
+            train_gnn_batched(g, cfg, 8, n_epochs=1, seed=0, params=model0,
+                              batches=batches),
+            train_gnn_batched(g, cfg, 8, n_epochs=1, seed=0, params=model0,
+                              batches=batches)))
+    total.update(counts)
+    want = ledger(cfg, BATCH_NODES)
+    if want != BATCH_LEDGER:
+        raise AssertionError(f"[batched] ledger {want}")
+    batch_checks(res, "batched", BATCH_NODES, 8, want)
+    if not (same(rep_a, rep_b)
+            and rep_a["history"][0][1] == res["history"][0][1]):
+        raise AssertionError("[batched] a repeated epoch is not "
+                             "bit-identical")
+    log(f"[batched] repeated epoch: loss and params bit-identical; "
+        f"epochs/s {res['epochs_per_sec']} max_memory_allocated {peak} "
+        f"bytes (phase 4: {rp8_peak})")
+    profile_update(torch, g, cfg, res["model"], batches, 1, "halo 0")
+    del res, rep_a, rep_b
+
+    # (c) the README recipe: halo 1, grad_accum 2
+    t0 = time.perf_counter()
+    halo_batches = make_subgraph_batches(g, 8, method="bfs", halo=1, seed=0)
+    log(f"[batched halo 1] 8 bfs parts in {time.perf_counter() - t0:.1f} s: "
+        f"{halo_batches[0].n_nodes} x {halo_batches[0].n_edges} padded")
+    res, counts, peak = counted_run(
+        torch, wrappers, planned(3, 3, steps=16), "batched halo 1",
+        lambda: train_gnn_batched(g, cfg, 8, n_epochs=2, seed=0,
+                                  params=model0, grad_accum=2, halo=1,
+                                  batches=halo_batches))
+    total.update(counts)
+    want = ledger(cfg, HALO_BATCH_NODES)
+    if want != HALO_BATCH_LEDGER:
+        raise AssertionError(f"[batched halo 1] ledger {want}")
+    batch_checks(res, "batched halo 1", HALO_BATCH_NODES, 4, want,
+                 falling=False)
+    log(f"[batched halo 1] max_memory_allocated {peak} bytes")
+    profile_update(torch, g, cfg, res["model"], halo_batches, 2, "halo 1")
+    del res, halo_batches
+
+    # (d) rp_ratio 0: fused="auto" (3 fused launches a batch step, nothing
+    # unfused), then fused="off" from the same weights
+    steps = 16
+    fused_want = dict(planned(0, 0, steps), matmul_quant=3 * steps,
+                      dequant_matmul=3 * steps)
+    want = ledger(cfg0, BATCH_NODES)
+    runs = {}
+    for fused, plan in (("auto", fused_want), ("off", planned(3, 0, steps))):
+        what = f"batched rp0 fused={fused}"
+        runs[fused], counts, peak = counted_run(
+            torch, wrappers, plan, what,
+            lambda: train_gnn_batched(g, cfg0, 8, n_epochs=2, seed=0,
+                                      params=model0, batches=batches,
+                                      fused=fused))
+        total.update(counts)
+        batch_checks(runs[fused], what, BATCH_NODES, 8, want, falling=False)
+        log(f"[{what}] max_memory_allocated {peak} bytes")
+    a, b = ([h[1] for h in runs[k]["history"]] for k in ("auto", "off"))
+    if want != BATCH_RP0_LEDGER or not all(
+            math.isclose(x, y, rel_tol=1e-3) for x, y in zip(a, b)):
+        raise AssertionError(f"[batched rp0] ledger {want}, fused losses "
+                             f"{a} vs unfused {b}")
+    log(f"[batched rp0] fused=off within rtol 1e-3 of fused=auto: {a} vs "
+        f"{b}; stash bytes equal")
+    del runs
+
+    # (e) autoprec calibrated on batch 0 (the byte ceiling is per batch)
+    def autoprec_run():
+        return train_gnn_batched(g, cfg, 8, n_epochs=4, seed=0,
+                                 params=model0, batches=batches,
+                                 bit_budget=2.0, autoprec_refresh=2)
+
+    res, counts, peak = counted_run(
+        torch, wrappers, planned(3, 3, steps=32, probes=4, stats=2),
+        "batched autoprec", autoprec_run)
+    total.update(counts)
+    bits, budget = res["bits_per_layer"], res["bit_budget_bytes"]
+    stats = collect_layer_stats(res["model"], device_graph(
+        batches[0], cfg.arch, "cuda"), cfg)
+    alloc_bytes = autoprec.total_stash_bytes(stats,
+                                             res["cfg"].layer_compression())
+    log(f"[batched autoprec] bits_per_layer {bits} bit_budget_bytes {budget} "
+        f"allocation bytes {alloc_bytes} max_memory_allocated {peak} bytes")
+    if not all(b in autoprec.BIT_CHOICES for b in bits) or \
+            alloc_bytes > budget:
+        raise AssertionError(f"[batched autoprec] allocation {bits} "
+                             f"({alloc_bytes} bytes) outside BIT_CHOICES "
+                             "or the budget")
+    losses = batch_checks(res, "batched autoprec", BATCH_NODES, 8,
+                          ledger(res["cfg"], BATCH_NODES))
+    again = autoprec_run()
+    if again["bits_per_layer"] != bits or \
+            [h[1] for h in again["history"]] != losses:
+        raise AssertionError("[batched autoprec] a repeated run differs")
+    log("[batched autoprec] repeated run: the same bits, bit-identical "
+        "losses")
     return dict(total)
 
 
@@ -1279,14 +1531,22 @@ def main() -> int:
     for name in ("quant_pack", "dequant_unpack", "rp_project",
                  "irp_project"):
         launches[name] += table1[name]
+    torch.cuda.empty_cache()
+
+    # 7. slice 10: the mini-batch partition engine
+    t0 = time.perf_counter()
+    batched = slice_batched(torch, g, cfg, cfg0, model0, wrappers, peak)
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    for name, n in batched.items():
+        launches[name] += n
     del g, model0
     torch.cuda.empty_cache()
 
-    # 7. slice 3: serving
+    # 8. slice 3: serving
     served = slice_serve(torch, wrappers, fa, ref)
     launches["flash_attention"] = served["flash_attention"]
 
-    # 8. results
+    # 9. results
     sources = {"quant_pack": ("src/repro_torch/csrc/quant_blockwise.cu",
                               "src/repro/kernels/quant_blockwise.py:62"),
                "dequant_unpack": ("src/repro_torch/csrc/quant_blockwise.cu",

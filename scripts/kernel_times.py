@@ -7,12 +7,13 @@ Builds the kernel's source (printing ptxas's registers, shared memory and
 spills), then runs its check from ``chip_smoke.py`` at the main path's
 shapes, without the training phases, in about 20 s:
 
-- ``rp``: ``check_rp``, RP and IRP at 169,343 rows, 256 <-> 32 and
+- ``rp``: ``check_rp``, RP and IRP at 169,343 rows and at the mini-batch
+  phase's 21,184 and 132,032 (``chip_smoke.RP_ROWS``), 256 <-> 32 and
   512 <-> 64, within rtol/atol 2e-4 of the plain version and bit-identical
   from call to call, then CUDA-event medians of the kernel, the plain
   version and one ``torch.matmul`` on a stored R, beside the bound;
 - ``fused``: ``check_fused``, the matmul-quantize pair at the three layer
-  shapes of the rp_ratio-0 SAGE slice (the stash bit-equal to the plain
+  shapes of the rp_ratio-0 SAGE slice, at 169,343 and 21,184 rows (the stash bit-equal to the plain
   version and to quant_pack, y and dw within their bounds, two calls of
   each bit-identical), timed beside the plain version, the product alone
   and the two-pass spelling, with the tensor-core bound of each kernel and
@@ -26,7 +27,8 @@ shapes, without the training phases, in about 20 s:
   bound;
 - ``quant``: ``check_quant`` and ``check_kv_quant``, quantize+pack and
   unpack+dequantize at the RP-8 slice's 21,168 and 42,336 blocks of 256
-  (2 bits, uniform and VM), at Table 1's flickr shapes (89,250 and 45,696
+  (2 bits, uniform and VM), at the mini-batch phase's blocks of 256
+  (``chip_smoke.BATCH_QUANT_BLOCKS``, 2-bit VM), at Table 1's flickr shapes (89,250 and 45,696
   blocks of 125, 11,157 and 5,712 of 1000, 2 bits: ragged words), at 8-bit
   VM (42,336 and 21,168 blocks of 256, a 256-level table) and at the KV
   cache's prefill (161,280 blocks

@@ -8,7 +8,8 @@ stashes its compressed linear input (or the raw f32 input for an
 uncompressed layer) and, on hidden layers, the packed 1-bit ReLU mask.
 
 Backward: the reference's manual reverse walk (``engine/forward.py``
-124-167) line for line: ``dx = g w^T`` exact, ``dw = x_hat^T g`` at the
+124-167) line for line, a padded batch's ``node_mask`` applied to each
+layer's incoming gradient as to each layer's output: ``dx = g w^T`` exact, ``dw = x_hat^T g`` at the
 reconstruction (EXACT's estimator), ReLU through the saved sign mask, and
 the A-product transposed through the adjacency's transpose.  The features
 take no gradient, so the walk stops at layer 0's parameter gradients.
@@ -37,7 +38,10 @@ class _StashGNN(torch.autograd.Function):
         sage = cfg.arch == "sage"
         n_layers = len(params)
         stash = []
-        h = graph.features
+        # a padded batch pins its pad rows to zero (x * 1 is exact, but the
+        # full graph skips the passes)
+        nm = None if graph.node_mask is None else graph.node_mask[:, None]
+        h = graph.features if nm is None else graph.features * nm
         for li, (w, b) in enumerate(params):
             x = torch.cat([h, spmm(h, graph.adj.fwd)], dim=1) if sage else h
             comp = per_layer[li]
@@ -57,7 +61,7 @@ class _StashGNN(torch.autograd.Function):
                 entry["mask"] = relu_mask(z)
                 z = torch.relu(z)
             stash.append(entry)
-            h = z
+            h = z if nm is None else z * nm
         ctx.save_for_backward(*flat_params)
         ctx.graph, ctx.cfg, ctx.stash, ctx.fused = graph, cfg, stash, fused
         return h
@@ -70,12 +74,14 @@ class _StashGNN(torch.autograd.Function):
         sage = ctx.cfg.arch == "sage"
         n_layers = len(params)
         grads = [None] * len(flat_params)
+        nm = (None if ctx.graph.node_mask is None
+              else ctx.graph.node_mask[:, None])
         gh = gy
         for li in reversed(range(n_layers)):
             w, _ = params[li]
             entry = ctx.stash[li]
             ctx.stash[li] = None            # free this layer's stash early
-            g = gh
+            g = gh if nm is None else gh * nm
             if li < n_layers - 1:
                 g = g * unpack_relu_mask(entry["mask"], g.shape).to(g.dtype)
             # transpose of the output-side A-product (GCN applies it after

@@ -1,12 +1,12 @@
 """Autoprec's lifecycle: the variance-guided bit allocation behind
-``train_gnn(bit_budget=...)`` (the reference's ``repro.engine.precision``,
-full-graph, ``calibration="probe"``).
+``train_gnn(bit_budget=...)`` and ``train_gnn_batched(bit_budget=...)``
+(the reference's ``repro.engine.precision``, ``calibration="probe"``).
 
 Owns the budget (frozen on the first allocation, so refreshes re-split the
 same byte ceiling), the current per-layer widths and the refresh cadence.
 The run loop asks :meth:`AutoprecController.due` each epoch and, when an
-:meth:`allocate` changes the widths, recompiles the step
-(:meth:`repro_torch.engine.compile.CompiledFull.recompile`).
+:meth:`allocate` changes the widths, recompiles the step (the compiled
+plan's ``recompile``).
 """
 from __future__ import annotations
 
@@ -23,7 +23,9 @@ from repro_torch.graph.models import GNN, DeviceGraph, GNNConfig
 
 
 class AutoprecController:
-    """Variance-guided bit allocation on the full graph.
+    """Variance-guided bit allocation on the plan's calibration unit
+    (``graph``): the full graph, or for the partition engine one padded
+    batch, so the byte ceiling is per batch, the engine's live stash.
 
     ``allocate`` runs the cheap stats pass
     (:func:`repro_torch.graph.analysis.collect_layer_stats`) and calibrates
@@ -31,7 +33,9 @@ class AutoprecController:
     the ReLU mask are free of SR noise, so ``dw_l(s1) - dw_l(s2)`` isolates
     exactly the dequantization noise layer l's stash injects.  The probe is
     the port's stash forward and manual backward with ``fused="off"``: the
-    same ``dw = x_hat^T g`` as the reference's per-op probe.
+    same ``dw = x_hat^T g`` as the reference's per-op probe, with a padded
+    batch's node mask.  The stats pass reads no node mask, as the
+    reference's does not.
 
     ``calibration="obs"`` (sensitivities from the quant-health telemetry)
     needs the ``obs`` package, queue A.10, and raises.

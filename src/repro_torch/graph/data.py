@@ -54,6 +54,16 @@ def in_adjacency(edge_src, edge_dst, n_nodes: int):
     return src[order], starts
 
 
+def _split_masks(rng: np.random.Generator, n_nodes: int):
+    perm = rng.permutation(n_nodes)
+    n_tr, n_va = int(0.6 * n_nodes), int(0.2 * n_nodes)
+    masks = [np.zeros(n_nodes, bool) for _ in range(3)]
+    masks[0][perm[:n_tr]] = True
+    masks[1][perm[n_tr:n_tr + n_va]] = True
+    masks[2][perm[n_tr + n_va:]] = True
+    return masks
+
+
 def synthetic_graph(name: str, n_nodes: int, n_edges: int, n_feats: int,
                     n_classes: int, homophily: float = 0.65,
                     feature_noise: float = 1.0, seed: int = 0) -> Graph:
@@ -84,14 +94,7 @@ def synthetic_graph(name: str, n_nodes: int, n_edges: int, n_feats: int,
     centers = rng.normal(0, 1, (n_classes, n_feats))
     feats = centers[labels] + feature_noise * rng.normal(0, 1, (n_nodes, n_feats))
 
-    perm = rng.permutation(n_nodes)
-    n_tr, n_va = int(0.6 * n_nodes), int(0.2 * n_nodes)
-    train_mask = np.zeros(n_nodes, bool)
-    val_mask = np.zeros(n_nodes, bool)
-    test_mask = np.zeros(n_nodes, bool)
-    train_mask[perm[:n_tr]] = True
-    val_mask[perm[n_tr:n_tr + n_va]] = True
-    test_mask[perm[n_tr + n_va:]] = True
+    train_mask, val_mask, test_mask = _split_masks(rng, n_nodes)
 
     return Graph(
         name=name,
@@ -106,6 +109,96 @@ def synthetic_graph(name: str, n_nodes: int, n_edges: int, n_feats: int,
         test_mask=torch.from_numpy(test_mask),
         num_classes=n_classes,
     )
+
+
+def stream_edge_chunks(n_nodes: int, n_edges: int, *, labels=None,
+                       homophily: float = 0.0, seed: int = 0,
+                       chunk_edges: int = 1 << 18):
+    """Yield the synthetic edge stream as ``(src, dst)`` numpy chunks with
+    O(chunk) host memory: :func:`synthetic_graph`'s family (uniform
+    sources, ``floor(N u^2)`` destinations, a ``homophily`` fraction
+    rewired to a same-class node through one ``argsort(labels)`` table),
+    vectorized a chunk at a time.  Self loops are dropped per chunk, so
+    chunk lengths vary; the drawn count is exact."""
+    rng = np.random.default_rng(seed)
+    order = starts = None
+    if homophily > 0.0:
+        if labels is None:
+            raise ValueError("homophily > 0 needs labels")
+        labels = np.asarray(labels)
+        order = np.argsort(labels, kind="stable")
+        n_classes = int(labels.max()) + 1
+        starts = np.searchsorted(labels[order], np.arange(n_classes + 1))
+    done = 0
+    while done < n_edges:
+        k = min(chunk_edges, n_edges - done)
+        src = rng.integers(0, n_nodes, k)
+        dst = (n_nodes * rng.random(k) ** 2).astype(np.int64)
+        if homophily > 0.0:
+            rew = rng.random(k) < homophily
+            ls = labels[src[rew]]
+            lo, hi = starts[ls], starts[ls + 1]
+            dst[rew] = order[lo + rng.integers(0, hi - lo)]
+        keep = src != dst
+        yield src[keep], dst[keep]
+        done += k
+
+
+def synthetic_graph_streamed(name: str, n_nodes: int, n_edges: int,
+                             n_feats: int, n_classes: int,
+                             homophily: float = 0.0,
+                             feature_noise: float = 1.0, seed: int = 0,
+                             chunk_edges: int = 1 << 18) -> Graph:
+    """:func:`synthetic_graph`'s pipeline (symmetrize, self loops, GCN and
+    mean weights, class-centred features, 60/20/20 split) over
+    :func:`stream_edge_chunks`, degrees accumulated a chunk at a time.  Its
+    draws differ from :func:`synthetic_graph`'s, so the two give different
+    graphs from one seed."""
+    rng = np.random.default_rng(seed + 1)
+    labels = rng.integers(0, n_classes, n_nodes)
+    deg = np.ones(n_nodes, np.int64)            # self loops
+    srcs, dsts = [np.arange(n_nodes)], [np.arange(n_nodes)]
+    for src, dst in stream_edge_chunks(n_nodes, n_edges, labels=labels,
+                                       homophily=homophily, seed=seed,
+                                       chunk_edges=chunk_edges):
+        srcs.extend([src, dst])
+        dsts.extend([dst, src])
+        deg += np.bincount(dst, minlength=n_nodes)
+        deg += np.bincount(src, minlength=n_nodes)
+    s_all = np.concatenate(srcs)
+    d_all = np.concatenate(dsts)
+    degf = deg.astype(np.float64)
+    gcn_w = 1.0 / np.sqrt(degf[s_all] * degf[d_all])
+    mean_w = 1.0 / degf[d_all]
+
+    centers = rng.normal(0, 1, (n_classes, n_feats))
+    feats = (centers[labels]
+             + feature_noise * rng.normal(0, 1, (n_nodes, n_feats)))
+    train_mask, val_mask, test_mask = _split_masks(rng, n_nodes)
+    return Graph(
+        name=name,
+        features=torch.from_numpy(feats.astype(np.float32)),
+        labels=torch.from_numpy(labels.astype(np.int64)),
+        edge_src=torch.from_numpy(s_all.astype(np.int64)),
+        edge_dst=torch.from_numpy(d_all.astype(np.int64)),
+        gcn_weight=torch.from_numpy(gcn_w.astype(np.float32)),
+        mean_weight=torch.from_numpy(mean_w.astype(np.float32)),
+        train_mask=torch.from_numpy(train_mask),
+        val_mask=torch.from_numpy(val_mask),
+        test_mask=torch.from_numpy(test_mask),
+        num_classes=n_classes,
+    )
+
+
+def papers100m_like(scale: float = 1e-4, seed: int = 0) -> Graph:
+    """ogbn-papers100M stand-in: 111,059,956 nodes / 1.6B edges / 128
+    feats / 172 classes, scaled down by ``scale`` and built through
+    :func:`synthetic_graph_streamed`."""
+    n = max(4096, int(111_059_956 * scale))
+    e = max(8 * n, int(1_615_685_872 * scale))
+    return synthetic_graph_streamed("papers100m-like", n, e, 128, 172,
+                                    homophily=0.4, feature_noise=2.5,
+                                    seed=seed)
 
 
 def arxiv_like(scale: float = 0.1, seed: int = 0) -> Graph:

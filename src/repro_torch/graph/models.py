@@ -181,9 +181,13 @@ def _dims(cfg: GNNConfig, in_dim: int):
 
 @dataclasses.dataclass
 class DeviceGraph:
-    """What training reads of a :class:`~repro_torch.graph.data.Graph`, on
-    its device: features, labels, float masks and the aggregation matrix
-    the architecture uses (row-mean for SAGE, symmetric-normalized for GCN)."""
+    """What training reads of a :class:`~repro_torch.graph.data.Graph` or a
+    :class:`~repro_torch.graph.sampling.SubgraphBatch`, on its device:
+    features, labels, float masks, the aggregation matrix the architecture
+    uses (row-mean for SAGE, symmetric-normalized for GCN) and, for a padded
+    batch, ``node_mask`` ((N,) f32, 1 on real rows): the forward pins the
+    other rows to zero after every layer.  ``None`` (the full graph) skips
+    those multiplies."""
 
     features: torch.Tensor
     labels: torch.Tensor
@@ -191,16 +195,22 @@ class DeviceGraph:
     val_mask: torch.Tensor
     test_mask: torch.Tensor
     adj: Adjacency
+    node_mask: torch.Tensor | None = None
 
 
 def device_graph(g, arch: str, device) -> DeviceGraph:
+    """``g`` (a Graph or a SubgraphBatch) on ``device``.  A batch's padding
+    edges (weight 0, node 0 to node 0) stay in its CSR rows, as the
+    reference keeps them in its edge list."""
     w = g.mean_weight if arch == "sage" else g.gcn_weight
+    nm = getattr(g, "node_mask", None)
     return DeviceGraph(
         features=g.features.to(device), labels=g.labels.to(device),
         train_mask=g.train_mask.to(device, torch.float32),
         val_mask=g.val_mask.to(device, torch.float32),
         test_mask=g.test_mask.to(device, torch.float32),
-        adj=adjacency(g.edge_src, g.edge_dst, w, g.n_nodes, device))
+        adj=adjacency(g.edge_src, g.edge_dst, w, g.n_nodes, device),
+        node_mask=None if nm is None else nm.to(device, torch.float32))
 
 
 class GNN(nn.Module):
@@ -228,7 +238,11 @@ class GNN(nn.Module):
         return [t for wb in zip(self.weights, self.biases) for t in wb]
 
     def forward(self, graph: DeviceGraph) -> torch.Tensor:
-        h = graph.features
+        """The primal pass; a padded batch's rows outside ``node_mask`` are
+        pinned to zero at the input and after every layer (the reference's
+        ``gnn_forward(node_mask=)``)."""
+        nm = None if graph.node_mask is None else graph.node_mask[:, None]
+        h = graph.features if nm is None else graph.features * nm
         n_layers = len(self.weights)
         for li, (w, b) in enumerate(zip(self.weights, self.biases)):
             if self.cfg.arch == "gcn":
@@ -236,6 +250,8 @@ class GNN(nn.Module):
             else:
                 z = torch.cat([h, spmm(h, graph.adj.fwd)], dim=1) @ w + b
             h = torch.relu(z) if li < n_layers - 1 else z
+            if nm is not None:
+                h = h * nm
         return h
 
 

@@ -1,12 +1,16 @@
-"""GNN training entry point: full-graph training (the paper's Table 1 loop)
-over the engine (:mod:`repro_torch.engine.runner`), and the Table-1 "M"
-column (:func:`activation_memory_report`)."""
+"""GNN training entry points over the engine (:mod:`repro_torch.engine`):
+full-graph training (the paper's Table 1 loop), partition-sampled
+mini-batch training (Cluster-GCN flavour), and the Table-1 "M" column with
+its mini-batch section (:func:`activation_memory_report`).  Each entry point
+builds an :class:`~repro_torch.engine.plan.ExecutionPlan` from its keywords
+and hands it to :func:`repro_torch.engine.runner.run`."""
 from __future__ import annotations
 
-from repro_torch.engine.runner import run
+from repro_torch.engine.plan import ExecutionPlan
 from repro_torch.graph.analysis import saved_bytes_per_layer
 from repro_torch.graph.data import Graph
 from repro_torch.graph.models import GNN, GNNConfig
+from repro_torch.graph.sampling import _bucket
 from repro_torch.optim import AdamWConfig
 
 
@@ -16,7 +20,7 @@ def train_gnn(g: Graph, cfg: GNNConfig, opt: AdamWConfig | None = None,
               bit_budget: float | None = None, autoprec_refresh: int = 0,
               offload: str | None = None, device="cuda") -> dict:
     """Full-graph training; returns dict(test_acc, val_acc, history,
-    epochs_per_sec, model, stash_bytes, cfg) (see
+    epochs_per_sec, model, stash_bytes, cfg, plan) (see
     :func:`repro_torch.engine.runner.run`).
 
     Runs on the card unless ``device="cpu"``; with no CUDA device and no
@@ -44,21 +48,85 @@ def train_gnn(g: Graph, cfg: GNNConfig, opt: AdamWConfig | None = None,
     carries ``bits_per_layer`` and ``bit_budget_bytes``.
 
     ``offload`` (the pooled stash arena) belongs to queue A.8 and raises.
+
+    Equivalent plan: ``ExecutionPlan.from_legacy(impl=impl, fused=fused,
+    offload=offload, bit_budget=bit_budget,
+    autoprec_refresh=autoprec_refresh)``.
     """
-    if offload is not None:
+    from repro_torch.engine.runner import run  # lazy: engine <- graph
+
+    plan = ExecutionPlan.from_legacy(
+        impl=impl, fused=fused, offload=offload, bit_budget=bit_budget,
+        autoprec_refresh=autoprec_refresh)
+    return run(g, cfg, plan, opt, n_epochs=n_epochs, seed=seed,
+               params=params, device=device)
+
+
+def train_gnn_batched(g: Graph, cfg: GNNConfig, n_parts: int,
+                      opt: AdamWConfig | None = None, n_epochs: int = 100,
+                      seed: int = 0, *, method: str = "bfs", halo: int = 0,
+                      grad_accum: int = 1, mesh=None, impl: str | None = None,
+                      fused: str = "auto", node_multiple: int = 64,
+                      edge_multiple: int = 256, renormalize: bool = False,
+                      shuffle: bool = True, batches=None,
+                      bit_budget: float | None = None,
+                      autoprec_refresh: int = 0, offload: str | None = None,
+                      params: GNN | None = None, device="cuda") -> dict:
+    """Partition-sampled mini-batch training (Cluster-GCN flavour).
+
+    Splits ``g`` into ``n_parts`` padded subgraph batches
+    (:func:`repro_torch.graph.sampling.make_subgraph_batches`: ``method``,
+    ``halo``, the bucket multiples, ``renormalize``), moves them to the
+    device once, and trains one batch at a time, so the live stash is one
+    padded batch's, not the whole graph's: the regime where the paper's
+    block-wise compression matters.
+
+    grad_accum   batches summed into each optimizer update; ``n_parts``
+                 must be a multiple of it.
+    shuffle      redraw the batch order every epoch (from
+                 ``seeds.order_rng(seed)``).
+    batches      a prebuilt batch list (skips partitioning).
+    impl, fused, bit_budget, autoprec_refresh, params, device
+                 as in :func:`train_gnn`; autoprec calibrates on one padded
+                 batch, so its byte ceiling is per batch.
+
+    The batch at position ``p`` of epoch ``e`` stashes with ``sr_seed(e *
+    n_parts + p)``, so ``n_parts=1`` with ``node_multiple=1,
+    edge_multiple=1`` is :func:`train_gnn` bit for bit.  Evaluation runs on
+    the full graph with the final weights.  Returns the :func:`train_gnn`
+    result plus ``n_parts``, ``updates_per_epoch``, ``batch_nodes`` and
+    ``batch_edges``; the history's loss is the mean over the epoch's
+    updates.
+
+    Not ported yet, and raising: ``mesh=`` (data-parallel batches, queue
+    A.9) and ``offload=`` (A.8).  The reference's ``eval_every`` and
+    ``verbose`` are not taken: the history holds every epoch.
+    """
+    from repro_torch.engine.runner import run  # lazy: engine <- graph
+
+    if mesh is not None:
         raise NotImplementedError(
-            f"offload={offload!r}: the stash arena and offload engine are "
-            "not ported yet (ROADMAP A.8)")
-    return run(g, cfg.with_impl(impl), opt, n_epochs=n_epochs, seed=seed,
-               params=params, device=device, fused=fused,
-               bit_budget=bit_budget, autoprec_refresh=autoprec_refresh)
+            "train_gnn_batched(mesh=...): data-parallel batches over a "
+            "device mesh are not ported yet (ROADMAP A.9)")
+    plan = ExecutionPlan.from_legacy(
+        n_parts=n_parts, impl=impl, fused=fused, offload=offload,
+        bit_budget=bit_budget, autoprec_refresh=autoprec_refresh,
+        method=method, halo=halo, node_multiple=node_multiple,
+        edge_multiple=edge_multiple, renormalize=renormalize,
+        shuffle=shuffle, grad_accum=grad_accum)
+    return run(g, cfg, plan, opt, n_epochs=n_epochs, seed=seed,
+               params=params, device=device, batches=batches)
 
 
 def activation_memory_report(g: Graph, cfg: GNNConfig, n_parts: int = 1,
+                             batch_nodes: int | None = None,
+                             node_multiple: int = 64,
                              offload: str | None = None,
+                             plan: ExecutionPlan | None = None,
                              quant_health: list | None = None) -> dict:
     """Bytes of saved-for-backward activations: the paper's Table-1 "M"
-    column model, per layer, full graph (the reference's full-graph keys):
+    column model, per layer and, for partition sampling, per batch (the
+    reference's keys):
 
     * ``fp32_bytes``: the f32 input of every linear plus the f32 ReLU
       context;
@@ -68,27 +136,59 @@ def activation_memory_report(g: Graph, cfg: GNNConfig, n_parts: int = 1,
       (zero, range) f32 pair a block, the RP seed and the word-aligned
       1-bit ReLU masks, each layer at its own width; an uncompressed layer
       counts its ``fp32_bytes``), ``reduction`` (1 - compressed / fp32)
-      and ``bits_per_layer``.
+      and ``bits_per_layer``;
+    * with ``n_parts > 1`` or a partition ``plan`` (the plan's ``n_parts``
+      and ``node_multiple`` win), ``batched``: batches run one at a time,
+      so the peak stash is one padded batch of ``batch_nodes`` (default
+      ceil(N / n_parts) rounded up to ``node_multiple``; pass the run's
+      ``batch_nodes`` for halo or other buckets): ``n_parts``,
+      ``batch_nodes``, ``peak_fp32_bytes``, ``peak_saved_bytes``,
+      ``full_graph_saved_bytes``, ``peak_reduction_vs_full`` (full / peak)
+      and that batch's ``per_layer``.
 
-    The mini-batch section (``n_parts > 1``), the arena section
-    (``offload=``) and ``quant_health`` belong to queues A.7, A.8 and A.10
-    and raise."""
-    for given, what, item in ((n_parts > 1, f"n_parts={n_parts}", "A.7"),
-                              (offload is not None, f"offload={offload!r}",
-                               "A.8"),
+    The arena section (``offload=``, or a plan with an arena stash) and
+    ``quant_health`` belong to queues A.8 and A.10 and raise."""
+    if plan is None:
+        plan = ExecutionPlan.from_legacy(
+            n_parts=n_parts if n_parts > 1 else None, offload=offload,
+            node_multiple=node_multiple)
+    for given, what, item in ((plan.offload is not None,
+                               f"offload={plan.offload!r}", "A.8"),
                               (quant_health is not None, "quant_health=",
                                "A.10")):
         if given:
             raise NotImplementedError(f"activation_memory_report({what}) "
                                       f"is not ported yet (ROADMAP {item})")
+    if plan.sampling.kind == "partition":
+        n_parts = plan.sampling.n_parts
+        node_multiple = plan.sampling.node_multiple
+    else:
+        n_parts = 1
     per_layer = saved_bytes_per_layer(cfg, g.n_feats, g.n_nodes)
+    has_comp = any("compressed_bytes" in r for r in per_layer)
     total_fp32 = sum(r["fp32_bytes"] for r in per_layer)
     out = {"fp32_bytes": total_fp32, "per_layer": per_layer}
-    if any("compressed_bytes" in r for r in per_layer):
+    full_saved = total_fp32
+    if has_comp:
         # mixed precision: a layer without compression counts its fp32 bytes
         total_c = sum(r.get("compressed_bytes", r["fp32_bytes"])
                       for r in per_layer)
         out["compressed_bytes"] = total_c
         out["reduction"] = 1.0 - total_c / total_fp32
         out["bits_per_layer"] = [r.get("bits") for r in per_layer]
+        full_saved = total_c
+    if n_parts > 1:
+        if batch_nodes is None:
+            batch_nodes = _bucket(-(-g.n_nodes // n_parts), node_multiple)
+        rows_b = saved_bytes_per_layer(cfg, g.n_feats, batch_nodes)
+        peak_fp32 = sum(r["fp32_bytes"] for r in rows_b)
+        peak = (sum(r.get("compressed_bytes", r["fp32_bytes"])
+                    for r in rows_b) if has_comp else peak_fp32)
+        out["batched"] = {
+            "n_parts": n_parts, "batch_nodes": batch_nodes,
+            "peak_fp32_bytes": peak_fp32, "peak_saved_bytes": peak,
+            "full_graph_saved_bytes": full_saved,
+            "peak_reduction_vs_full": full_saved / peak,
+            "per_layer": rows_b,
+        }
     return out

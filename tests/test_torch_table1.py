@@ -36,6 +36,7 @@ from repro.optim import adamw_update as j_adamw_update
 from repro_torch.core import quant as t_quant
 from repro_torch.core.compressor import CompressionConfig as TCC
 from repro_torch.core.variance import optimize_levels
+from repro_torch.engine.plan import ExecutionPlan
 from repro_torch.graph.analysis import live_stash_bytes
 from repro_torch.graph.data import flickr_like as t_flickr_like
 from repro_torch.graph.data import in_adjacency as t_in_adjacency
@@ -208,7 +209,9 @@ def test_activation_memory_report_equal(case, hidden):
     assert t_report(tg, tcfg) == j_report(jg, jcfg)
 
 
-@pytest.mark.parametrize("kw,item", [({"n_parts": 2}, "A.7"),
+@pytest.mark.parametrize("kw,item", [({"plan": ExecutionPlan.from_legacy(
+                                         n_parts=2, offload="device")},
+                                      "A.8"),
                                      ({"offload": "host"}, "A.8"),
                                      ({"quant_health": []}, "A.10")])
 def test_activation_memory_report_unported_sections_raise(kw, item):
