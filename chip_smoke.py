@@ -76,7 +76,29 @@ Phases, in order; any failure raises and exits non-zero:
    layers of full width the prefill logits with the kernel agree with the
    plain attention on the card; prefill and decode step times, and one
    profiled prefill and decode step;
-9. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+9. slice 11, the stash arena and offload engine: (a)-(d) run after phase
+   7 on phase 4's graph and weights, (e) after phase 8.  (a) ``train_gnn``
+   on phase 4's config for 3 epochs under ``offload=None``, ``"device"``,
+   ``"host"`` and ``"pinned-paged"``; (b) phase 5's rp_ratio-0
+   ``fused="auto"`` config the same way for 2 epochs (the fused backward
+   reads the packed words the reader hands back); (c) the config
+   uncompressed (every layer's raw f32 input stashed, an 878 MB arena
+   against a 699 MB host window) under None, ``"device"`` and
+   ``"pinned-paged"`` for 2 epochs; (d) ``train_gnn_batched`` (8 bfs
+   parts, halo 0) under None, ``"device"`` and ``"host"`` for 2 epochs.
+   Every run counted and checked: launches as planned, losses and params
+   bit-identical across placements, the readers' device-resident stash
+   within ``device_resident_stash_bytes``, no misaligned packed view,
+   epoch times and peak memory logged; then one probe step a placement
+   (``host_store_bytes`` the plan's bytes after the forward, 0 after the
+   backward), profiled under the host placements (the side stream's copy
+   time hidden under the compute stream's kernels, from the trace).  (e)
+   the kernels at its shapes, then phase 8's recipe on 2 requests of 1000
+   + 8 tokens under the KV policies ``device``, ``host`` and
+   ``pinned-paged``: launches as planned, the pool on the host (pinned for
+   ``pinned-paged``) with the layout's bytes, tokens and logits bit-equal
+   to ``device``, TTFT, TPOT and peak memory of each;
+10. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX; without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -1290,13 +1312,11 @@ def profile_serve(torch, engine, requests) -> dict:
     page_table = torch.as_tensor(table, device=engine.device)
     steps = []
     for _ in range(5):
-        (_, state), ms = timed(lambda: engine._decode(
-            engine.pool, page_table, state, engine._host_active()))
+        state, ms = timed(lambda: engine._step(page_table, state))
         engine.sched.tick()
         steps.append(ms)
     out["decode_ms"] = steps
-    profiled(lambda: engine._decode(engine.pool, page_table, state,
-                                    engine._host_active()), "decode step")
+    profiled(lambda: engine._step(page_table, state), "decode step")
     for si in range(engine.max_batch):
         engine.sched.complete(si)
     state = engine._init_state()
@@ -1416,6 +1436,315 @@ def slice_serve(torch, wrappers, fa, ref) -> dict:
         raise AssertionError(f"[serve] 2-layer logits differ by {err}")
     del two
     return launches
+
+
+# --------------------------------------------------- phase 9: the offload
+#: The stash placements phase 9 runs, None being the per-tensor stash.
+PLACEMENTS = (None, "device", "host", "pinned-paged")
+
+
+def copy_overlap(trace_path: str) -> dict:
+    """From a chrome trace of torch.profiler: per CUDA stream that ran host
+    copies, their count, time, and the part of that time during which a
+    kernel ran on another stream (the copy time the compute hides)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+
+    def spans(cat):
+        return [(e["ts"], e["ts"] + e["dur"], e["args"].get("stream"),
+                 e.get("name", "")) for e in events
+                if e.get("cat") == cat and "dur" in e]
+
+    kernels = spans("kernel")
+    out = {}
+    for stream in {s for _, _, s, name in spans("gpu_memcpy")
+                   if "DtoD" not in name}:
+        mine = [(a, b) for a, b, s, name in spans("gpu_memcpy")
+                if s == stream and "DtoD" not in name]
+        # the union of the other streams' kernel spans
+        busy = []
+        for a, b in sorted((a, b) for a, b, s, _ in kernels if s != stream):
+            if busy and a <= busy[-1][1]:
+                busy[-1][1] = max(busy[-1][1], b)
+            else:
+                busy.append([a, b])
+        total = sum(b - a for a, b in mine)
+        hidden = sum(max(0.0, min(b, y) - max(a, x))
+                     for a, b in mine for x, y in busy)
+        out[stream] = {"copies": len(mine), "copy_ms": total / 1e3,
+                       "hidden_ms": hidden / 1e3,
+                       "hidden_share": hidden / total if total else 0.0}
+    return out
+
+
+def offload_probe(torch, graph, cfg, model, policy, fused: str, what: str,
+                  profile_it: bool = False) -> None:
+    """One forward and backward of ``cfg`` on ``graph`` through a fresh
+    ArenaStore at ``policy`` (None: the per-tensor stash): host_store_bytes
+    must be the plan's bytes after the forward (0 for None and "device")
+    and 0 after the backward; logs the peak the step adds to what was
+    allocated before it.  With ``profile_it``, a second step runs under
+    torch.profiler and each stream's host copies are read against the other
+    streams' kernels."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine.compile import masked_nll
+    from repro_torch.engine.forward import stash_gnn_forward
+    from repro_torch.offload.engine import ArenaStore, host_store_bytes
+    from repro_torch.offload.gnn import plan_gnn_stashes
+
+    n_nodes, in_dim = graph.features.shape
+    plan = plan_gnn_stashes(cfg, in_dim, n_nodes)
+    store = None if policy is None else ArenaStore(plan, policy, "cuda")
+
+    def step(seed):
+        logits = stash_gnn_forward(model, graph, cfg, seed, fused, store)
+        torch.cuda.synchronize()
+        after = host_store_bytes()
+        loss = masked_nll(logits, graph.labels, graph.train_mask)
+        torch.autograd.grad(loss, model.flat_params())
+        torch.cuda.synchronize()
+        return after, host_store_bytes()
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fwd, bwd = step(0)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    want = 0 if policy in (None, "device") else plan.total_bytes
+    log(f"[{what}] probe step: host_store_bytes {fwd} after the forward "
+        f"(planned {plan.total_bytes}), {bwd} after the backward; peak "
+        f"{torch.cuda.max_memory_allocated() - base} bytes above the {base} "
+        f"allocated before it; {first_ms:.3f} ms (a first step: host "
+        "arenas allocated)")
+    if (fwd, bwd) != (want, 0):
+        raise AssertionError(f"[{what}] host store {fwd} / {bwd}, expected "
+                             f"{want} / 0")
+    if not profile_it:
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(1)
+            wall = (time.perf_counter() - t0) * 1e3
+        path = str(Path(tmp) / "trace.json")
+        prof.export_chrome_trace(path)
+        streams = copy_overlap(path)
+    busy = sum(getattr(e, "self_device_time_total", 0.0) / 1e3
+               for e in prof.key_averages()
+               if getattr(e, "device_type", None)
+               == torch.autograd.DeviceType.CUDA)
+    log(f"[{what}] profiled step: wall {wall:.3f} ms, device time summed "
+        f"over streams {busy:.3f} ms; host copies by stream {streams}")
+    if not streams:
+        raise AssertionError(f"[{what}] the profile shows no host copy")
+
+
+def offload_runs(torch, wrappers, what: str, want: dict, policies,
+                 run) -> dict:
+    """``run(policy)`` for each placement, counted (launches as ``want``
+    each) with the peak reset before it.  Logs each run's epochs, peak and
+    the arena's gauges; asserts every run bit-identical to the first
+    (losses and params), the readers' device-resident stash within the
+    ledger's window, every packed view aligned, and the stash bytes equal.
+    Returns the launches summed over the runs."""
+    total = collections.Counter()
+    runs = {}
+    for policy in policies:
+        tag = f"{what} offload={policy}"
+        res, counts, peak = counted_run(torch, wrappers, want, tag,
+                                        lambda: run(policy))
+        total.update(counts)
+        runs[policy] = res
+        ms = [round(h[2], 3) for h in res["history"]]
+        log(f"[{tag}] losses {[h[1] for h in res['history']]} epoch ms {ms} "
+            f"max_memory_allocated {peak} bytes stash {res['stash_bytes']}")
+        if policy is None:
+            continue
+        a = res["arena"]
+        log(f"[{tag}] arena {a}")
+        if not (a["resident_peak_bytes"] <= a["device_resident_bytes"]
+                and a["misaligned_views"] == 0
+                and a["planned_bytes"] == sum(res["stash_bytes"])):
+            raise AssertionError(f"[{tag}] arena gauges {a}")
+    first = runs[policies[0]]
+    for policy, res in runs.items():
+        same = ([h[1] for h in res["history"]]
+                == [h[1] for h in first["history"]]
+                and all(torch.equal(p, q) for p, q in zip(
+                    res["model"].parameters(), first["model"].parameters())))
+        if not same:
+            raise AssertionError(f"[{what}] offload={policy} is not "
+                                 f"bit-identical to offload={policies[0]}")
+        if res["stash_bytes"] != first["stash_bytes"]:
+            raise AssertionError(f"[{what}] offload={policy} stash bytes")
+    log(f"[{what}] placements {list(policies)}: losses and params "
+        "bit-identical")
+    return dict(total)
+
+
+def slice_offload(torch, g, cfg, cfg0, model0, wrappers) -> dict:
+    """Phase 9 (a)-(d): the stash arena and offload engine on phase 4's
+    graph and weights (see the module docstring).  Returns the launch
+    counts summed over the counted runs."""
+    from repro_torch.graph.models import GNNConfig, device_graph
+    from repro_torch.graph.sampling import make_subgraph_batches
+    from repro_torch.graph.train import train_gnn, train_gnn_batched
+
+    total = collections.Counter()
+    dg = device_graph(g, cfg.arch, "cuda")
+    model = copy.deepcopy(model0).to("cuda")
+
+    # (a) the RP-8 config, 3 epochs under every placement
+    total.update(offload_runs(
+        torch, wrappers, "offload rp8", planned(3, 3, steps=3), PLACEMENTS,
+        lambda p: train_gnn(g, cfg, n_epochs=3, seed=0, params=model0,
+                            offload=p)))
+    for policy in PLACEMENTS:
+        offload_probe(torch, dg, cfg, model, policy, "auto",
+                      f"offload rp8 {policy}", policy in ("host",
+                                                          "pinned-paged"))
+
+    # (b) rp_ratio 0, fused="auto": the fused backward reads the packed
+    # words the reader hands back
+    steps = 2
+    fused_want = dict(planned(0, 0, steps), matmul_quant=3 * steps,
+                      dequant_matmul=3 * steps)
+    total.update(offload_runs(
+        torch, wrappers, "offload rp0 auto", fused_want, PLACEMENTS,
+        lambda p: train_gnn(g, cfg0, n_epochs=steps, seed=0, params=model0,
+                            fused="auto", offload=p)))
+    for policy in PLACEMENTS:
+        offload_probe(torch, dg, cfg0, model, policy, "auto",
+                      f"offload rp0 {policy}", policy == "pinned-paged")
+
+    # (c) uncompressed: every layer's raw f32 input in the arena; the
+    # host window (layers 1-2) is visibly smaller than the pool
+    raw = GNNConfig(arch="sage", hidden=(256, 256), n_classes=40,
+                    compression=None)
+    total.update(offload_runs(
+        torch, wrappers, "offload raw", planned(0, 0, 2),
+        (None, "device", "pinned-paged"),
+        lambda p: train_gnn(g, raw, n_epochs=2, seed=0, params=model0,
+                            offload=p)))
+    for policy in (None, "device", "pinned-paged"):
+        offload_probe(torch, dg, raw, model, policy, "auto",
+                      f"offload raw {policy}", policy == "pinned-paged")
+    del dg
+
+    # (d) the mini-batch engine, halo 0, 8 parts
+    batches = make_subgraph_batches(g, 8, method="bfs", seed=0)
+    total.update(offload_runs(
+        torch, wrappers, "offload batched", planned(3, 3, steps=16),
+        (None, "device", "host"),
+        lambda p: train_gnn_batched(g, cfg, 8, n_epochs=2, seed=0,
+                                    params=model0, batches=batches,
+                                    offload=p)))
+    batch0 = device_graph(batches[0], cfg.arch, "cuda")
+    for policy in (None, "device", "host"):
+        offload_probe(torch, batch0, cfg, model, policy, "auto",
+                      f"offload batched {policy}", policy == "host")
+    return dict(total)
+
+
+#: Phase 9 (e): phase 8's recipe on 2 requests of 1000 + 8 tokens, 2 slots.
+SERVE9_ARGV = ["--arch", "qwen1.5-4b", "--requests", "2", "--max-batch", "2",
+               "--prompt-len", "1000", "--gen-len", "8", "--kv-bits", "4",
+               "--kv-group", "64", "--page-tokens", "16", "--mode",
+               "continuous", "--device", "cuda"]
+#: One prefill group (40 layers of flash; quant_pack per layer and stream)
+#: and 7 decode steps (quant_pack and dequant_unpack per layer and stream).
+SERVE9_LAUNCHES = {"flash_attention": 40, "quant_pack": 80 + 7 * 80,
+                   "dequant_unpack": 7 * 80}
+#: 40 layers x 126 pages (2 x 63) x 51,200 bytes.
+SERVE9_POOL_BYTES = 258_048_000
+
+
+def check_serve9_shapes(torch, qk, fa, ref, gen) -> None:
+    """The kernels at phase 9 (e)'s shapes against their plain versions:
+    flash at (40, 1000, 128) bf16 (as check_flash's tolerance), the seeded
+    quant_pack at the 2-request prefill and decode rows and dequant_unpack
+    at the 2-slot window, bit-equal."""
+    from repro_torch.engine.seeds import kv_seed
+
+    q, k, v = (torch.randn((40, 1000, 128), device="cuda", generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    got = fa.flash_attention(q, k, v, causal=True, scale_q=True)
+    want = ref.flash_attention(q, k, v, causal=True, scale_q=True)
+    if not torch.allclose(got.float(), want.float(), atol=1e-3,
+                          rtol=2.0 ** -7):
+        raise AssertionError("[serve9] flash at (40, 1000, 128) bf16")
+    for n_tok in (2 * 1008, 2):
+        x = torch.randn((n_tok * KV_NBT, KV_G), device="cuda", generator=gen)
+        seeds = kv_seed(torch.arange(n_tok, device="cuda") % 1008,
+                        torch.arange(n_tok, device="cuda") // 1008, 3, 0)
+        if not all(torch.equal(a, b) for a, b in zip(
+                qk.quant_pack(x, KV_BITS, seeds, rows_per_seed=KV_NBT),
+                ref.quantize_packed(x, KV_BITS, seeds,
+                                    rows_per_seed=KV_NBT))):
+            raise AssertionError(f"[serve9] quant_pack at {n_tok} tokens")
+    x = torch.randn((2 * 63 * 16 * KV_NBT, KV_G), device="cuda",
+                    generator=gen)
+    pk, zk, rk = qk.quant_pack(x, KV_BITS, 9)
+    if not torch.equal(qk.dequant_unpack(pk, zk, rk, KV_BITS, KV_G),
+                       ref.dequantize_packed(pk, zk, rk, KV_BITS, KV_G)):
+        raise AssertionError("[serve9] dequant_unpack at the window")
+    log("[serve9] flash, seeded quant_pack and dequant_unpack at phase 9 "
+        "(e)'s shapes: within bands / bit-equal")
+
+
+def slice_offload_serve(torch, wrappers) -> dict:
+    """Phase 9 (e): the KV cache under device, host and pinned-paged:
+    launches as planned, the same tokens and logits bit for bit, the pool
+    on the host (pinned for pinned-paged) with the layout's bytes, TTFT,
+    TPOT and peak memory of each."""
+    from repro_torch.launch import serve
+    from repro_torch.serving.kvcache import pool_nbytes
+
+    model = serve.build_model(serve.parser().parse_args(SERVE9_ARGV))
+    total = collections.Counter()
+    outs = {}
+    for policy in ("device", "host", "pinned-paged"):
+        args = serve.parser().parse_args(SERVE9_ARGV
+                                         + ["--kv-policy", policy])
+        engine, requests = serve.build_engine(args, model,
+                                              collect_logits=True)
+        what = f"serve9 kv-policy={policy}"
+        out, counts, peak = counted_run(torch, wrappers, dict(
+            planned(0, 0, 0), **SERVE9_LAUNCHES), what,
+            lambda: engine.run(requests))
+        total.update(counts)
+        outs[policy] = out
+        pinned = (None if policy == "device" else
+                  all(t.is_pinned() for t in engine.pool.host.values()))
+        want_pinned = {"device": None, "host": False,
+                       "pinned-paged": True}[policy]
+        pool_bytes = pool_nbytes(engine.pool)
+        log(f"[{what}] mechanism {engine.mechanism}, pool {pool_bytes} "
+            f"bytes (pinned {pinned}), TTFT "
+            f"{out['ttft_mean_ms']!r} ms, TPOT {out['tpot_mean_ms']!r} ms, "
+            f"wall {out['wall_s']!r} s, max_memory_allocated {peak} bytes")
+        if pool_bytes != SERVE9_POOL_BYTES or pinned is not want_pinned:
+            raise AssertionError(f"[{what}] pool bytes or pinning")
+        if any(r.status != "done" or len(r.tokens) != 8
+               for r in out["results"]):
+            raise AssertionError(f"[{what}] a request was not served")
+        del engine
+    base = outs["device"]
+    for policy in ("host", "pinned-paged"):
+        for a, b in zip(base["results"], outs[policy]["results"]):
+            if not (np.array_equal(a.tokens, b.tokens) and np.array_equal(
+                    base["logits"][a.rid], outs[policy]["logits"][b.rid])):
+                raise AssertionError(f"[serve9] {policy}: request {a.rid} "
+                                     "differs from the device policy")
+    log("[serve9] host and pinned-paged: tokens and logits bit-equal to "
+        "the device policy's")
+    del model, outs
+    return dict(total)
 
 
 def main() -> int:
@@ -1539,14 +1868,29 @@ def main() -> int:
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
     for name, n in batched.items():
         launches[name] += n
+    torch.cuda.empty_cache()
+
+    # 9 (a)-(d). slice 11: the stash arena and offload engine
+    t0 = time.perf_counter()
+    for name, n in slice_offload(torch, g, cfg, cfg0, model0,
+                                 wrappers).items():
+        launches[name] += n
+    log(f"phase 9 (a)-(d): {time.perf_counter() - t0:.1f} s")
     del g, model0
     torch.cuda.empty_cache()
 
     # 8. slice 3: serving
     served = slice_serve(torch, wrappers, fa, ref)
     launches["flash_attention"] = served["flash_attention"]
+    torch.cuda.empty_cache()
 
-    # 9. results
+    # 9 (e). the KV cache's host placements
+    t0 = time.perf_counter()
+    check_serve9_shapes(torch, qk, fa, ref, gen)
+    served9 = slice_offload_serve(torch, wrappers)
+    log(f"phase 9 (e): {time.perf_counter() - t0:.1f} s; launches {served9}")
+
+    # 10. results
     sources = {"quant_pack": ("src/repro_torch/csrc/quant_blockwise.cu",
                               "src/repro/kernels/quant_blockwise.py:62"),
                "dequant_unpack": ("src/repro_torch/csrc/quant_blockwise.cu",

@@ -14,9 +14,11 @@ import torch
 
 from repro_torch.engine import seeds
 from repro_torch.engine.forward import stash_gnn_forward, stash_nbytes
-from repro_torch.engine.plan import ExecutionPlan
+from repro_torch.engine.plan import ExecutionPlan, StashPolicy
 from repro_torch.graph.models import GNN, DeviceGraph, GNNConfig, device_graph
 from repro_torch.graph.sampling import make_subgraph_batches
+from repro_torch.offload.engine import ArenaStore
+from repro_torch.offload.gnn import plan_gnn_stashes
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
 
@@ -28,29 +30,46 @@ def masked_nll(logits: torch.Tensor, labels: torch.Tensor,
     return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1)
 
 
+def _arena_store(stash: StashPolicy, cfg: GNNConfig, graph: DeviceGraph):
+    """The :class:`~repro_torch.offload.engine.ArenaStore` of an arena
+    stash policy, planned for ``cfg`` over ``graph``'s rows (the full
+    graph, or one padded batch: every batch has its shape); None for
+    per-tensor stashes."""
+    if stash.kind == "tensor":
+        return None
+    n_nodes, in_dim = graph.features.shape
+    return ArenaStore(plan_gnn_stashes(cfg, in_dim, n_nodes),
+                      stash.placement, graph.features.device)
+
+
 class CompiledFull:
     """Full-graph step: ``step(epoch)`` runs forward, the manual backward
     and AdamW in place, and returns the loss (a device scalar).  ``fused``
     is the reference's ``KernelPolicy.fused`` knob ("auto" | "on" | "off")
-    for the matmul-quant pair."""
+    for the matmul-quant pair; an arena ``stash`` policy plans its
+    :class:`~repro_torch.offload.arena.StashPlan` once, over the graph."""
 
     def __init__(self, graph: DeviceGraph, cfg: GNNConfig, model: GNN,
-                 opt: AdamWConfig, fused: str = "auto"):
+                 opt: AdamWConfig, fused: str = "auto",
+                 stash: StashPolicy = StashPolicy()):
         self.graph, self.cfg, self.model, self.opt = graph, cfg, model, opt
-        self.fused = fused
+        self.fused, self.stash = fused, stash
+        self.store = _arena_store(stash, cfg, graph)
         self.state = adamw_init(model.flat_params(), opt)
         self.stash_bytes: list[int] = []
 
     def recompile(self, cfg: GNNConfig) -> "CompiledFull":
-        """The autoprec refresh hook: new widths, the same model, optimizer
-        state and graph."""
+        """The autoprec refresh hook: new widths (and a new stash plan for
+        them), the same model, optimizer state and graph."""
         self.cfg = cfg
+        self.store = _arena_store(self.stash, cfg, self.graph)
         return self
 
     def step(self, epoch: int) -> torch.Tensor:
         params = self.model.flat_params()
         logits = stash_gnn_forward(self.model, self.graph, self.cfg,
-                                   seeds.sr_seed(epoch), self.fused)
+                                   seeds.sr_seed(epoch), self.fused,
+                                   self.store)
         self.stash_bytes = stash_nbytes(logits)
         loss = masked_nll(logits, self.graph.labels, self.graph.train_mask)
         grads = torch.autograd.grad(loss, params)
@@ -66,7 +85,7 @@ class CompiledFull:
         return self.graph
 
     def result_extras(self) -> dict:
-        return {}
+        return {} if self.store is None else {"arena": self.store.stats()}
 
 
 class CompiledPartition:
@@ -78,7 +97,9 @@ class CompiledPartition:
     its ordinal ``epoch * n_parts + position``, and returns the mean of the
     updates' losses (a device scalar; nothing is read back inside the
     epoch).  Each batch is moved to the device once, here; the last
-    forward's live stash is ``stash_bytes``."""
+    forward's live stash is ``stash_bytes``.  An arena stash policy plans
+    its :class:`~repro_torch.offload.arena.StashPlan` once, over the padded
+    batch's rows."""
 
     def __init__(self, g, cfg: GNNConfig, plan: ExecutionPlan, model: GNN,
                  opt: AdamWConfig, device, batches=None, seed: int = 0):
@@ -104,14 +125,18 @@ class CompiledPartition:
         self.batch_nodes = batches[0].n_nodes
         self.batch_edges = batches[0].n_edges
         self.graphs = [device_graph(b, cfg.arch, device) for b in batches]
+        self.stash = plan.stash
+        self.store = _arena_store(plan.stash, cfg, self.graphs[0])
         self.reshuffle = sp.shuffle and self.n_batches > 1
         self.state = adamw_init(model.flat_params(), opt)
         self._accum = torch.tensor(float(self.grad_accum), device=device)
         self.stash_bytes: list[int] = []
 
     def recompile(self, cfg: GNNConfig) -> "CompiledPartition":
-        """The autoprec refresh hook: new widths, the same batches."""
+        """The autoprec refresh hook: new widths (and a new stash plan for
+        them), the same batches."""
         self.cfg = cfg
+        self.store = _arena_store(self.stash, cfg, self.graphs[0])
         return self
 
     def epoch_data(self, order_rng: np.random.Generator) -> tuple:
@@ -123,7 +148,7 @@ class CompiledPartition:
 
     def _micro(self, graph: DeviceGraph, seed: int):
         logits = stash_gnn_forward(self.model, graph, self.cfg, seed,
-                                   self.fused)
+                                   self.fused, self.store)
         self.stash_bytes = stash_nbytes(logits)
         loss = masked_nll(logits, graph.labels, graph.train_mask)
         return loss, torch.autograd.grad(loss, self.model.flat_params())
@@ -157,10 +182,13 @@ class CompiledPartition:
         return self.graphs[0]
 
     def result_extras(self) -> dict:
-        return {"n_parts": self.n_batches,
-                "updates_per_epoch": self.n_updates,
-                "batch_nodes": self.batch_nodes,
-                "batch_edges": self.batch_edges}
+        extras = {"n_parts": self.n_batches,
+                  "updates_per_epoch": self.n_updates,
+                  "batch_nodes": self.batch_nodes,
+                  "batch_edges": self.batch_edges}
+        if self.store is not None:
+            extras["arena"] = self.store.stats()
+        return extras
 
 
 def compile_plan(g, cfg: GNNConfig, plan: ExecutionPlan, model: GNN,
@@ -171,14 +199,9 @@ def compile_plan(g, cfg: GNNConfig, plan: ExecutionPlan, model: GNN,
     hook), ``calibration`` and ``result_extras``.  ``batches`` (a prebuilt
     :func:`~repro_torch.graph.sampling.make_subgraph_batches` list) skips
     partitioning for a partition plan."""
-    if plan.stash.kind != "tensor":
-        raise NotImplementedError(
-            f"stash.kind={plan.stash.kind!r} (offload="
-            f"{plan.stash.offload!r}): the stash arena and offload engine "
-            "are not ported yet (ROADMAP A.8)")
     if plan.sampling.kind == "full":
         if batches is not None:
             raise ValueError("prebuilt batches need partition sampling")
         return CompiledFull(device_graph(g, cfg.arch, device), cfg, model,
-                            opt, plan.kernel.fused)
+                            opt, plan.kernel.fused, plan.stash)
     return CompiledPartition(g, cfg, plan, model, opt, device, batches, seed)

@@ -17,10 +17,8 @@ A plan composes orthogonal policies:
 :func:`repro_torch.engine.runner.run`.  Plans are frozen and hashable.
 
 Not ported yet, and raising where they are asked for: mesh sampling
-(``SamplingPolicy(kind="mesh")``, ROADMAP A.9), the pooled stash arena and
-its placements (a ``StashPolicy(kind="arena")`` plan is built and
-validated, and :func:`repro_torch.engine.compile.compile_plan` raises,
-A.8), and the observability policy (``obs``, A.10).
+(``SamplingPolicy(kind="mesh")``, ROADMAP A.9) and the observability
+policy (``obs``, A.10).
 """
 from __future__ import annotations
 
@@ -28,13 +26,14 @@ import dataclasses
 
 from repro_torch.core.backend import VALID_FUSED
 from repro_torch.kernels.ops import VALID_IMPLS
+from repro_torch.offload.engine import POLICIES
 
 SAMPLING_KINDS = ("full", "partition")
 PRECISION_KINDS = ("fixed", "autoprec")
 CALIBRATION_KINDS = ("probe", "obs")
 STASH_KINDS = ("tensor", "arena")
-#: The reference's offload policies (``repro.offload.engine.POLICIES``).
-STASH_PLACEMENTS = ("device", "host", "pinned-paged")
+#: The offload policies (:data:`repro_torch.offload.engine.POLICIES`).
+STASH_PLACEMENTS = POLICIES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,8 +111,11 @@ class PrecisionPolicy:
 @dataclasses.dataclass(frozen=True)
 class StashPolicy:
     """Where saved-for-backward stashes live: ``"tensor"``, per-tensor on
-    the device (the port's engine), or ``"arena"``, one pooled arena at
-    ``placement`` (A.8, not ported: compiling such a plan raises)."""
+    the device, or ``"arena"``, one pooled arena pair
+    (:mod:`repro_torch.offload`) at ``placement``: on the device, or moved
+    to pageable (``"host"``) or page-locked (``"pinned-paged"``) host
+    memory after each layer's forward and brought back one layer ahead of
+    the backward."""
 
     kind: str = "tensor"          # "tensor" | "arena"
     placement: str = "device"     # "device" | "host" | "pinned-paged"

@@ -39,8 +39,9 @@ def run(g, cfg: GNNConfig, plan: ExecutionPlan | None = None,
     :class:`GNN`; ``params`` itself is left untouched), ``stash_bytes``
     (the last forward's live stash, per layer), ``cfg`` (the config the
     last step ran) and ``plan``; a partition plan adds ``n_parts``,
-    ``updates_per_epoch``, ``batch_nodes`` and ``batch_edges``.
-    ``batches`` (prebuilt subgraph batches) skips a partition plan's
+    ``updates_per_epoch``, ``batch_nodes`` and ``batch_edges``, and an
+    arena stash policy ``arena`` (the plan's bytes and the readers' gauges:
+    :meth:`repro_torch.offload.engine.ArenaStore.stats`).  ``batches`` (prebuilt subgraph batches) skips a partition plan's
     sampling pass.
 
     Autoprec (``plan.precision.kind == "autoprec"``) runs in the

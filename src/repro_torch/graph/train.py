@@ -11,6 +11,10 @@ from repro_torch.graph.analysis import saved_bytes_per_layer
 from repro_torch.graph.data import Graph
 from repro_torch.graph.models import GNN, GNNConfig
 from repro_torch.graph.sampling import _bucket
+from repro_torch.offload.engine import (check_policy, device_memory_stats,
+                                        device_resident_stash_bytes,
+                                        measure_live_bytes)
+from repro_torch.offload.gnn import plan_gnn_stashes
 from repro_torch.optim import AdamWConfig
 
 
@@ -47,7 +51,15 @@ def train_gnn(g: Graph, cfg: GNNConfig, opt: AdamWConfig | None = None,
     once); a changed allocation recompiles the step.  The result then
     carries ``bits_per_layer`` and ``bit_budget_bytes``.
 
-    ``offload`` (the pooled stash arena) belongs to queue A.8 and raises.
+    ``offload`` pools the stash into one u32 and one f32 arena
+    (:mod:`repro_torch.offload`): ``"device"`` keeps the arena on the card;
+    ``"host"`` and ``"pinned-paged"`` copy each layer's segments to pageable
+    or page-locked host memory on a side stream after its forward and bring
+    them back one layer ahead of the backward, so at most two layers'
+    segments are on the card.  Every placement is bit-identical to
+    ``offload=None`` (the per-tensor stash); the result then carries
+    ``arena`` (the plan's bytes, the prefetch window and the readers'
+    gauges).
 
     Equivalent plan: ``ExecutionPlan.from_legacy(impl=impl, fused=fused,
     offload=offload, bit_budget=bit_budget,
@@ -86,9 +98,10 @@ def train_gnn_batched(g: Graph, cfg: GNNConfig, n_parts: int,
     shuffle      redraw the batch order every epoch (from
                  ``seeds.order_rng(seed)``).
     batches      a prebuilt batch list (skips partitioning).
-    impl, fused, bit_budget, autoprec_refresh, params, device
+    impl, fused, bit_budget, autoprec_refresh, offload, params, device
                  as in :func:`train_gnn`; autoprec calibrates on one padded
-                 batch, so its byte ceiling is per batch.
+                 batch, so its byte ceiling is per batch, and an arena is
+                 planned over one padded batch's rows.
 
     The batch at position ``p`` of epoch ``e`` stashes with ``sr_seed(e *
     n_parts + p)``, so ``n_parts=1`` with ``node_multiple=1,
@@ -99,8 +112,8 @@ def train_gnn_batched(g: Graph, cfg: GNNConfig, n_parts: int,
     updates.
 
     Not ported yet, and raising: ``mesh=`` (data-parallel batches, queue
-    A.9) and ``offload=`` (A.8).  The reference's ``eval_every`` and
-    ``verbose`` are not taken: the history holds every epoch.
+    A.9).  The reference's ``eval_every`` and ``verbose`` are not taken:
+    the history holds every epoch.
     """
     from repro_torch.engine.runner import run  # lazy: engine <- graph
 
@@ -146,19 +159,25 @@ def activation_memory_report(g: Graph, cfg: GNNConfig, n_parts: int = 1,
       ``full_graph_saved_bytes``, ``peak_reduction_vs_full`` (full / peak)
       and that batch's ``per_layer``.
 
-    The arena section (``offload=``, or a plan with an arena stash) and
-    ``quant_health`` belong to queues A.8 and A.10 and raise."""
+    With an arena stash (``offload=``, or a plan with an arena stash
+    policy), ``arena``: the pooled ledger of the
+    :func:`~repro_torch.offload.gnn.plan_gnn_stashes` plan over
+    ``stash_nodes`` rows (an explicit ``batch_nodes``, else the graph's):
+    ``policy``, ``planned_bytes`` split into ``u32_bytes`` and
+    ``f32_bytes``, ``per_layer`` rows, ``device_resident_bytes`` (the whole
+    arena, or the two-layer prefetch window of the host policies), and the
+    measured ``measured_live_bytes`` (``torch.cuda.memory_allocated``, 0
+    before the card is used) and ``device_peak_bytes``
+    (``torch.cuda.max_memory_allocated``, None before the card is used).
+
+    ``quant_health`` belongs to queue A.10 and raises."""
     if plan is None:
         plan = ExecutionPlan.from_legacy(
-            n_parts=n_parts if n_parts > 1 else None, offload=offload,
-            node_multiple=node_multiple)
-    for given, what, item in ((plan.offload is not None,
-                               f"offload={plan.offload!r}", "A.8"),
-                              (quant_health is not None, "quant_health=",
-                               "A.10")):
-        if given:
-            raise NotImplementedError(f"activation_memory_report({what}) "
-                                      f"is not ported yet (ROADMAP {item})")
+            n_parts=n_parts if n_parts > 1 else None,
+            offload=check_policy(offload), node_multiple=node_multiple)
+    if quant_health is not None:
+        raise NotImplementedError("activation_memory_report(quant_health=) "
+                                  "is not ported yet (ROADMAP A.10)")
     if plan.sampling.kind == "partition":
         n_parts = plan.sampling.n_parts
         node_multiple = plan.sampling.node_multiple
@@ -190,5 +209,25 @@ def activation_memory_report(g: Graph, cfg: GNNConfig, n_parts: int = 1,
             "full_graph_saved_bytes": full_saved,
             "peak_reduction_vs_full": full_saved / peak,
             "per_layer": rows_b,
+        }
+    if plan.offload is not None:
+        # an explicit batch_nodes wins even at n_parts == 1: the batched
+        # engine pads its single batch, and the ledger describes the plan
+        # training lays out
+        stash_nodes = batch_nodes if batch_nodes is not None else g.n_nodes
+        arena_plan = plan_gnn_stashes(cfg, g.n_feats, stash_nodes)
+        stats = device_memory_stats()
+        out["arena"] = {
+            "policy": plan.offload,
+            "stash_nodes": stash_nodes,
+            "planned_bytes": arena_plan.total_bytes,
+            "u32_bytes": arena_plan.u32_bytes,
+            "f32_bytes": arena_plan.f32_bytes,
+            "per_layer": arena_plan.per_layer_rows(),
+            "device_resident_bytes":
+                device_resident_stash_bytes(arena_plan, plan.offload),
+            "measured_live_bytes": measure_live_bytes(),
+            "device_peak_bytes":
+                stats.get("peak_bytes_in_use") if stats else None,
         }
     return out

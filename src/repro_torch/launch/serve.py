@@ -14,9 +14,13 @@ written block-quantized (``--kv-bits {2,4,8}``; 16 = raw bf16).
 ``--mode fixed`` recovers the sequential fixed-batch loop as a scheduler
 configuration.
 
+``--kv-policy host|pinned-paged`` keeps the page pool in pageable or
+page-locked host memory and serves it one layer ahead through a device
+stage (:class:`repro_torch.serving.kvcache.HostKVPool`); the tokens are
+the ``device`` policy's bit for bit.
+
 Not ported yet: the legacy loop of the SSM / hybrid / enc-dec families and
-the MoE model (ROADMAP A.11), the ``host`` / ``pinned-paged`` KV policies
-(A.8) and ``--obs`` (A.10); each raises.
+the MoE model (ROADMAP A.11) and ``--obs`` (A.10); each raises.
 """
 from __future__ import annotations
 
@@ -44,7 +48,8 @@ def parser() -> argparse.ArgumentParser:
                     help="KV cache width: 2/4/8 block-quantized, 16 raw bf16")
     ap.add_argument("--kv-policy", default="device",
                     choices=["device", "host", "pinned-paged"],
-                    help="page-pool placement (only 'device' is ported)")
+                    help="page-pool placement: on the card, or in pageable "
+                         "or page-locked host memory")
     ap.add_argument("--kv-group", type=int, default=64,
                     help="quantization block size along the KV token row")
     ap.add_argument("--page-tokens", type=int, default=16,

@@ -65,14 +65,15 @@ def _sync(device: torch.device) -> None:
 
 def make_decode_fn(model, layout, *, gen_cap: int, collect_logits: bool):
     """The one-token step for every slot: ``step(pool, page_table, state,
-    active)`` updates ``pool`` and ``state`` in place and returns them.
-    ``active`` (B,) bool is the host's copy of ``state["active"]`` (the
-    scheduler mirror).  Mirrors ``Model.decode_step``'s layer math; only
-    the KV storage differs."""
+    active, written)`` updates ``pool`` and ``state`` in place and returns
+    them.  ``active`` (B,) bool is the host's copy of ``state["active"]``
+    and ``written`` the active slots' ``(page, offset)`` KV rows, both from
+    the scheduler mirrors (a host pool copies those rows back).  Mirrors
+    ``Model.decode_step``'s layer math; only the KV storage differs."""
     cfg = model.cfg
 
     @torch.no_grad()
-    def step(pool, page_table, state, active):
+    def step(pool, page_table, state, active, written):
         tokens, pos = state["tokens"], state["pos"]
         dev = tokens.device
         # the active slots' indices, copied to the card once a step, and
@@ -90,6 +91,7 @@ def make_decode_fn(model, layout, *, gen_cap: int, collect_logits: bool):
             kvcache.write_token(pool_l, layout, page_table, pos, active,
                                 k[:, 0], v[:, 0], seeds[li, 0], seeds[li, 1],
                                 rows=rows)
+            kvcache.commit_rows(pool, li, written)
             if layout.quantized:
                 kf, vf = kvcache.fetch_window(pool_l, layout, page_table)
             else:
@@ -181,8 +183,8 @@ class ServeEngine:
         self.max_pages_per_slot = -(-(max_prompt + gen_cap - 1) // T)
         self.max_batch = max_batch
         self.collect_logits = collect_logits
-        pool = kvcache.init_kv_pool(self.layout, self.device)
-        self.pool, self.mechanism = kvcache.place_kv_pool(pool, self.layout)
+        self.pool, self.mechanism = kvcache.place_kv_pool(
+            kvcache.init_kv_pool(self.layout, self.device), self.layout)
         self.alloc = kvcache.PageAllocator(kv.n_pages)
         self.sched = Scheduler(max_batch=max_batch, page_tokens=T,
                                allocator=self.alloc, mode=mode,
@@ -211,6 +213,20 @@ class ServeEngine:
         (a slot stays active until it has generated its budget)."""
         return np.asarray([s is not None and s.gen < s.max_new
                            for s in self.sched.slots])
+
+    def _step(self, page_table, state) -> dict:
+        """One decode step over the active slots; the KV row each writes
+        sits at position ``prompt_len + gen - 1`` of its pages."""
+        active = self._host_active()
+        T = self.layout.page_tokens
+        written = []
+        for s, on in zip(self.sched.slots, active):
+            if on:
+                pos = s.prompt_len + s.gen - 1
+                written.append((s.pages[pos // T], pos % T))
+        self.pool, state = self._decode(self.pool, page_table, state, active,
+                                        written)
+        return state
 
     def _admit_group(self, group, state, page_table_np):
         """Prefill one same-prompt-length admission group and seat it."""
@@ -308,8 +324,7 @@ class ServeEngine:
                     step_idx = max(step_idx + 1, pending[0].arrival)
                     continue
                 break
-            self.pool, state = self._decode(self.pool, page_table, state,
-                                            self._host_active())
+            state = self._step(page_table, state)
             step_idx += 1
             decode_steps += 1
             self.sched.tick()

@@ -24,9 +24,13 @@ index past the end raises on the CPU and faults on the card, and the pool
 has no sink page (its bytes are exactly ``layout.pool_bytes``).  Writes
 update the pool tensors in place.
 
-Placement: ``policy="device"`` only.  The ``host`` and ``pinned-paged``
-policies wait for the offload engine (ROADMAP A.8); they raise rather than
-quietly keep the pool on the device.
+Placement (``KVCacheConfig.policy``, :func:`place_kv_pool`): ``"device"``
+keeps the pool on the card; ``"host"`` and ``"pinned-paged"`` keep it in
+pageable or page-locked host memory (:class:`HostKVPool`) and serve it one
+layer at a time through a device stage, the next layer copied in on a side
+stream (:mod:`repro_torch.offload.engine`) while the current one computes,
+and only the rows a step wrote copied back.  Every placement reads and
+writes the same bits.
 """
 from __future__ import annotations
 
@@ -39,11 +43,11 @@ from repro_torch.core import pack as packmod
 from repro_torch.core.device import resolve_device
 from repro_torch.engine.seeds import kv_seed
 from repro_torch.kernels import ops
+from repro_torch.offload.engine import (POLICIES, SideStream, host_empty,
+                                        resolve_mechanism)
 
 #: Supported KV cache widths: 2/4/8 quantized, 16 = raw bf16 pages.
 KV_BITS = (2, 4, 8, 16)
-#: The reference's placement policies (``repro.offload.engine.POLICIES``).
-POLICIES = ("device", "host", "pinned-paged")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,10 +145,6 @@ def plan_kv_layout(kv: KVCacheConfig, *, n_layers: int, n_kv_heads: int,
     resolve the page geometry."""
     if kv.policy not in POLICIES:
         raise ValueError(f"offload={kv.policy!r} not in {POLICIES}")
-    if kv.policy != "device":
-        raise NotImplementedError(
-            f"kv policy {kv.policy!r} waits for the port's offload engine "
-            "(ROADMAP A.8); use policy='device'")
     if kv.bits not in KV_BITS:
         raise ValueError(f"kv bits={kv.bits} not in {KV_BITS}")
     if kv.page_tokens < 1:
@@ -190,22 +190,115 @@ def init_kv_pool(layout: KVPageLayout, device="cuda") -> dict:
     return pool
 
 
-def pool_nbytes(pool: dict) -> int:
-    return sum(t.numel() * t.element_size() for t in pool.values())
+class HostKVPool:
+    """The page pool in host memory (pageable for ``policy="host"``,
+    page-locked for ``"pinned-paged"``, where failing to pin raises),
+    served through two layer-sized stages on the card.
+
+    ``layer(li)`` makes the compute stream wait for layer li's pages in its
+    stage and starts copying layer li + 1's into the other stage on the
+    side stream, so that copy runs under layer li's compute.  The quant
+    kernels write into the stage; ``commit_rows`` and ``commit_pages`` copy
+    back only what was written (one token row a slot at decode, the
+    prompt's pages at prefill).  The host pool thus always holds what the
+    ``device`` policy's pool holds, and every read sees the same bits."""
+
+    def __init__(self, pool: dict, layout: KVPageLayout):
+        self.layout = layout
+        self.device = next(iter(pool.values())).device
+        pinned = (resolve_mechanism(layout.policy) == "pinned"
+                  and self.device.type == "cuda")
+        self.host = {}
+        for name, t in pool.items():
+            self.host[name] = host_empty(t.shape, t.dtype, pinned)
+            self.host[name].copy_(t)
+        self.stages = [{name: torch.empty_like(t[0])
+                        for name, t in pool.items()} for _ in range(2)]
+        self.side = SideStream(self.device)
+        self._ready: dict[int, object] = {}
+
+    def _fetch(self, li: int):
+        # after the compute stream's last reads of this stage (layer li - 2)
+        self.side.follow_compute()
+        for name, h in self.host.items():
+            self.side.copy(self.stages[li % 2][name], h[li])
+        return self.side.record()
+
+    def layer(self, li: int, read: bool = True) -> dict:
+        stage = self.stages[li % 2]
+        if not read:
+            # a write-only pass (prefill): the stage's contents do not
+            # matter, but its copies back (and any fetch) must be done
+            self._ready.clear()
+            self.side.hand_over(self.side.record())
+            return stage
+        ev = self._ready.pop(li, None)
+        self.side.hand_over(ev if ev is not None else self._fetch(li))
+        if li + 1 < self.layout.n_layers:
+            self._ready[li + 1] = self._fetch(li + 1)
+        return stage
+
+    def commit_rows(self, li: int, rows) -> None:
+        """Copy the token rows ``rows`` ((page, offset) pairs) of layer
+        li's stage back to the host pool."""
+        self.side.follow_compute()
+        stage = self.stages[li % 2]
+        for name, h in self.host.items():
+            for page, off in rows:
+                self.side.copy(h[li, page, off], stage[name][page, off])
+
+    def commit_pages(self, li: int, pages) -> None:
+        """Copy pages ``pages`` of layer li's stage back to the host pool,
+        one copy a run of consecutive page ids."""
+        self.side.follow_compute()
+        stage = self.stages[li % 2]
+        ids = sorted({int(p) for p in pages})
+        runs, start = [], 0
+        for i in range(1, len(ids) + 1):
+            if i == len(ids) or ids[i] != ids[i - 1] + 1:
+                runs.append((ids[start], ids[i - 1] + 1))
+                start = i
+        for name, h in self.host.items():
+            for a, b in runs:
+                self.side.copy(h[li, a:b], stage[name][a:b])
 
 
-def place_kv_pool(pool: dict, layout: KVPageLayout) -> tuple[dict, str]:
-    """The pool where the layout's policy puts it, and the mechanism: only
-    ``device`` is ported (:func:`plan_kv_layout` refuses the others)."""
-    if layout.policy != "device":
-        raise NotImplementedError(
-            f"kv policy {layout.policy!r} waits for ROADMAP A.8")
-    return pool, "device"
+def pool_nbytes(pool) -> int:
+    tensors = pool.host if isinstance(pool, HostKVPool) else pool
+    return sum(t.numel() * t.element_size() for t in tensors.values())
 
 
-def layer_view(pool: dict, li: int) -> dict:
-    """Layer ``li`` of every pool tensor (views: writes land in the pool)."""
+def place_kv_pool(pool: dict, layout: KVPageLayout):
+    """The pool where the layout's policy puts it, and the mechanism used:
+    ``(pool, "device")``, or a :class:`HostKVPool` over a host copy of it
+    and ``"pageable"`` / ``"pinned"``."""
+    mechanism = resolve_mechanism(layout.policy)
+    if mechanism == "device":
+        return pool, mechanism
+    return HostKVPool(pool, layout), mechanism
+
+
+def layer_view(pool, li: int, *, read: bool = True) -> dict:
+    """Layer ``li`` of every pool tensor, as views that writes land in:
+    the pool's own, or a :class:`HostKVPool`'s device stage (``read=False``
+    for a caller that only writes: the stage is not filled)."""
+    if isinstance(pool, HostKVPool):
+        return pool.layer(li, read)
     return {name: t[li] for name, t in pool.items()}
+
+
+def commit_rows(pool, li: int, rows) -> None:
+    """After a decode step's writes to layer li: the written ``(page,
+    offset)`` rows go back to a host pool (nothing to do on the device)."""
+    if isinstance(pool, HostKVPool) and len(rows):
+        pool.commit_rows(li, rows)
+
+
+def commit_pages(pool, li: int, pages) -> None:
+    """After a prefill's writes to layer li: the written pages go back to
+    a host pool (nothing to do on the device)."""
+    if isinstance(pool, HostKVPool) and len(pages):
+        pool.commit_pages(li, pages)
 
 
 def _host(x) -> np.ndarray:
@@ -284,17 +377,19 @@ def write_prompt(pool: dict, layout: KVPageLayout, k, v, phys_pages,
     slots = torch.as_tensor(_host(slots).astype(np.int64), device=dev)
     hkv, dh = layout.n_kv_heads, layout.d_head
     for li in range(L):
+        pool_l = layer_view(pool, li, read=False)
         for field, (name, t) in enumerate((("k", k[li]), ("v", v[li]))):
             if not layout.quantized:
                 paged = t.to(torch.bfloat16).reshape(B, npg, T, hkv, dh)
-                pool[name][li][dst] = paged[keep_b, keep_p]
+                pool_l[name][dst] = paged[keep_b, keep_p]
                 continue
             seeds = kv_seed(positions[None, :], slots[:, None], li, field)
             vals = _quantize_rows(layout, t.reshape(B * S, hkv, dh),
                                   seeds.reshape(-1))
             for suffix, val in zip(("packed", "zero", "rng"), vals):
                 paged = val.reshape(B, npg, T, *val.shape[1:])
-                pool[f"{name}_{suffix}"][li][dst] = paged[keep_b, keep_p]
+                pool_l[f"{name}_{suffix}"][dst] = paged[keep_b, keep_p]
+        commit_pages(pool, li, phys[phys < layout.n_pages])
     return pool
 
 

@@ -427,16 +427,41 @@ def test_plan_validation(make, match):
 @pytest.mark.parametrize("call,item", [
     (lambda g, c: t_train_batched(g, c, 2, n_epochs=1, mesh=object(),
                                   device="cpu"), "A.9"),
-    (lambda g, c: t_train_batched(g, c, 2, n_epochs=1, offload="host",
-                                  device="cpu"), "A.8"),
     (lambda g, c: SamplingPolicy(kind="mesh", n_parts=2), "A.9"),
-    (lambda g, c: ExecutionPlan(obs=object()), "A.10"),
-    (lambda g, c: t_report(g, c, n_parts=2, offload="device"), "A.8")])
+    (lambda g, c: ExecutionPlan(obs=object()), "A.10")])
 def test_unported_parts_raise(call, item):
     _, tg = _graphs()
     _, tcfg = _cfgs()
     with pytest.raises(NotImplementedError, match=item):
         call(tg, tcfg)
+
+
+def test_train_gnn_batched_offload_host_runs():
+    """``offload="host"`` trains the batches as the per-tensor stash does,
+    bit for bit, with the arena planned over one padded batch."""
+    _, tg = _graphs()
+    _, tcfg = _cfgs()
+    kw = dict(n_epochs=1, shuffle=False, device="cpu")
+    off = t_train_batched(tg, tcfg, 2, offload="host", **kw)
+    per = t_train_batched(tg, tcfg, 2, **kw)
+    assert off["history"][0][1] == per["history"][0][1]
+    assert all(torch.equal(a, b) for a, b in zip(off["model"].parameters(),
+                                                 per["model"].parameters()))
+    assert off["arena"]["planned_bytes"] == sum(per["stash_bytes"])
+
+
+def test_report_batched_arena_section():
+    """``n_parts=2, offload="device"``: the arena is planned over one padded
+    batch, as the reference plans it."""
+    jg, tg = _graphs()
+    jcfg, tcfg = _cfgs()
+    got = t_report(tg, tcfg, n_parts=2, offload="device")
+    want = j_report(jg, jcfg, n_parts=2, offload="device")
+    for rep in (got, want):
+        for key in ("measured_live_bytes", "device_peak_bytes"):
+            rep["arena"].pop(key)
+    assert got == want
+    assert got["arena"]["stash_nodes"] == got["batched"]["batch_nodes"]
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs no card")

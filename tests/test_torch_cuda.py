@@ -924,3 +924,134 @@ def test_cuda_batched_one_tight_batch_is_train_gnn(cuda):
     assert [h[1] for h in one["history"]] == [h[1] for h in full["history"]]
     assert all(torch.equal(p, q) for p, q in
                zip(full["model"].parameters(), one["model"].parameters()))
+
+
+# --------------------------------------------------- stash arena, offload
+def _busy(n: int = 4096, reps: int = 8) -> None:
+    """Queue a few ms of matmuls on the compute stream, so that whatever
+    the side stream does next overlaps them."""
+    a = torch.randn(n, n, device="cuda")
+    for _ in range(reps):
+        a = a @ a
+        a = a / a.norm()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["device", "host", "pinned-paged"])
+def test_cuda_stash_round_trip_with_work_in_flight(cuda, policy):
+    """Each layer's stash goes through the writer while matmuls are in
+    flight on the compute stream; the source tensors are dropped and their
+    memory asked for again at once and overwritten (the side stream's
+    copies must still read the old bytes); the reader brings every field
+    back one layer ahead with more work in flight: every byte as it was,
+    every packed view 16-byte aligned, the host store full after the
+    forward and empty after the walk, at most two layers on the card."""
+    from repro_torch.core.compressor import CompressionConfig, compress
+    from repro_torch.offload import engine as oe
+    from repro_torch.offload.arena import plan_stashes
+
+    n = 300_001          # odd: the segments after the first start unaligned
+    cfgs = (CompressionConfig(2, 256, 0), None, CompressionConfig(4, 64, 8))
+    shapes = ((n, 64), (n, 16), (n, 64))
+    masks = (n * 8, n * 3, 0)
+    plan = plan_stashes(shapes, cfgs, masks)
+    store = oe.ArenaStore(plan, policy, "cuda")
+    gen = torch.Generator("cuda").manual_seed(0)
+    writer, want = oe.make_writer(store, 3), []
+    for li, (shape, cfg) in enumerate(zip(shapes, cfgs)):
+        _busy()
+        x = torch.randn(shape, device="cuda", generator=gen)
+        words = torch.randint(-2**31, 2**31 - 1, (1, plan.layers[li].mask.size)
+                              if masks[li] else (1, 1), device="cuda",
+                              dtype=torch.int32, generator=gen)
+        if cfg is None:
+            want.append({"raw": x.clone()})
+            writer.put_raw(li, x)
+        else:
+            ct = compress(x, cfg, 77 + li)
+            want.append({"packed": ct.packed.clone(), "zero": ct.zero.clone(),
+                         "rng": ct.rng.clone(), "seed": ct.seed})
+            writer.put_ct(li, ct)
+            del ct
+        if masks[li]:
+            want[li]["mask"] = words.clone()
+            writer.put_mask(li, words)
+        del x, words
+        # the freed blocks, asked for again and overwritten right away
+        junk = [torch.full(shape, 7.0, device="cuda") for _ in range(2)]
+        del junk
+    residual = writer.residual()
+    del writer
+    torch.cuda.synchronize()
+    planned = plan.total_bytes if policy != "device" else 0
+    assert oe.host_store_bytes() == planned
+    if policy == "pinned-paged":
+        assert all(a.is_pinned() for a in residual.host.arenas)
+    reader = oe.make_reader(residual)
+    del residual
+    reader.prefetch(2)
+    for li in reversed(range(3)):
+        if li > 0:
+            reader.prefetch(li - 1)
+        _busy()
+        if masks[li]:
+            assert torch.equal(reader.get_mask(li), want[li]["mask"])
+        if cfgs[li] is None:
+            assert torch.equal(reader.get_raw(li), want[li]["raw"])
+        else:
+            ct = reader.get_ct(li)
+            assert ct.packed.data_ptr() % 16 == 0
+            assert ct.seed == want[li]["seed"]
+            for f in ("packed", "zero", "rng"):
+                assert torch.equal(getattr(ct, f), want[li][f]), (li, f)
+    torch.cuda.synchronize()
+    assert oe.host_store_bytes() == 0
+    assert store.misaligned_views == 0 and store.packed_views == 2
+    assert 0 < store.resident_peak <= oe.device_resident_stash_bytes(
+        plan, policy)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused,rp", [("auto", 8), ("auto", 0)])
+def test_cuda_offload_placements_bit_identical(cuda, fused, rp):
+    """train_gnn and train_gnn_batched under every placement on the card:
+    losses and params bit-identical to the per-tensor stash (rp_ratio 0
+    runs the fused backward on the packed words the reader hands back),
+    no misaligned packed view."""
+    from repro_torch.graph.train import train_gnn, train_gnn_batched
+
+    g, cfg, model = _small_batched_setup(rp)
+    for fn, kw in ((train_gnn, {}),
+                   (train_gnn_batched, dict(n_parts=2, shuffle=False))):
+        runs = {p: fn(g, cfg, n_epochs=2, params=model, fused=fused,
+                      offload=p, **kw)
+                for p in (None, "device", "host", "pinned-paged")}
+        for p in ("device", "host", "pinned-paged"):
+            assert [h[1] for h in runs[p]["history"]] == \
+                [h[1] for h in runs[None]["history"]], p
+            assert all(torch.equal(a, b) for a, b in zip(
+                runs[p]["model"].parameters(),
+                runs[None]["model"].parameters())), p
+            assert runs[p]["arena"]["misaligned_views"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["host", "pinned-paged"])
+def test_cuda_kv_host_policies_bit_equal_to_device(cuda, policy):
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "qwen1.5-4b", "--smoke", "--requests", "3",
+            "--max-batch", "2", "--prompt-len", "40", "--gen-len", "6",
+            "--kv-bits", "4"]
+    outs = {}
+    for p in ("device", policy):
+        eng, reqs = serve.build_engine(
+            serve.parser().parse_args(argv + ["--kv-policy", p]),
+            collect_logits=True)
+        outs[p] = eng.run(reqs)
+        if p == "pinned-paged":
+            assert all(t.is_pinned() for t in eng.pool.host.values())
+    for a, b in zip(outs["device"]["results"], outs[policy]["results"]):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+        np.testing.assert_array_equal(outs["device"]["logits"][a.rid],
+                                      outs[policy]["logits"][b.rid])

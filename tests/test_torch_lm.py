@@ -270,9 +270,19 @@ def test_serve_launcher_on_cpu():
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("policy", ["host", "pinned-paged"])
+def test_serve_launcher_kv_host_policies(policy):
+    """``--kv-policy host|pinned-paged`` serves the ``device`` policy's
+    tokens."""
+    argv = ["--arch", "qwen1.5-4b", "--smoke", "--device", "cpu",
+            "--requests", "3", "--max-batch", "2", "--prompt-len", "12",
+            "--gen-len", "5", "--kv-bits", "4"]
+    outs = t_serve.main(argv + ["--kv-policy", policy])
+    for a, b in zip(outs, t_serve.main(argv)):
+        np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("argv,error,match", [
-    (["--kv-policy", "host"], NotImplementedError, "A.8"),
-    (["--kv-policy", "pinned-paged"], NotImplementedError, "A.8"),
     (["--obs"], NotImplementedError, "A.10"),
     (["--arch", "mamba2-780m"], NotImplementedError, "A.11"),
 ])
