@@ -98,7 +98,28 @@ Phases, in order; any failure raises and exits non-zero:
    ``pinned-paged``: launches as planned, the pool on the host (pinned for
    ``pinned-paged``) with the layout's bytes, tokens and logits bit-equal
    to ``device``, TTFT, TPOT and peak memory of each;
-10. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+10. slice 12, the mesh engine, after phase 9 (a)-(d) on phase 4's graph,
+   config and weights: (a) ``train_gnn_mesh`` on one rank (8 bfs parts,
+   MESH_EPOCHS epochs) is ``train_gnn_batched(shuffle=False)`` bit for bit
+   (batches of BATCH_NODES x BATCH_EDGES, 8 rounds an epoch, launches as
+   planned, the live stash equal to the mesh ledger, the pager hitting
+   every round with a round of BATCH_NODES x 128 floats, epoch times and
+   peak memory beside the batched engine's), one profiled round, and a
+   round's parts timed apart (``round_shares``: the pager's fetch and
+   prefetch, the per-op forward and backward against ``_StashGNN``'s); (b)
+   one partition with tight padding is ``train_gnn`` bit for bit; then two
+   ranks sharing the card over gloo (``repro_torch.parallel.run_ranks``:
+   spawned, a FileStore, every wait bounded by RANKS_TIMEOUT, the kernels
+   built here first): (c) ``n_parts = m = 2`` uncompressed for 2 epochs,
+   within rtol 2e-4 / atol 2e-5 of ``train_gnn`` (no edge dropped, a halo
+   width above 0, the bytes sent the program's); (d) 8 compressed parts in
+   4 rounds for MESH_EPOCHS epochs: a falling loss, each rank's stash the
+   ledger, the bytes sent ``halo_bytes_per_epoch`` an epoch, the pager
+   hitting, launches as planned, and one profiled round on rank 0 (the
+   exchange's device copies and host time); (e) ``train_gnn_batched`` over
+   the two ranks is ``grad_accum=2`` in one process bit for bit.  Both
+   ranks end every run with bit-equal parameters;
+11. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX; without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -1651,6 +1672,371 @@ def slice_offload(torch, g, cfg, cfg0, model0, wrappers) -> dict:
     return dict(total)
 
 
+# ---------------------------------------------------- phase 10: the mesh
+MESH_EPOCHS = 3
+#: Seconds phase 10's two ranks may take in all, start-up included, before
+#: they are killed and the phase fails; a collective waits as long.
+RANKS_TIMEOUT = 300.0
+#: The uncompressed two-rank run (c) against train_gnn (the reference's
+#: gate, tests/test_parallel.py): the halo rows are summed in another order.
+MESH_RTOL, MESH_ATOL = 2e-4, 2e-5
+#: Kernel-name fragments of the exchange's work on the card (gloo stages
+#: CUDA tensors through host memory) and of the collectives on the host.
+COPY_KEYS = ("Memcpy", "memcpy")
+COLLECTIVE_KEYS = ("all_to_all", "alltoall", "all_reduce", "allreduce",
+                   "gloo")
+
+
+def mesh_ledger(g, cfg, n_parts: int, n_nodes: int) -> list:
+    """A rank's stash per layer: the mesh section of
+    activation_memory_report at the run's padded partition."""
+    from repro_torch.engine.plan import ExecutionPlan, SamplingPolicy
+    from repro_torch.graph.train import activation_memory_report
+
+    plan = ExecutionPlan(sampling=SamplingPolicy(kind="mesh",
+                                                 n_parts=n_parts))
+    rep = activation_memory_report(g, cfg, plan=plan, batch_nodes=n_nodes)
+    return [r["compressed_bytes"] for r in rep["mesh"]["per_layer"]]
+
+
+def mesh_compiled(g, cfg, model, n_parts: int, group=None,
+                  kind: str = "mesh"):
+    """A CompiledMesh of ``n_parts`` bfs partitions on ``group`` (or, with
+    ``kind="partition"``, the batched engine's CompiledPartition of the
+    same partitions, unshuffled)."""
+    from repro_torch.engine.compile import compile_plan
+    from repro_torch.engine.plan import ExecutionPlan, SamplingPolicy
+    from repro_torch.optim import AdamWConfig
+
+    plan = ExecutionPlan(sampling=SamplingPolicy(kind=kind, n_parts=n_parts,
+                                                 shuffle=False))
+    return compile_plan(g, cfg, plan, model, AdamWConfig(lr=5e-3), "cuda",
+                        mesh=group)
+
+
+def round_shares(torch, g, cfg, model) -> dict:
+    """Where a one-rank mesh round's time beyond a batched update goes
+    (both are host-bound): over the 8 partitions of an epoch, after a
+    warm-up epoch, the wall time of the pager's fetch and next prefetch
+    alone, and of one forward and backward through the mesh's per-op stack
+    and through the engine's ``_StashGNN`` on the same partition and SR
+    seed; each part starts and ends with a sync.  Means in ms."""
+    from repro_torch.engine import seeds
+    from repro_torch.engine.compile import masked_nll
+    from repro_torch.engine.forward import mesh_gnn_forward
+
+    mesh = mesh_compiled(g, cfg, copy.deepcopy(model), 8)
+    part = mesh_compiled(g, cfg, copy.deepcopy(model), 8, kind="partition")
+    params = mesh.model.flat_params()
+    times = {"pager": [], "per-op": [], "stash": []}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[key].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def fetch(r):
+        feats = mesh.pager.fetch(r)
+        mesh.pager.prefetch((r + 1) % mesh.rounds)
+        return feats
+
+    def per_op(feats, t, seed):
+        logits, _, _ = mesh_gnn_forward(mesh.model, feats, t, cfg, seed=seed)
+        return torch.autograd.grad(
+            masked_nll(logits, t.labels, t.train_mask), params)
+
+    for epoch in range(2):
+        for v in times.values():
+            v.clear()
+        for r in range(mesh.rounds):
+            seed = seeds.sr_seed(seeds.batch_ordinals(epoch, 8, r, 1, 0,
+                                                      1)[0])
+            feats = timed("pager", lambda: fetch(r))
+            timed("per-op", lambda: per_op(feats, mesh.tables[r], seed))
+            timed("stash", lambda: part._micro(part.graphs[r], seed))
+    means = {k: statistics.mean(v) for k, v in times.items()}
+    log(f"[mesh m=1] a round's parts, ms (mean of 8): pager fetch + "
+        f"prefetch {means['pager']:.3f} ({mesh.pager.n_pages} pages); "
+        f"forward + backward per-op {means['per-op']:.3f} against "
+        f"_StashGNN {means['stash']:.3f}")
+    return means
+
+
+def profile_round(torch, compiled, what: str) -> dict:
+    """One profiled mesh round after a warm-up round (profile_call), and
+    the exchange's share of it: the device's copy time (gloo's staging of
+    CUDA tensors) and the host time inside the collectives."""
+    from torch.profiler import ProfilerActivity, profile
+
+    compiled.round(0, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        compiled.round(0, 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    rows = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.count, e.key)
+            for e in events
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    copy_ms = sum(r[0] for r in rows if any(k in r[2] for k in COPY_KEYS))
+    host = [(e.cpu_time_total / 1e3, e.count, e.key) for e in events
+            if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA
+            and any(k in e.key.lower() for k in COLLECTIVE_KEYS)]
+    host.sort(reverse=True)
+    return {"what": what, "wall_ms": wall_ms, "busy_ms": busy,
+            "idle_share": 1 - busy / wall_ms, "copy_ms": copy_ms,
+            "rows": rows[:12] + [r for r in rows[12:]
+                                 if any(k in r[2] for k in OWN_KERNELS)],
+            "collectives": host[:8]}
+
+
+def log_round(prof: dict) -> None:
+    log(f"profiled {prof['what']}: wall {prof['wall_ms']:.3f} ms, device "
+        f"busy {prof['busy_ms']:.3f} ms, idle share "
+        f"{prof['idle_share']:.3f}; device copies {prof['copy_ms']:.3f} ms")
+    log_profile(prof["rows"], 12)
+    for ms, count, key in prof["collectives"]:
+        log(f"  host {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+
+
+def mesh_rank(rank: int, world: int, g, cfg, raw, state: dict) -> dict:
+    """Phase 10 (c)-(e) on one of two ranks sharing the card (gloo):
+    launch counts set to 0 before each run and read after it, each run's
+    losses, parameters, stash, exchange bytes, pager stats, epoch times and
+    peak memory; rank 0 also profiles one round of (d)."""
+    import copy as copy_mod
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.graph.models import GNN
+    from repro_torch.graph.train import train_gnn_batched, train_gnn_mesh
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_matmul as fk
+    from repro_torch.kernels import quant_blockwise as qk
+    from repro_torch.kernels import rp_matmul as rk
+
+    wrappers = (qk.quant_pack, qk.dequant_unpack, rk.rp_project,
+                rk.irp_project, fk.matmul_quant, fk.dequant_matmul,
+                fa.flash_attention)
+    group = dist.group.WORLD
+    model0 = GNN(cfg, g.n_feats)
+    model0.load_state_dict(state)
+
+    def counted(fn) -> dict:
+        for w in wrappers:
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out = {"seconds": time.perf_counter() - t0,
+               "launches": {w.__name__: w.launches for w in wrappers},
+               "peak": torch.cuda.max_memory_allocated(),
+               "losses": [h[1] for h in res["history"]],
+               "ms": [h[2] for h in res["history"]],
+               "params": [p.detach().cpu() for p in
+                          res["model"].parameters()]}
+        out.update({k: res[k] for k in (
+            "stash_bytes", "halo_bytes_sent", "halo_bytes_per_epoch",
+            "halo_width", "dropped_edges", "halo_edges", "batch_nodes",
+            "batch_edges", "updates_per_epoch", "mesh_devices", "pager",
+            "val_acc", "test_acc") if k in res})
+        return out
+
+    out = {"c": counted(lambda: train_gnn_mesh(
+        g, raw, 2, n_epochs=2, seed=0, params=model0, mesh=group))}
+    out["d"] = counted(lambda: train_gnn_mesh(
+        g, cfg, 8, n_epochs=MESH_EPOCHS, seed=0, params=model0, mesh=group))
+    compiled = mesh_compiled(g, cfg, copy_mod.deepcopy(model0).cuda(), 8,
+                             group)
+    if rank == 0:
+        out["profile"] = profile_round(torch, compiled,
+                                       "mesh round (2 ranks, rank 0)")
+    else:
+        compiled.round(0, 0)
+        compiled.round(0, 1)
+    del compiled
+    out["e"] = counted(lambda: train_gnn_batched(
+        g, cfg, 8, n_epochs=2, seed=0, params=model0, mesh=group,
+        shuffle=False))
+    return out
+
+
+def slice_mesh(torch, g, cfg, model0, wrappers) -> dict:
+    """Phase 10: the mesh engine on phase 4's graph, config and weights
+    (the module docstring lists (a)-(e)).  Returns the launch counts
+    summed over the counted runs, both ranks' included."""
+    from repro_torch.graph.models import GNNConfig
+    from repro_torch.graph.train import (train_gnn, train_gnn_batched,
+                                         train_gnn_mesh)
+    from repro_torch.parallel import run_ranks
+
+    total = collections.Counter()
+
+    def same(a, b) -> bool:
+        return ([h[1] for h in a["history"]] == [h[1] for h in b["history"]]
+                and all(torch.equal(p, q) for p, q in
+                        zip(a["model"].parameters(), b["model"].parameters())))
+
+    # (a) one rank: the 8 bfs partitions are the batched engine's batches
+    steps = 8 * MESH_EPOCHS
+    mesh, counts, mesh_peak = counted_run(
+        torch, wrappers, planned(3, 3, steps), "mesh m=1",
+        lambda: train_gnn_mesh(g, cfg, 8, n_epochs=MESH_EPOCHS, seed=0,
+                               params=model0, method="bfs"))
+    total.update(counts)
+    batched, counts, batched_peak = counted_run(
+        torch, wrappers, planned(3, 3, steps), "mesh m=1: batched",
+        lambda: train_gnn_batched(g, cfg, 8, n_epochs=MESH_EPOCHS, seed=0,
+                                  params=model0, shuffle=False))
+    total.update(counts)
+    if not same(mesh, batched):
+        raise AssertionError("[mesh m=1] differs from train_gnn_batched("
+                             "shuffle=False)")
+    log("[mesh m=1] losses and params bit-identical to train_gnn_batched("
+        "shuffle=False)")
+    got = (mesh["n_parts"], mesh["batch_nodes"], mesh["batch_edges"],
+           mesh["updates_per_epoch"], mesh["mesh_devices"])
+    if got != (8, BATCH_NODES, BATCH_EDGES, 8, 1):
+        raise AssertionError(f"[mesh m=1] n_parts, padded shape, rounds, "
+                             f"ranks {got}")
+    want = mesh_ledger(g, cfg, 8, BATCH_NODES)
+    check_run(mesh, want, "mesh m=1")
+    if want != BATCH_LEDGER:
+        raise AssertionError(f"[mesh m=1] ledger {want}")
+    st = mesh["pager"]
+    log(f"[mesh m=1] pager {st}")
+    if not (st["fetches"] == st["prefetch_hits"] == steps
+            and st["round_bytes"] == BATCH_NODES * 128 * 4):
+        raise AssertionError("[mesh m=1] pager fetches, hits or round bytes")
+    log(f"[mesh m=1] epochs ms {[round(h[2], 3) for h in mesh['history']]}"
+        f" against the batched engine's "
+        f"{[round(h[2], 3) for h in batched['history']]}; "
+        f"max_memory_allocated {mesh_peak} against {batched_peak} bytes")
+    compiled = mesh_compiled(g, cfg, copy.deepcopy(mesh["model"]), 8)
+    rounds = iter(range(2))
+    profile_call(torch, lambda: compiled.round(0, next(rounds)),
+                 "mesh round (1 rank)", top=12)
+    del compiled
+    round_shares(torch, g, cfg, mesh["model"])
+    del mesh, batched
+
+    # (b) one partition, tight padding: train_gnn bit for bit
+    (full, one), counts, _ = counted_run(
+        torch, wrappers, planned(3, 3, steps=4), "mesh one partition",
+        lambda: (train_gnn(g, cfg, n_epochs=2, seed=0, params=model0),
+                 train_gnn_mesh(g, cfg, 1, n_epochs=2, seed=0,
+                                params=model0, node_multiple=1,
+                                edge_multiple=1)))
+    total.update(counts)
+    if not same(full, one) or one["batch_nodes"] != N_NODES:
+        raise AssertionError("[mesh one partition] differs from train_gnn")
+    log("[mesh one partition] losses and params bit-identical to "
+        "train_gnn")
+    del full, one
+
+    # (c)-(e) two ranks sharing the card over gloo
+    raw = GNNConfig(arch="sage", hidden=(256, 256), n_classes=40,
+                    compression=None)
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_rank, 2, (g, cfg, raw, model0.state_dict()),
+                      backend="gloo", timeout=RANKS_TIMEOUT)
+    log(f"[mesh 2 ranks] (c)-(e) in {time.perf_counter() - t0:.1f} s, "
+        "start-up included")
+    for part in ("c", "d", "e"):
+        for rank, res in enumerate(ranks):
+            r = res[part]
+            log(f"[mesh 2 ranks ({part}) rank {rank}] losses {r['losses']} "
+                f"epoch ms {[round(x, 3) for x in r['ms']]} in "
+                f"{r['seconds']:.1f} s; launches {r['launches']}; "
+                f"max_memory_allocated {r['peak']} bytes; "
+                + ", ".join(f"{k} {r[k]}" for k in (
+                    "halo_width", "halo_edges", "dropped_edges",
+                    "halo_bytes_sent", "halo_bytes_per_epoch", "batch_nodes",
+                    "stash_bytes", "val_acc") if k in r))
+        a, b = ranks[0][part], ranks[1][part]
+        if not all(torch.equal(p, q) for p, q in zip(a["params"],
+                                                     b["params"])):
+            raise AssertionError(f"[mesh 2 ranks ({part})] the ranks' "
+                                 "parameters differ")
+        for name in counts:
+            total[name] += a["launches"][name] + b["launches"][name]
+
+    # (c) n_parts = m = 2, uncompressed: within the band of train_gnn
+    c0, c1 = ranks[0]["c"], ranks[1]["c"]
+    ref, counts, _ = counted_run(
+        torch, wrappers, planned(0, 0, 2), "mesh (c) train_gnn",
+        lambda: train_gnn(g, raw, n_epochs=2, seed=0, params=model0))
+    err = max(float((p.cpu() - q.detach().cpu()).abs().max())
+              for p, q in zip(c0["params"], ref["model"].parameters()))
+    if not all(torch.allclose(p, q.detach().cpu(), rtol=MESH_RTOL,
+                              atol=MESH_ATOL)
+               for p, q in zip(c0["params"], ref["model"].parameters())):
+        raise AssertionError(f"[mesh 2 ranks (c)] params outside rtol "
+                             f"{MESH_RTOL} / atol {MESH_ATOL} of train_gnn "
+                             f"(max abs diff {err})")
+    launched = {k: c0["launches"][k] + c1["launches"][k] for k in counts}
+    if (c0["dropped_edges"] != 0 or c0["halo_width"] <= 0
+            or c0["halo_bytes_sent"] + c1["halo_bytes_sent"]
+            != 2 * c0["halo_bytes_per_epoch"]
+            or launched != planned(0, 0, 0)):
+        raise AssertionError("[mesh 2 ranks (c)] dropped edges, halo width, "
+                             "bytes sent or launches")
+    log(f"[mesh 2 ranks (c)] within rtol {MESH_RTOL} / atol {MESH_ATOL} of "
+        f"train_gnn (max abs diff {err}); losses {c0['losses']} against "
+        f"{[h[1] for h in ref['history']]}; train_gnn epochs ms "
+        f"{[round(h[2], 3) for h in ref['history']]}")
+    del ref
+
+    # (d) 8 compressed partitions, 4 rounds
+    d0, d1 = ranks[0]["d"], ranks[1]["d"]
+    for rank, d in enumerate((d0, d1)):
+        want = mesh_ledger(g, cfg, 8, d["batch_nodes"])
+        st = d["pager"]
+        log(f"[mesh 2 ranks (d) rank {rank}] ledger {want}; pager {st}")
+        if not (d["stash_bytes"] == want and d["updates_per_epoch"] == 4
+                and st["fetches"] == st["prefetch_hits"] == 4 * MESH_EPOCHS
+                and all(map(math.isfinite, d["losses"]))
+                and d["losses"][-1] < d["losses"][0]):
+            raise AssertionError(f"[mesh 2 ranks (d) rank {rank}] stash, "
+                                 "rounds, pager or losses")
+    launched = {k: d0["launches"][k] + d1["launches"][k] for k in counts}
+    if (d0["halo_bytes_sent"] + d1["halo_bytes_sent"]
+            != MESH_EPOCHS * d0["halo_bytes_per_epoch"]
+            or launched != planned(3, 3, 8 * MESH_EPOCHS)):
+        raise AssertionError(f"[mesh 2 ranks (d)] bytes sent or launches "
+                             f"{launched}")
+    log_round(ranks[0]["profile"])
+
+    # (e) two data-parallel ranks: grad_accum=2 in one process, bit for bit
+    e0, e1 = ranks[0]["e"], ranks[1]["e"]
+    one, counts, _ = counted_run(
+        torch, wrappers, planned(3, 3, 16), "mesh (e) grad_accum=2",
+        lambda: train_gnn_batched(g, cfg, 8, n_epochs=2, seed=0,
+                                  params=model0, grad_accum=2,
+                                  shuffle=False))
+    launched = {k: e0["launches"][k] + e1["launches"][k] for k in counts}
+    if not (e0["losses"] == [h[1] for h in one["history"]]
+            and all(torch.equal(p, q.detach().cpu()) for p, q in
+                    zip(e0["params"], one["model"].parameters()))
+            and launched == planned(3, 3, 16)):
+        raise AssertionError("[mesh 2 ranks (e)] differs from grad_accum=2 "
+                             f"in one process (launches {launched})")
+    log("[mesh 2 ranks (e)] losses and params bit-identical to "
+        "train_gnn_batched(grad_accum=2, shuffle=False) in one process; "
+        f"its epochs ms {[round(h[2], 3) for h in one['history']]}")
+    return dict(total)
+
+
 #: Phase 9 (e): phase 8's recipe on 2 requests of 1000 + 8 tokens, 2 slots.
 SERVE9_ARGV = ["--arch", "qwen1.5-4b", "--requests", "2", "--max-batch", "2",
                "--prompt-len", "1000", "--gen-len", "8", "--kv-bits", "4",
@@ -1876,6 +2262,13 @@ def main() -> int:
                                  wrappers).items():
         launches[name] += n
     log(f"phase 9 (a)-(d): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 10. slice 12: the mesh engine, one rank and two sharing the card
+    t0 = time.perf_counter()
+    for name, n in slice_mesh(torch, g, cfg, model0, wrappers).items():
+        launches[name] += n
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
     del g, model0
     torch.cuda.empty_cache()
 

@@ -1,7 +1,8 @@
 """Plan, compile, execute: the GNN training engine.  An
 :class:`ExecutionPlan` composes the sampling (full graph | padded
-partition batches), precision (fixed | autoprec), stash and kernel
-policies; :func:`compile_plan` builds the step and :func:`run` drives it.
+partition batches | mesh-sharded partitions), precision (fixed |
+autoprec), stash and kernel policies; :func:`compile_plan` builds the step
+and :func:`run` drives it.
 
 :mod:`~repro_torch.engine.plan` and :mod:`~repro_torch.engine.seeds` load
 eagerly; the compiler and runtime import the graph package and resolve
@@ -20,6 +21,7 @@ _LAZY = {
     "compile_plan": "repro_torch.engine.compile",
     "masked_nll": "repro_torch.engine.compile",
     "stash_gnn_forward": "repro_torch.engine.forward",
+    "mesh_gnn_forward": "repro_torch.engine.forward",
     "AutoprecController": "repro_torch.engine.precision",
 }
 

@@ -26,12 +26,16 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.act_compress import compressed_linear
+from repro_torch.core.act_compress import stash_nbytes as linear_nbytes
 from repro_torch.core.compressor import compress_matmul, decompress_matmul
 from repro_torch.engine import seeds
-from repro_torch.graph.models import (DeviceGraph, GNNConfig, relu_mask,
-                                      spmm, unpack_relu_mask)
+from repro_torch.graph.models import (DeviceGraph, GNNConfig, aggregate,
+                                      relu_1bit, relu_mask, spmm,
+                                      unpack_relu_mask)
 from repro_torch.offload import engine as stash_engine
 from repro_torch.offload.engine import ArenaStore
+from repro_torch.parallel.halo import halo_exchange
 
 
 class _StashGNN(torch.autograd.Function):
@@ -142,3 +146,55 @@ def stash_nbytes(logits: torch.Tensor) -> list[int]:
     :func:`stash_gnn_forward`): per-tensor, counted from the tensors the
     step holds; in an arena, the plan's per-layer bytes."""
     return list(logits.grad_fn.stash_bytes)
+
+
+# ------------------------------------------------------------ mesh forward
+def mesh_gnn_forward(model, feats: torch.Tensor, tables, cfg: GNNConfig, *,
+                     seed: int, group=None):
+    """One rank's slice of the mesh-sharded GNN forward: the layer math of
+    :func:`stash_gnn_forward` composed from the per-op Functions
+    (:func:`~repro_torch.core.act_compress.compressed_linear`,
+    :func:`~repro_torch.graph.models.relu_1bit`,
+    :func:`~repro_torch.graph.models.aggregate`), with the same operations
+    in the same order, so a world of one rank gives the engine's bits; and
+    before each aggregation :func:`~repro_torch.parallel.halo.halo_exchange`
+    extends the aggregated tensor with the round-mates' boundary rows.  GCN
+    exchanges the biased pre-aggregation output, SAGE ``h`` ahead of its
+    mean aggregation.  ``tables`` is the rank's
+    :class:`~repro_torch.parallel.halo.HaloRound`.
+
+    Returns the logits, each layer's stash bytes (the compressed or raw
+    linear input and, on hidden layers, the packed ReLU mask: only local
+    rows are stashed, so the stash plan is ``plan_gnn_stashes`` at the
+    partition's padded node count) and the bytes this rank's
+    exchanges sent (its ``(m, H, F)`` send buffers)."""
+    per_layer = cfg.layer_compression()
+    params = list(zip(model.weights, model.biases))
+    nm = tables.node_mask[:, None]
+    sent = 0
+
+    def exchange(t):
+        nonlocal sent
+        out = halo_exchange(t, tables.send_idx, tables.back, group)
+        # the strip holds as many rows as the send buffer
+        sent += (out.shape[0] - t.shape[0]) * t.shape[1] * t.element_size()
+        return out
+
+    h = feats * nm
+    stash = []
+    for li, (w, b) in enumerate(params):
+        lseed = seeds.layer_seed(seed, li)
+        if cfg.arch == "gcn":
+            z = compressed_linear(h, w, b, lseed, per_layer[li])
+            nbytes = linear_nbytes(z)
+            z = aggregate(exchange(z), tables.adj)
+        else:
+            x = torch.cat([h, aggregate(exchange(h), tables.adj)], dim=1)
+            z = compressed_linear(x, w, b, lseed, per_layer[li])
+            nbytes = linear_nbytes(z)
+        if li < len(params) - 1:
+            z = relu_1bit(z)
+            nbytes += z.grad_fn.saved_tensors[0].numel() * 4
+        stash.append(nbytes)
+        h = z * nm
+    return h, stash, sent

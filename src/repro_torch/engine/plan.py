@@ -3,9 +3,10 @@ points and the engine (the reference's ``repro.engine.plan``).
 
 A plan composes orthogonal policies:
 
-* :class:`SamplingPolicy`: what is live at once, the full graph or padded
+* :class:`SamplingPolicy`: what is live at once, the full graph, padded
   partition-sampled subgraph batches (Cluster-GCN flavour) with their
-  bucketing / halo / shuffle / grad-accum knobs;
+  bucketing / halo / shuffle / grad-accum knobs, or partitions sharded over
+  the ranks of a process group (mesh);
 * :class:`PrecisionPolicy`: the widths the ``GNNConfig`` carries, or an
   autoprec byte budget with a refresh cadence;
 * :class:`StashPolicy`: how saved-for-backward state is stored;
@@ -16,9 +17,8 @@ A plan composes orthogonal policies:
 :meth:`ExecutionPlan.from_legacy` and hand it to
 :func:`repro_torch.engine.runner.run`.  Plans are frozen and hashable.
 
-Not ported yet, and raising where they are asked for: mesh sampling
-(``SamplingPolicy(kind="mesh")``, ROADMAP A.9) and the observability
-policy (``obs``, A.10).
+Not ported yet, and raising where it is asked for: the observability
+policy (``obs``, ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from repro_torch.core.backend import VALID_FUSED
 from repro_torch.kernels.ops import VALID_IMPLS
 from repro_torch.offload.engine import POLICIES
 
-SAMPLING_KINDS = ("full", "partition")
+SAMPLING_KINDS = ("full", "partition", "mesh")
 PRECISION_KINDS = ("fixed", "autoprec")
 CALIBRATION_KINDS = ("probe", "obs")
 STASH_KINDS = ("tensor", "arena")
@@ -38,13 +38,25 @@ STASH_PLACEMENTS = POLICIES
 
 @dataclasses.dataclass(frozen=True)
 class SamplingPolicy:
-    """Full-graph, or partition-sampled padded mini-batches
+    """Full-graph, partition-sampled padded mini-batches
     (:func:`repro_torch.graph.sampling.make_subgraph_batches` takes
     ``method``, ``halo``, the bucket multiples and ``renormalize``;
     ``shuffle`` redraws the batch order each epoch; ``grad_accum`` batches
-    make one optimizer update)."""
+    make one optimizer update), or mesh-sharded partition-parallel training.
 
-    kind: str = "full"            # "full" | "partition"
+    ``kind="mesh"`` shards the ``n_parts`` partitions over the ``m`` ranks of
+    a process group (``m`` must divide ``n_parts``) and trains them in
+    ``n_parts // m`` rounds with a per-layer halo exchange between the
+    round's co-resident partitions (:mod:`repro_torch.parallel.halo`); the
+    features stay in host memory behind
+    :class:`repro_torch.offload.pager.FeaturePager`.  ``m == 1`` is exactly
+    the partition engine (static round order, one partition live at a
+    time); ``m == n_parts`` is exact distributed full-graph training.  The
+    ``halo``/``renormalize``/``grad_accum``/``shuffle`` knobs belong to the
+    partition engine: mesh halo context is structural (the exchange), and
+    rounds run one update each in static order."""
+
+    kind: str = "full"            # "full" | "partition" | "mesh"
     n_parts: int = 1
     method: str = "bfs"           # "bfs" | "random"
     halo: int = 0
@@ -56,10 +68,6 @@ class SamplingPolicy:
 
     def __post_init__(self):
         # errors name the offending field as ``policy.field=value``
-        if self.kind == "mesh":
-            raise NotImplementedError(
-                "sampling.kind='mesh': the mesh engine is not ported yet "
-                "(ROADMAP A.9)")
         if self.kind not in SAMPLING_KINDS:
             raise ValueError(f"sampling.kind={self.kind!r} not in "
                              f"{SAMPLING_KINDS}")
@@ -73,6 +81,23 @@ class SamplingPolicy:
                              "incompatible with sampling.kind='full' "
                              "(full-graph sampling has exactly one "
                              "partition)")
+        if self.kind == "mesh":
+            if self.grad_accum != 1:
+                raise ValueError(f"sampling.grad_accum={self.grad_accum} is "
+                                 "incompatible with sampling.kind='mesh' "
+                                 "(mesh rounds run one update each; "
+                                 "grad_accum needs kind='partition')")
+            if self.halo != 0:
+                raise ValueError(f"sampling.halo={self.halo} is incompatible "
+                                 "with sampling.kind='mesh' (mesh halo "
+                                 "context is structural: the per-layer "
+                                 "exchange; the sampling halo knob applies "
+                                 "to kind='partition' only)")
+            if self.renormalize:
+                raise ValueError("sampling.renormalize=True is incompatible "
+                                 "with sampling.kind='mesh' (mesh slices "
+                                 "full-graph aggregation weights; "
+                                 "renormalize needs kind='partition')")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,8 +244,12 @@ class ExecutionPlan:
     def describe(self) -> str:
         """One-line summary for logs."""
         s = self.sampling
-        samp = ("full-graph" if s.kind == "full"
-                else f"partition x{s.n_parts} ({s.method}, halo={s.halo})")
+        if s.kind == "full":
+            samp = "full-graph"
+        elif s.kind == "mesh":
+            samp = f"mesh x{s.n_parts} ({s.method})"
+        else:
+            samp = f"partition x{s.n_parts} ({s.method}, halo={s.halo})"
         prec = ("fixed" if self.precision.kind == "fixed"
                 else f"autoprec {self.precision.bit_budget} bits/elt "
                      f"(refresh {self.precision.refresh})")

@@ -30,7 +30,7 @@ def _accuracy(model: GNN, graph, mask: torch.Tensor) -> float:
 def run(g, cfg: GNNConfig, plan: ExecutionPlan | None = None,
         opt: AdamWConfig | None = None, *, n_epochs: int = 100,
         seed: int = 0, params: GNN | None = None, device="cuda",
-        batches=None) -> dict:
+        batches=None, mesh=None) -> dict:
     """Train ``cfg`` on ``g`` under ``plan`` (default: full graph, fixed
     precision); returns ``test_acc``, ``val_acc`` (full graph, final
     weights), ``history`` (one ``(epoch, loss, ms)`` per epoch: the epoch's
@@ -41,8 +41,13 @@ def run(g, cfg: GNNConfig, plan: ExecutionPlan | None = None,
     last step ran) and ``plan``; a partition plan adds ``n_parts``,
     ``updates_per_epoch``, ``batch_nodes`` and ``batch_edges``, and an
     arena stash policy ``arena`` (the plan's bytes and the readers' gauges:
-    :meth:`repro_torch.offload.engine.ArenaStore.stats`).  ``batches`` (prebuilt subgraph batches) skips a partition plan's
-    sampling pass.
+    :meth:`repro_torch.offload.engine.ArenaStore.stats`), and a mesh plan
+    the mesh extras (``CompiledMesh.result_extras``).  ``batches``
+    (prebuilt subgraph batches) skips a partition plan's sampling pass.
+    ``mesh`` is a ``torch.distributed`` process group: a partition plan's
+    batches are spread over its ranks (data parallel), a mesh plan's
+    partitions trained on them; every rank calls ``run`` alike and ends
+    with the same model, evaluated on the full graph.
 
     Autoprec (``plan.precision.kind == "autoprec"``) runs in the
     reference's order: allocate on the compiled step's calibration unit and
@@ -59,7 +64,7 @@ def run(g, cfg: GNNConfig, plan: ExecutionPlan | None = None,
                      generator=torch.Generator().manual_seed(seed))
     model = copy.deepcopy(params).to(device)
     compiled = compile_plan(g, cfg, plan, model, opt, device,
-                            batches=batches, seed=seed)
+                            batches=batches, mesh=mesh, seed=seed)
     ctrl = None
     if plan.precision.kind == "autoprec":
         ctrl = AutoprecController(compiled.calibration(), cfg,

@@ -89,11 +89,16 @@ class Adjacency:
     bwd: CSR
 
 
-def adjacency(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
-              n_nodes: int, device) -> Adjacency:
-    s, d, w = src.numpy(), dst.numpy(), w.numpy()
+def adjacency(src, dst, w, n_nodes: int, device,
+              n_src: int | None = None) -> Adjacency:
+    """A over ``n_nodes`` output rows from CPU edge arrays (tensors or numpy).
+    ``n_src`` (default ``n_nodes``) is the input's row count: the mesh
+    engine's sources also index the halo strip below the local rows, so its
+    A is ``n_nodes x n_src`` and the transpose ``n_src x n_nodes``."""
+    s, d, w = (np.asarray(a) for a in (src, dst, w))
     return Adjacency(fwd=_csr(d, s, w, n_nodes, device),
-                     bwd=_csr(s, d, w, n_nodes, device))
+                     bwd=_csr(s, d, w, n_nodes if n_src is None else n_src,
+                              device))
 
 
 def spmm(h: torch.Tensor, a: CSR) -> torch.Tensor:
@@ -110,6 +115,50 @@ def spmm(h: torch.Tensor, a: CSR) -> torch.Tensor:
         out[r0:r1] = torch.segment_reduce(m, "sum", offsets=offsets, axis=0)
         del m  # else the next run's gather is allocated while this one lives
     return out
+
+
+class _Aggregate(torch.autograd.Function):
+    """``spmm`` with its transpose as the backward; it saves nothing (A is a
+    graph constant).  Autograd through ``index_select`` would differentiate
+    by an atomic ``index_add_``, whose sums vary from run to run on CUDA."""
+
+    @staticmethod
+    def forward(ctx, h, adj: Adjacency):
+        ctx.adj = adj
+        return spmm(h, adj.fwd)
+
+    @staticmethod
+    def backward(ctx, g):
+        return spmm(g, ctx.adj.bwd), None
+
+
+def aggregate(h: torch.Tensor, adj: Adjacency) -> torch.Tensor:
+    """The differentiable A-product of the per-op stack (the reference's
+    ``spmm`` under autodiff): ``spmm(h, adj.fwd)`` forward and
+    ``spmm(g, adj.bwd)`` backward, both deterministic."""
+    return _Aggregate.apply(h, adj)
+
+
+class _Relu1Bit(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, z):
+        mask = relu_mask(z)
+        ctx.save_for_backward(mask)
+        ctx.shape = z.shape
+        return torch.relu(z)
+
+    @staticmethod
+    def backward(ctx, g):
+        (mask,) = ctx.saved_tensors
+        return g * unpack_relu_mask(mask, ctx.shape).to(g.dtype)
+
+
+def relu_1bit(z: torch.Tensor) -> torch.Tensor:
+    """ReLU whose backward reads only the packed 1-bit sign mask of ``z``
+    (:func:`relu_mask`), the reference's ``relu_1bit``: 32 elements a word
+    saved instead of the f32 input."""
+    return _Relu1Bit.apply(z)
 
 
 # ----------------------------------------------------------------- model

@@ -1,12 +1,14 @@
 """GNN training entry points over the engine (:mod:`repro_torch.engine`):
 full-graph training (the paper's Table 1 loop), partition-sampled
-mini-batch training (Cluster-GCN flavour), and the Table-1 "M" column with
-its mini-batch section (:func:`activation_memory_report`).  Each entry point
+mini-batch training (Cluster-GCN flavour, data parallel over a process
+group), mesh-sharded partition-parallel training, and the Table-1 "M"
+column with its mini-batch and mesh sections
+(:func:`activation_memory_report`).  Each entry point
 builds an :class:`~repro_torch.engine.plan.ExecutionPlan` from its keywords
 and hands it to :func:`repro_torch.engine.runner.run`."""
 from __future__ import annotations
 
-from repro_torch.engine.plan import ExecutionPlan
+from repro_torch.engine.plan import ExecutionPlan, KernelPolicy, SamplingPolicy
 from repro_torch.graph.analysis import saved_bytes_per_layer
 from repro_torch.graph.data import Graph
 from repro_torch.graph.models import GNN, GNNConfig
@@ -103,24 +105,26 @@ def train_gnn_batched(g: Graph, cfg: GNNConfig, n_parts: int,
                  batch, so its byte ceiling is per batch, and an arena is
                  planned over one padded batch's rows.
 
+    mesh         a ``torch.distributed`` process group of ``dp`` ranks
+                 (every rank calls alike): each update takes ``dp *
+                 grad_accum`` batches, rank ``i`` the positions ``a * dp +
+                 i``, and the gradients are summed over the ranks before
+                 the one AdamW update every rank takes.  ``n_parts`` must
+                 be a multiple of ``dp * grad_accum``; the host offload
+                 placements need ``dp == 1``.
+
     The batch at position ``p`` of epoch ``e`` stashes with ``sr_seed(e *
     n_parts + p)``, so ``n_parts=1`` with ``node_multiple=1,
-    edge_multiple=1`` is :func:`train_gnn` bit for bit.  Evaluation runs on
-    the full graph with the final weights.  Returns the :func:`train_gnn`
+    edge_multiple=1`` is :func:`train_gnn` bit for bit, and two ranks are
+    one process at ``grad_accum=2`` bit for bit.  Evaluation runs on the
+    full graph with the final weights.  Returns the :func:`train_gnn`
     result plus ``n_parts``, ``updates_per_epoch``, ``batch_nodes`` and
     ``batch_edges``; the history's loss is the mean over the epoch's
-    updates.
-
-    Not ported yet, and raising: ``mesh=`` (data-parallel batches, queue
-    A.9).  The reference's ``eval_every`` and ``verbose`` are not taken:
+    updates.  The reference's ``eval_every`` and ``verbose`` are not taken:
     the history holds every epoch.
     """
     from repro_torch.engine.runner import run  # lazy: engine <- graph
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_gnn_batched(mesh=...): data-parallel batches over a "
-            "device mesh are not ported yet (ROADMAP A.9)")
     plan = ExecutionPlan.from_legacy(
         n_parts=n_parts, impl=impl, fused=fused, offload=offload,
         bit_budget=bit_budget, autoprec_refresh=autoprec_refresh,
@@ -128,7 +132,51 @@ def train_gnn_batched(g: Graph, cfg: GNNConfig, n_parts: int,
         edge_multiple=edge_multiple, renormalize=renormalize,
         shuffle=shuffle, grad_accum=grad_accum)
     return run(g, cfg, plan, opt, n_epochs=n_epochs, seed=seed,
-               params=params, device=device, batches=batches)
+               params=params, device=device, batches=batches, mesh=mesh)
+
+
+def train_gnn_mesh(g: Graph, cfg: GNNConfig, n_parts: int,
+                   opt: AdamWConfig | None = None, n_epochs: int = 100,
+                   seed: int = 0, *, method: str = "bfs", mesh=None,
+                   impl: str | None = None, node_multiple: int = 64,
+                   edge_multiple: int = 256, params: GNN | None = None,
+                   device="cuda") -> dict:
+    """Mesh-sharded partition-parallel GNN training.
+
+    Shards ``n_parts`` graph partitions over the ``m`` ranks of ``mesh`` (a
+    ``torch.distributed`` process group; None is the default group when
+    ``torch.distributed`` is initialized, else a world of one rank) and
+    trains them in ``n_parts // m`` rounds an epoch: one update a round, a
+    per-layer halo exchange (:mod:`repro_torch.parallel.halo`) shipping
+    cross-partition boundary rows, block-wise compression of each rank's
+    local activations only, and the features in host memory behind the
+    double-buffered :class:`repro_torch.offload.pager.FeaturePager`.  Every
+    rank calls it alike.
+
+    Parity (``tests/test_torch_mesh.py``): ``n_parts=1`` with exact padding
+    is :func:`train_gnn` bit for bit; any ``n_parts`` on one rank is
+    :func:`train_gnn_batched` with ``shuffle=False`` bit for bit; ``m ==
+    n_parts`` keeps every edge (exact distributed full-graph training,
+    within a float tolerance of one process).
+
+    Returns the engine result plus the mesh extras (``mesh_devices``,
+    ``halo_width``, ``halo_edges``, ``dropped_edges``,
+    ``halo_bytes_per_epoch``, the rank's ``halo_bytes_sent`` and ``rank``,
+    ``pager``).  The reference's ``eval_every`` and ``verbose`` are not
+    taken: the history holds every epoch.
+
+    Equivalent plan: ``ExecutionPlan(sampling=SamplingPolicy(kind="mesh",
+    n_parts=n_parts, method=method, shuffle=False, ...))``.
+    """
+    from repro_torch.engine.runner import run  # lazy: engine <- graph
+
+    plan = ExecutionPlan(
+        sampling=SamplingPolicy(kind="mesh", n_parts=n_parts, method=method,
+                                shuffle=False, node_multiple=node_multiple,
+                                edge_multiple=edge_multiple),
+        kernel=KernelPolicy(impl=impl))
+    return run(g, cfg, plan, opt, n_epochs=n_epochs, seed=seed,
+               params=params, device=device, mesh=mesh)
 
 
 def activation_memory_report(g: Graph, cfg: GNNConfig, n_parts: int = 1,
@@ -150,8 +198,10 @@ def activation_memory_report(g: Graph, cfg: GNNConfig, n_parts: int = 1,
       1-bit ReLU masks, each layer at its own width; an uncompressed layer
       counts its ``fp32_bytes``), ``reduction`` (1 - compressed / fp32)
       and ``bits_per_layer``;
-    * with ``n_parts > 1`` or a partition ``plan`` (the plan's ``n_parts``
-      and ``node_multiple`` win), ``batched``: batches run one at a time,
+    * with ``n_parts > 1`` or a partition or mesh ``plan`` (the plan's
+      ``n_parts`` and ``node_multiple`` win), ``batched`` (``mesh`` for a
+      mesh plan, which adds ``per_device_saved_bytes``: a rank stashes its
+      partition's local rows only): batches run one at a time,
       so the peak stash is one padded batch of ``batch_nodes`` (default
       ceil(N / n_parts) rounded up to ``node_multiple``; pass the run's
       ``batch_nodes`` for halo or other buckets): ``n_parts``,
@@ -178,7 +228,8 @@ def activation_memory_report(g: Graph, cfg: GNNConfig, n_parts: int = 1,
     if quant_health is not None:
         raise NotImplementedError("activation_memory_report(quant_health=) "
                                   "is not ported yet (ROADMAP A.10)")
-    if plan.sampling.kind == "partition":
+    mesh_kind = plan.sampling.kind == "mesh"
+    if plan.sampling.kind in ("partition", "mesh"):
         n_parts = plan.sampling.n_parts
         node_multiple = plan.sampling.node_multiple
     else:
@@ -203,13 +254,17 @@ def activation_memory_report(g: Graph, cfg: GNNConfig, n_parts: int = 1,
         peak_fp32 = sum(r["fp32_bytes"] for r in rows_b)
         peak = (sum(r.get("compressed_bytes", r["fp32_bytes"])
                     for r in rows_b) if has_comp else peak_fp32)
-        out["batched"] = {
+        key = "mesh" if mesh_kind else "batched"
+        out[key] = {
             "n_parts": n_parts, "batch_nodes": batch_nodes,
             "peak_fp32_bytes": peak_fp32, "peak_saved_bytes": peak,
             "full_graph_saved_bytes": full_saved,
             "peak_reduction_vs_full": full_saved / peak,
             "per_layer": rows_b,
         }
+        if mesh_kind:
+            # the per-rank ledger: the halo strip stashes nothing
+            out[key]["per_device_saved_bytes"] = peak
     if plan.offload is not None:
         # an explicit batch_nodes wins even at n_parts == 1: the batched
         # engine pads its single batch, and the ledger describes the plan

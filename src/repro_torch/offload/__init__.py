@@ -13,6 +13,9 @@ backward prefetch (the reference's ``repro.offload``).
 * :mod:`repro_torch.offload.gnn`: the GNN stash planner
   (:func:`plan_gnn_stashes`); the forward that consumes it is
   :mod:`repro_torch.engine.forward`.
+* :mod:`repro_torch.offload.pager`: :class:`FeaturePager`, the mesh
+  engine's host-resident features, one round's pages copied ahead on a side
+  stream.
 
 Entry points: an arena :class:`~repro_torch.engine.plan.StashPolicy` on an
 ``ExecutionPlan`` (``train_gnn(offload=...)``,
@@ -29,6 +32,7 @@ from repro_torch.offload.engine import (POLICIES, ArenaStore, check_policy,
                                         make_writer, measure_live_bytes,
                                         resolve_mechanism)
 from repro_torch.offload.gnn import plan_gnn_stashes
+from repro_torch.offload.pager import OVERLAP_WINDOW, FeaturePager
 
 __all__ = [
     "StashPlan", "plan_stashes", "arena_init",
@@ -37,5 +41,5 @@ __all__ = [
     "POLICIES", "check_policy", "resolve_mechanism", "ArenaStore",
     "make_writer", "make_reader", "measure_live_bytes", "host_store_bytes",
     "device_resident_stash_bytes", "device_memory_stats",
-    "plan_gnn_stashes",
+    "plan_gnn_stashes", "FeaturePager", "OVERLAP_WINDOW",
 ]

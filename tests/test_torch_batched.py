@@ -425,9 +425,6 @@ def test_plan_validation(make, match):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda g, c: t_train_batched(g, c, 2, n_epochs=1, mesh=object(),
-                                  device="cpu"), "A.9"),
-    (lambda g, c: SamplingPolicy(kind="mesh", n_parts=2), "A.9"),
     (lambda g, c: ExecutionPlan(obs=object()), "A.10")])
 def test_unported_parts_raise(call, item):
     _, tg = _graphs()

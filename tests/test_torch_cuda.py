@@ -1055,3 +1055,117 @@ def test_cuda_kv_host_policies_bit_equal_to_device(cuda, policy):
         np.testing.assert_array_equal(a.tokens, b.tokens)
         np.testing.assert_array_equal(outs["device"]["logits"][a.rid],
                                       outs[policy]["logits"][b.rid])
+
+
+# ------------------------------------------------------------ mesh engine
+@pytest.mark.gpu
+def test_cuda_pager_pinned_round_trip_with_work_in_flight(cuda):
+    """The feature pager's pages are page-locked; each round's copies run
+    on the side stream while matmuls are in flight, and the compute stream
+    waits for their event: every fetched round bit-equal to its rows."""
+    from repro_torch.offload.pager import FeaturePager
+
+    rng = np.random.default_rng(0)
+    feats = rng.normal(size=(4, 2, 5000, 128)).astype(np.float32)
+    pager = FeaturePager(feats, "cuda", rank=1)
+    assert all(p.is_pinned() for pages in pager._pages for p in pages)
+    pager.prefetch(0)
+    for r in range(4):
+        _busy()
+        got = pager.fetch(r)
+        pager.prefetch((r + 1) % 4)
+        assert torch.equal(got.cpu(), torch.from_numpy(feats[r, 1]))
+    st = pager.stats()
+    assert st["fetches"] == st["prefetch_hits"] == 4
+    assert st["host_kind"] == "pinned" and st["n_pages"] == 20
+    assert 0.0 <= st["overlap_frac"] <= 1.0 and st["span_s"] > 0
+
+
+@pytest.mark.gpu
+def test_cuda_pager_freed_with_a_prefetch_in_flight(cuda):
+    """A pager dropped right after a prefetch, as a mesh run ends (its last
+    round queued the next epoch's first): its device block is not handed
+    to the compute stream while the side stream still writes it, so a
+    block of the same size allocated and filled at once keeps its
+    values."""
+    from repro_torch.offload.pager import FeaturePager
+
+    rows = 1 << 16
+    feats = np.ones((1, 1, rows, 256), np.float32)      # 64 MiB a round
+    for _ in range(4):
+        pager = FeaturePager(feats, "cuda", page_rows=rows)
+        _busy()                 # the copy starts after this work
+        pager.prefetch(0)
+        del pager
+        t = torch.empty((rows, 256), device="cuda").fill_(2.0)
+        torch.cuda.synchronize()
+        assert bool((t == 2.0).all())
+
+
+@pytest.mark.gpu
+def test_cuda_exchange_backward_bit_identical(cuda, tmp_path):
+    """The exchange Function on the card in a one-rank gloo group: the
+    strip is the gathered rows, and the backward (the CSR of ones summed
+    by spmm, no atomic scatter) is the dense transpose and bit-identical
+    from call to call."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import halo
+
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        rng = np.random.default_rng(0)
+        n, H, f = 4000, 700, 64
+        send = rng.integers(0, n, (1, H))
+        back = halo.send_csr(send, np.array([H - 9]), n, "cuda")
+        h = torch.tensor(rng.normal(size=(n, f)).astype(np.float32),
+                         device="cuda")
+        g = torch.tensor(rng.normal(size=(n + H, f)).astype(np.float32),
+                         device="cuda")
+        grads = []
+        for _ in range(2):
+            x = h.clone().requires_grad_()
+            y = halo._HaloExchange.apply(x, torch.from_numpy(send).cuda(),
+                                         back, dist.group.WORLD)
+            assert torch.equal(y[n:], h[torch.from_numpy(send[0]).cuda()])
+            y.backward(g)
+            grads.append(x.grad)
+        assert torch.equal(grads[0], grads[1])
+        want = g[:n].double().cpu()
+        want.index_add_(0, torch.from_numpy(send[0, :H - 9]),
+                        g[n:n + H - 9].double().cpu())
+        np.testing.assert_allclose(grads[0].cpu().numpy(), want.numpy(),
+                                   atol=1e-5)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_cuda_two_ranks_share_the_card(cuda):
+    """Two ranks on the one card over gloo: the exchange and its backward
+    as on the CPU, and n_parts = m = 2 uncompressed within rtol 2e-4 /
+    atol 2e-5 of train_gnn on the card, both ranks bit-equal."""
+    import torch_mesh_ranks as ranks
+
+    from repro_torch.graph.train import train_gnn
+    from repro_torch.parallel import run_ranks
+
+    n, H, f = 64, 9, 16
+    got = run_ranks(ranks.exchange, 2, (n, H, f, "cuda"), timeout=120)
+    h, send, _, _ = ranks.exchange_case(2, n, H, f)
+    for j in range(2):
+        for i in range(2):
+            np.testing.assert_array_equal(
+                got[j]["out"][0][n + i * H:n + (i + 1) * H], h[i][send[i, j]])
+        np.testing.assert_array_equal(got[j]["grad"][0], got[j]["grad"][1])
+    runs = run_ranks(ranks.train, 2, ("mesh", "sage", False,
+                                      dict(n_parts=2, n_epochs=2), "cuda"),
+                     timeout=120)
+    cfg = ranks.config("sage", False)
+    ref = train_gnn(ranks.graph(), cfg, n_epochs=2, params=ranks.model(cfg))
+    for pa, pb, pr in zip(runs[0]["params"], runs[1]["params"],
+                          ref["model"].parameters()):
+        np.testing.assert_array_equal(pa, pb)
+        np.testing.assert_allclose(pa, pr.detach().cpu().numpy(), rtol=2e-4,
+                                   atol=2e-5)
