@@ -119,7 +119,25 @@ Phases, in order; any failure raises and exits non-zero:
    exchange's device copies and host time); (e) ``train_gnn_batched`` over
    the two ranks is ``grad_accum=2`` in one process bit for bit.  Both
    ranks end every run with bit-equal parameters;
-11. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+11. slice 13, observability (``repro_torch.obs``): (a)-(d) after phase 10 on
+   phase 4's graph, config and weights, (e) after phase 9 (e).  (a)
+   ``engine.runner.run`` on the full graph for OBS_EPOCHS epochs with obs
+   off, then with spans, metrics and the quant-health probe at epochs 0
+   and 2: losses, params and stash bit-identical, launches as planned with
+   the 2 probes (one RP, quant_pack and dequant_unpack a layer each), each
+   layer's measured SR variance beside its Eq. 10 prediction, the probe's
+   time alone and the peak memory with it on and off, and the trace
+   exported to build/obs/ in the reference's schemas; (b) OVERHEAD_PAIRS
+   pairs of obs-off / trace+metrics-on runs: the median epoch time on over
+   off below OVERHEAD_LIMIT; (c) autoprec at ``bit_budget=2.0`` with
+   ``calibration="obs"``: widths in BIT_CHOICES within the budget, and the
+   re-solve's time beside ``calibration="probe"``'s; (d) phase 10 (a)'s
+   one-rank mesh for 2 epochs, obs on bit-identical to off, with a
+   ``mesh/round`` and a ``pager/fetch`` span and an overlap observation a
+   round and ``halo/bytes`` the bytes sent; (e) phase 9 (e)'s ``device``
+   recipe with ``--obs``: its tokens and logits, 2 requests completed, 2
+   TTFT observations.  The phase stays under PHASE11_LIMIT_S;
+12. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX; without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -667,17 +685,21 @@ def slice_rp0(torch, g, cfg, model0, wrappers, saved_bytes_per_layer) -> dict:
 
 
 def planned(n_comp: int, n_rp: int, steps: int, probes: int = 0,
-            stats: int = 0, moments: int = 0) -> dict:
+            stats: int = 0, moments: int = 0, quant_probes: int = 0) -> dict:
     """Launches of a run of the unfused (RP or declined) spelling: each
     training step and each autoprec probe quantizes, dequantizes, projects
     and recovers every compressed layer once (RP and IRP only for RP
-    layers); an autoprec stats pass projects every RP layer once; 8-bit
-    AdamW quantizes its ``moments`` moment leaves once at init and after
-    every step, and dequantizes them every step."""
+    layers); an autoprec stats pass projects every RP layer once; a
+    quant-health probe (the obs loop's or ``calibration="obs"``'s)
+    projects, quantizes and dequantizes every compressed layer once, and
+    recovers none; 8-bit AdamW quantizes its ``moments`` moment leaves once
+    at init and after every step, and dequantizes them every step."""
     passes = steps + probes
-    return {"quant_pack": n_comp * passes + moments * (steps + 1),
-            "dequant_unpack": n_comp * passes + moments * steps,
-            "rp_project": n_rp * (passes + stats),
+    return {"quant_pack": (n_comp * (passes + quant_probes)
+                           + moments * (steps + 1)),
+            "dequant_unpack": (n_comp * (passes + quant_probes)
+                               + moments * steps),
+            "rp_project": n_rp * (passes + stats + quant_probes),
             "irp_project": n_rp * passes, "matmul_quant": 0,
             "dequant_matmul": 0, "flash_attention": 0}
 
@@ -2037,6 +2059,243 @@ def slice_mesh(torch, g, cfg, model0, wrappers) -> dict:
     return dict(total)
 
 
+# ------------------------------------------------- phase 11: observability
+#: The full surface phase 11 (a) runs: spans, metrics and the quant-health
+#: probe at epochs 0 and 2 of 3.
+OBS_EPOCHS = 3
+#: Phase 11 (b): pairs of obs-off / trace+metrics-on runs (off, on, on,
+#: off, ...) of OVERHEAD_EPOCHS epochs; epoch 0 of each run is left out.
+OVERHEAD_PAIRS = 2
+OVERHEAD_EPOCHS = 8
+#: The reference's overhead gate: obs-on over obs-off epoch time.
+OVERHEAD_LIMIT = 1.05
+#: Seconds phase 11 may take, (a)-(d) and (e) together.
+PHASE11_LIMIT_S = 60.0
+#: Where phase 11 writes its trace (the build directory is git-ignored).
+OBS_TRACE = Path(__file__).resolve().parent / "build" / "obs" / "phase11"
+
+
+def check_trace_export(obs) -> dict:
+    """Export ``obs``'s trace and check both files against the reference's
+    schemas (JSONL span keys; Chrome complete events in µs)."""
+    paths = obs.export(OBS_TRACE)
+    events = [json.loads(line) for line in
+              Path(paths["jsonl"]).read_text().strip().split("\n")]
+    chrome = json.loads(Path(paths["chrome"]).read_text())
+    ok = (len(events) == len(obs.tracer.spans)
+          and all(set(e) == {"name", "ts_s", "dur_s", "depth", "parent",
+                             "args"} for e in events)
+          and set(chrome) == {"traceEvents", "displayTimeUnit"}
+          and all(ev["ph"] == "X" and ev["cat"] == "repro"
+                  and ev["ts"] >= 0.0 and ev["dur"] >= 0.0
+                  for ev in chrome["traceEvents"]))
+    if not ok:
+        raise AssertionError(f"[obs] exported trace {paths} off schema")
+    log(f"[obs] trace exported ({len(events)} spans): {paths}")
+    return paths
+
+
+def same_run(torch, a: dict, b: dict) -> bool:
+    """Losses, parameters and the live stash bit-identical."""
+    return ([h[1] for h in a["history"]] == [h[1] for h in b["history"]]
+            and a["stash_bytes"] == b["stash_bytes"]
+            and all(torch.equal(p, q) for p, q in
+                    zip(a["model"].parameters(), b["model"].parameters())))
+
+
+def timed_allocate(torch, ctrl, model, reps: int = 3) -> list:
+    """Host ms of ``reps`` synchronized ``ctrl.allocate(model)`` calls,
+    after one warm-up."""
+    ctrl.allocate(model)
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctrl.allocate(model)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def slice_obs(torch, g, cfg, model0, wrappers) -> dict:
+    """Phase 11 (a)-(d): observability on phase 4's graph, config and
+    weights (the module docstring lists them).  Returns the launch counts
+    summed over the counted runs."""
+    from repro_torch.core import autoprec
+    from repro_torch.engine.plan import (ExecutionPlan, ObsPolicy,
+                                         PrecisionPolicy, SamplingPolicy)
+    from repro_torch.engine.precision import AutoprecController
+    from repro_torch.engine.runner import run
+    from repro_torch.graph.analysis import collect_layer_stats
+    from repro_torch.graph.models import device_graph
+    from repro_torch.obs.quantstats import measure_quant_health
+
+    total = collections.Counter()
+    full = ExecutionPlan()
+    quant = ObsPolicy(enabled=True, quant_stats=True, quant_stats_every=2)
+
+    # (a) the full graph: obs-off, then the full surface with 2 probes
+    off, counts, off_peak = counted_run(
+        torch, wrappers, planned(3, 3, OBS_EPOCHS), "obs off",
+        lambda: run(g, cfg, full, n_epochs=OBS_EPOCHS, seed=0,
+                    params=model0))
+    total.update(counts)
+    on, counts, on_peak = counted_run(
+        torch, wrappers, planned(3, 3, OBS_EPOCHS, quant_probes=2),
+        "obs on", lambda: run(g, cfg, dataclasses.replace(full, obs=quant),
+                              n_epochs=OBS_EPOCHS, seed=0, params=model0))
+    total.update(counts)
+    if not same_run(torch, off, on):
+        raise AssertionError("[obs on] losses, params or stash differ from "
+                             "obs off")
+    log("[obs on] losses, params and stash bit-identical to obs off; "
+        f"max_memory_allocated {on_peak} bytes on, {off_peak} off")
+    obs = on["obs"]
+    rows = obs.quant_rows()
+    for r in rows:
+        log(f"[obs probe] epoch {r['epoch']} layer {r['layer']}: "
+            f"measured_var {r['measured_var']!r} predicted_var "
+            f"{r['predicted_var']!r} ratio {r['ratio']!r} sat_rate "
+            f"{r['sat_rate']!r} rng_sq_mean {r['rng_sq_mean']!r} "
+            f"n_elements {r['n_elements']} n_blocks {r['n_blocks']}")
+    if len(rows) != 3 or not all(r["epoch"] == 2 and math.isfinite(
+            r["ratio"]) and r["measured_var"] > 0 for r in rows):
+        raise AssertionError(f"[obs probe] rows {rows}")
+    spans = obs.tracer.spans
+    probe_ms = [s.dur * 1e3 for s in spans if s.name == "obs/quant_probe"]
+    epoch_ms = [s.dur * 1e3 for s in spans if s.name == "epoch"]
+    if len(probe_ms) != 2 or len(epoch_ms) != OBS_EPOCHS:
+        raise AssertionError("[obs on] probe or epoch spans")
+    log(f"[obs on] spans: epoch ms {epoch_ms} (the loss read-back waits "
+        f"for the card), obs/quant_probe ms {probe_ms} (each waits for its "
+        f"copy to the host), metrics {obs.registry.snapshot()}; history ms "
+        f"on {[h[2] for h in on['history']]}, off "
+        f"{[h[2] for h in off['history']]}")
+    check_trace_export(obs)
+    # the probe alone, drained, at the trained weights
+    dg = device_graph(g, cfg.arch, "cuda")
+    model = on["model"]
+    measure_quant_health(model, dg, cfg)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        measure_quant_health(model, dg, cfg)
+        times.append((time.perf_counter() - t0) * 1e3)
+        probe_peak = torch.cuda.max_memory_allocated() - base
+    log(f"[obs probe] alone (drained, host clock): {times} ms; peak "
+        f"{probe_peak} bytes above the {base} allocated before it")
+    del off, on, obs, rows, spans
+
+    # (b) overhead: paired obs-off / trace+metrics-on runs
+    tm = dataclasses.replace(full, obs=ObsPolicy(enabled=True))
+    order = [False, True, True, False] * (OVERHEAD_PAIRS // 2)
+    ms = {False: [], True: []}
+
+    def overhead_runs():
+        for on_ in order:
+            r = run(g, cfg, tm if on_ else full, n_epochs=OVERHEAD_EPOCHS,
+                    seed=0, params=model0)
+            ms[on_].extend(h[2] for h in r["history"][1:])
+
+    _, counts, _ = counted_run(
+        torch, wrappers, planned(3, 3, OVERHEAD_EPOCHS * len(order)),
+        "obs overhead", overhead_runs)
+    total.update(counts)
+    ratio = statistics.median(ms[True]) / statistics.median(ms[False])
+    log(f"[obs overhead] epoch ms off {ms[False]}; on {ms[True]}; median "
+        f"{statistics.median(ms[True])!r} / "
+        f"{statistics.median(ms[False])!r} = {ratio!r}")
+    if not ratio < OVERHEAD_LIMIT:
+        raise AssertionError(f"[obs overhead] ratio {ratio} not below "
+                             f"{OVERHEAD_LIMIT}")
+
+    # (c) autoprec at bit_budget 2.0 calibrated from the probe: allocate
+    # and re-solve at epoch 2 (a stats pass and a probe each), and the
+    # loop's probe at epoch 0
+    ap = ExecutionPlan(
+        precision=PrecisionPolicy(kind="autoprec", bit_budget=2.0,
+                                  refresh=2, calibration="obs"),
+        obs=ObsPolicy(enabled=True, quant_stats=True,
+                      quant_stats_every=1000))
+    res, counts, peak = counted_run(
+        torch, wrappers, planned(3, 3, steps=4, stats=2, quant_probes=3),
+        "obs autoprec", lambda: run(g, cfg, ap, n_epochs=4, seed=0,
+                                    params=model0))
+    total.update(counts)
+    bits, budget = res["bits_per_layer"], res["bit_budget_bytes"]
+    stats = collect_layer_stats(res["model"], dg, cfg)
+    alloc_bytes = autoprec.total_stash_bytes(stats,
+                                             res["cfg"].layer_compression())
+    log(f"[obs autoprec] bits_per_layer {bits} bit_budget_bytes {budget} "
+        f"allocation bytes {alloc_bytes} losses "
+        f"{[h[1] for h in res['history']]} max_memory_allocated {peak}")
+    if not all(b in autoprec.BIT_CHOICES for b in bits) or \
+            alloc_bytes > budget:
+        raise AssertionError(f"[obs autoprec] allocation {bits} "
+                             f"({alloc_bytes} bytes) outside BIT_CHOICES "
+                             "or the budget")
+    resolve = {c: timed_allocate(torch, AutoprecController(
+        dg, cfg, 2.0, 2, 0, c), res["model"]) for c in ("obs", "probe")}
+    log(f"[obs autoprec] re-solve ms, calibration='obs' {resolve['obs']} "
+        f"against 'probe' {resolve['probe']}")
+    del res, stats, dg
+
+    # (d) phase 10 (a)'s one-rank mesh, 2 epochs, obs off and on
+    mesh = ExecutionPlan(sampling=SamplingPolicy(kind="mesh", n_parts=8,
+                                                 method="bfs",
+                                                 shuffle=False))
+    steps = 8 * 2
+    (m_off, m_on), counts, _ = counted_run(
+        torch, wrappers, planned(3, 3, 2 * steps), "obs mesh",
+        lambda: tuple(run(g, cfg, plan, n_epochs=2, seed=0, params=model0)
+                      for plan in (mesh, dataclasses.replace(
+                          mesh, obs=ObsPolicy(enabled=True)))))
+    total.update(counts)
+    if not same_run(torch, m_off, m_on):
+        raise AssertionError("[obs mesh] obs on differs from obs off")
+    snap = m_on["obs"].registry.snapshot()
+    names = [s.name for s in m_on["obs"].tracer.spans]
+    got = (names.count("mesh/round"), names.count("pager/fetch"),
+           snap["pager/fetches"], snap["pager/overlap_frac"]["count"])
+    log(f"[obs mesh] bit-identical to obs off; mesh/round, pager/fetch "
+        f"spans, pager/fetches, overlap_frac count {got}; halo/bytes "
+        f"{snap['halo/bytes']} sent {m_on['halo_bytes_sent']}; overlap "
+        f"{snap['pager/overlap_frac']}")
+    if got != (steps,) * 4 or snap["halo/bytes"] != m_on["halo_bytes_sent"]:
+        raise AssertionError(f"[obs mesh] counts {got}, halo/bytes "
+                             f"{snap['halo/bytes']}")
+    return dict(total)
+
+
+def slice_obs_serve(torch, wrappers, model, device_out) -> dict:
+    """Phase 11 (e): phase 9 (e)'s ``device`` recipe with
+    ``ObsPolicy(enabled=True)`` (``--obs``): its tokens and logits, every
+    request completed and the TTFT histogram counting each."""
+    from repro_torch.launch import serve
+
+    args = serve.parser().parse_args(SERVE9_ARGV + ["--obs"])
+    engine, requests = serve.build_engine(args, model, collect_logits=True)
+    out, counts, peak = counted_run(
+        torch, wrappers, dict(planned(0, 0, 0), **SERVE9_LAUNCHES),
+        "serve obs", lambda: engine.run(requests))
+    for a, b in zip(device_out["results"], out["results"]):
+        if not (np.array_equal(a.tokens, b.tokens) and np.array_equal(
+                device_out["logits"][a.rid], out["logits"][b.rid])):
+            raise AssertionError(f"[serve obs] request {a.rid} differs "
+                                 "from phase 9 (e)'s device run")
+    snap = engine.session.registry.snapshot()
+    log(f"[serve obs] tokens and logits identical to phase 9 (e)'s; TTFT "
+        f"{out['ttft_mean_ms']!r} ms, TPOT {out['tpot_mean_ms']!r} ms, "
+        f"max_memory_allocated {peak} bytes; metrics {snap}")
+    if not (snap["serve/completed"] == snap["serve/admitted"] == 2
+            and snap["serve/ttft_ms"]["count"] == 2):
+        raise AssertionError(f"[serve obs] counters {snap}")
+    return counts
+
+
 #: Phase 9 (e): phase 8's recipe on 2 requests of 1000 + 8 tokens, 2 slots.
 SERVE9_ARGV = ["--arch", "qwen1.5-4b", "--requests", "2", "--max-batch", "2",
                "--prompt-len", "1000", "--gen-len", "8", "--kv-bits", "4",
@@ -2083,11 +2342,13 @@ def check_serve9_shapes(torch, qk, fa, ref, gen) -> None:
         "(e)'s shapes: within bands / bit-equal")
 
 
-def slice_offload_serve(torch, wrappers) -> dict:
+def slice_offload_serve(torch, wrappers) -> tuple:
     """Phase 9 (e): the KV cache under device, host and pinned-paged:
     launches as planned, the same tokens and logits bit for bit, the pool
     on the host (pinned for pinned-paged) with the layout's bytes, TTFT,
-    TPOT and peak memory of each."""
+    TPOT and peak memory of each.  Returns the launch counts summed over
+    the runs, the model and the ``device`` run's output (phase 11 (e)
+    serves them again)."""
     from repro_torch.launch import serve
     from repro_torch.serving.kvcache import pool_nbytes
 
@@ -2129,8 +2390,7 @@ def slice_offload_serve(torch, wrappers) -> dict:
                                      "differs from the device policy")
     log("[serve9] host and pinned-paged: tokens and logits bit-equal to "
         "the device policy's")
-    del model, outs
-    return dict(total)
+    return dict(total), model, base
 
 
 def main() -> int:
@@ -2269,6 +2529,14 @@ def main() -> int:
     for name, n in slice_mesh(torch, g, cfg, model0, wrappers).items():
         launches[name] += n
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 11 (a)-(d). slice 13: observability
+    t0 = time.perf_counter()
+    for name, n in slice_obs(torch, g, cfg, model0, wrappers).items():
+        launches[name] += n
+    obs_s = time.perf_counter() - t0
+    log(f"phase 11 (a)-(d): {obs_s:.1f} s")
     del g, model0
     torch.cuda.empty_cache()
 
@@ -2280,10 +2548,21 @@ def main() -> int:
     # 9 (e). the KV cache's host placements
     t0 = time.perf_counter()
     check_serve9_shapes(torch, qk, fa, ref, gen)
-    served9 = slice_offload_serve(torch, wrappers)
+    served9, model9, device9 = slice_offload_serve(torch, wrappers)
     log(f"phase 9 (e): {time.perf_counter() - t0:.1f} s; launches {served9}")
 
-    # 10. results
+    # 11 (e). the serving engine's obs session
+    t0 = time.perf_counter()
+    served11 = slice_obs_serve(torch, wrappers, model9, device9)
+    obs_s += time.perf_counter() - t0
+    log(f"phase 11: {obs_s:.1f} s in all ((e) included); (e) launches "
+        f"{served11}")
+    if not obs_s < PHASE11_LIMIT_S:
+        raise AssertionError(f"phase 11 took {obs_s:.1f} s, over "
+                             f"{PHASE11_LIMIT_S} s")
+    del model9, device9
+
+    # 12. results
     sources = {"quant_pack": ("src/repro_torch/csrc/quant_blockwise.cu",
                               "src/repro/kernels/quant_blockwise.py:62"),
                "dequant_unpack": ("src/repro_torch/csrc/quant_blockwise.cu",

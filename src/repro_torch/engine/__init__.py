@@ -1,8 +1,8 @@
 """Plan, compile, execute: the GNN training engine.  An
 :class:`ExecutionPlan` composes the sampling (full graph | padded
 partition batches | mesh-sharded partitions), precision (fixed |
-autoprec), stash and kernel policies; :func:`compile_plan` builds the step
-and :func:`run` drives it.
+autoprec), stash, kernel and observability policies;
+:func:`compile_plan` builds the step and :func:`run` drives it.
 
 :mod:`~repro_torch.engine.plan` and :mod:`~repro_torch.engine.seeds` load
 eagerly; the compiler and runtime import the graph package and resolve
@@ -13,8 +13,8 @@ import importlib
 
 from repro_torch.engine import seeds  # noqa: F401
 from repro_torch.engine.plan import (ExecutionPlan, KernelPolicy,  # noqa: F401
-                                     PrecisionPolicy, SamplingPolicy,
-                                     StashPolicy)
+                                     ObsPolicy, PrecisionPolicy,
+                                     SamplingPolicy, StashPolicy)
 
 _LAZY = {
     "run": "repro_torch.engine.runner",
@@ -26,7 +26,7 @@ _LAZY = {
 }
 
 __all__ = ["ExecutionPlan", "SamplingPolicy", "PrecisionPolicy",
-           "StashPolicy", "KernelPolicy", "seeds", *_LAZY]
+           "StashPolicy", "KernelPolicy", "ObsPolicy", "seeds", *_LAZY]
 
 
 def __getattr__(name: str):

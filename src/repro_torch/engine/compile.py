@@ -8,7 +8,10 @@ its share), both on the engine's stash-aware forward, or
 with a halo exchange, on the per-op compressed stack).  PyTorch
 runs eagerly, so "compiling" a plan here is building the step's state once:
 the reference's one jitted ``lax.scan`` epoch becomes a Python loop over
-the same batches in the same order with the same seeds.
+the same batches in the same order with the same seeds.  The reference's
+``engine/forward_builds`` counter counts forward traces; the port traces
+none, so it counts each build of a step for a config (the compile and every
+``recompile``), on the active metrics registry.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ from repro_torch.engine.forward import (mesh_gnn_forward, stash_gnn_forward,
 from repro_torch.engine.plan import ExecutionPlan, StashPolicy
 from repro_torch.graph.models import GNN, DeviceGraph, GNNConfig, device_graph
 from repro_torch.graph.sampling import make_subgraph_batches
+from repro_torch.obs.metrics import get_metrics
+from repro_torch.obs.session import NULL_SESSION
 from repro_torch.offload.engine import ArenaStore
 from repro_torch.offload.gnn import plan_gnn_stashes
 from repro_torch.offload.pager import FeaturePager
@@ -51,6 +56,11 @@ def _sum_over(group, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
             zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
+def _built() -> None:
+    """Count one build of a step for a config (``engine/forward_builds``)."""
+    get_metrics().counter("engine/forward_builds").inc()
+
+
 def _arena_store(stash: StashPolicy, cfg: GNNConfig, graph: DeviceGraph):
     """The :class:`~repro_torch.offload.engine.ArenaStore` of an arena
     stash policy, planned for ``cfg`` over ``graph``'s rows (the full
@@ -78,12 +88,14 @@ class CompiledFull:
         self.store = _arena_store(stash, cfg, graph)
         self.state = adamw_init(model.flat_params(), opt)
         self.stash_bytes: list[int] = []
+        _built()
 
     def recompile(self, cfg: GNNConfig) -> "CompiledFull":
         """The autoprec refresh hook: new widths (and a new stash plan for
         them), the same model, optimizer state and graph."""
         self.cfg = cfg
         self.store = _arena_store(self.stash, cfg, self.graph)
+        _built()
         return self
 
     def step(self, epoch: int) -> torch.Tensor:
@@ -163,12 +175,14 @@ class CompiledPartition:
         self.state = adamw_init(model.flat_params(), opt)
         self._accum = torch.tensor(float(self.per_update), device=device)
         self.stash_bytes: list[int] = []
+        _built()
 
     def recompile(self, cfg: GNNConfig) -> "CompiledPartition":
         """The autoprec refresh hook: new widths (and a new stash plan for
         them), the same batches."""
         self.cfg = cfg
         self.store = _arena_store(self.stash, cfg, self.graphs[0])
+        _built()
         return self
 
     def epoch_data(self, order_rng: np.random.Generator) -> tuple:
@@ -247,11 +261,16 @@ class CompiledMesh:
     max(den, 1)``, the gradients (summed from zeros) are added over the
     ranks, and every rank takes the same AdamW update.  So ``m == n_parts``
     is the full-graph loss, and ``m == 1`` is :class:`CompiledPartition`
-    with ``shuffle=False`` bit for bit."""
+    with ``shuffle=False`` bit for bit.
+
+    ``obs`` (the run's :class:`~repro_torch.obs.session.ObsSession`) gets a
+    ``mesh/round`` span a round with ``pager/fetch`` inside it, each round's
+    bytes sent added to the ``halo/bytes`` counter, and the pager's
+    counters and overlap histogram in its registry."""
 
     def __init__(self, g, cfg: GNNConfig, plan: ExecutionPlan, model: GNN,
                  opt: AdamWConfig, device, batches=None, seed: int = 0,
-                 mesh=None):
+                 mesh=None, obs=NULL_SESSION):
         sp = plan.sampling
         if batches is not None:
             raise ValueError("mesh sampling builds its own partition "
@@ -281,40 +300,48 @@ class CompiledMesh:
         self.rounds = self.prog.rounds
         self.tables = [rank_round(self.prog, r, self.rank, cfg.arch, device)
                        for r in range(self.rounds)]
-        self.pager = FeaturePager(self.prog.features, device, rank=self.rank)
+        self.obs = obs
+        self.pager = FeaturePager(self.prog.features, device, rank=self.rank,
+                                  metrics=obs.registry)
         self.pager.prefetch(0)
+        self._halo_ctr = obs.counter("halo/bytes")
         self.state = adamw_init(model.flat_params(), opt)
         self.stash_bytes: list[int] = []
         self.halo_bytes_sent = 0
+        _built()
 
     def round(self, epoch: int, r: int) -> torch.Tensor:
         """Round ``r`` of ``epoch``: fetch its features, queue the next
         round's (the next epoch's first after the last), train and update;
         returns the round-global loss (a device scalar)."""
-        params = self.model.flat_params()
-        m, rank, group = self.m, self.rank, self.group
-        feats = self.pager.fetch(r)
-        self.pager.prefetch((r + 1) % self.rounds)
-        t = self.tables[r]
-        ordinal = seeds.batch_ordinals(epoch, self.n_parts, r, m, 0, m)[rank]
-        logits, self.stash_bytes, sent = mesh_gnn_forward(
-            self.model, feats, t, self.cfg, seed=seeds.sr_seed(ordinal),
-            group=group)
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -logp.gather(1, t.labels[:, None])[:, 0]
-        num = torch.sum(nll * t.train_mask)
-        den, shown = t.train_mask.sum(), num.detach()
-        if group is not None:
-            # the train-mask count and the shown loss's numerator, summed
-            # over the ranks in one collective
-            shown, den = _sum_over(group, [torch.stack([shown, den])])[0]
-        loss = num / torch.clamp(den, min=1)
-        grads = torch.autograd.grad(loss, params)
-        gsum = _sum_over(group, [torch.zeros_like(p).add_(gr)
-                                 for p, gr in zip(params, grads)])
-        adamw_update(gsum, self.state, params, self.opt)
-        self.halo_bytes_sent += sent
-        return shown / torch.clamp(den, min=1)
+        with self.obs.span("mesh/round", round=r):
+            params = self.model.flat_params()
+            m, rank, group = self.m, self.rank, self.group
+            with self.obs.span("pager/fetch", round=r):
+                feats = self.pager.fetch(r)
+            self.pager.prefetch((r + 1) % self.rounds)
+            t = self.tables[r]
+            ordinal = seeds.batch_ordinals(epoch, self.n_parts, r, m, 0,
+                                           m)[rank]
+            logits, self.stash_bytes, sent = mesh_gnn_forward(
+                self.model, feats, t, self.cfg, seed=seeds.sr_seed(ordinal),
+                group=group)
+            logp = torch.log_softmax(logits, dim=-1)
+            nll = -logp.gather(1, t.labels[:, None])[:, 0]
+            num = torch.sum(nll * t.train_mask)
+            den, shown = t.train_mask.sum(), num.detach()
+            if group is not None:
+                # the train-mask count and the shown loss's numerator, summed
+                # over the ranks in one collective
+                shown, den = _sum_over(group, [torch.stack([shown, den])])[0]
+            loss = num / torch.clamp(den, min=1)
+            grads = torch.autograd.grad(loss, params)
+            gsum = _sum_over(group, [torch.zeros_like(p).add_(gr)
+                                     for p, gr in zip(params, grads)])
+            adamw_update(gsum, self.state, params, self.opt)
+            self.halo_bytes_sent += sent
+            self._halo_ctr.inc(sent)
+            return shown / torch.clamp(den, min=1)
 
     def step(self, epoch: int) -> torch.Tensor:
         """Every round of ``epoch`` in order; the mean of their losses."""
@@ -350,7 +377,7 @@ class CompiledMesh:
 
 def compile_plan(g, cfg: GNNConfig, plan: ExecutionPlan, model: GNN,
                  opt: AdamWConfig, device, *, batches=None, mesh=None,
-                 seed: int = 0):
+                 seed: int = 0, obs=NULL_SESSION):
     """Lower ``plan`` for graph ``g`` on ``device``, training ``model`` in
     place: a :class:`CompiledFull`, :class:`CompiledPartition` or
     :class:`CompiledMesh`, each with ``step``, ``epoch_data``,
@@ -361,12 +388,18 @@ def compile_plan(g, cfg: GNNConfig, plan: ExecutionPlan, model: GNN,
     partitioning for a partition plan; ``mesh`` (a process group) spreads a
     partition plan's batches over its ranks (data parallel) and is the
     group a mesh plan trains on (None: the default group if
-    ``torch.distributed`` is initialized, else one rank)."""
+    ``torch.distributed`` is initialized, else one rank).  ``obs`` is the
+    run's :class:`~repro_torch.obs.session.ObsSession`: the mesh lowering
+    threads it into its round spans, the pager's registry and the halo byte
+    counter (the default null session makes all of that free)."""
     kind = plan.sampling.kind
     if kind == "full":
         if batches is not None:
             raise ValueError("prebuilt batches need partition sampling")
         return CompiledFull(device_graph(g, cfg.arch, device), cfg, model,
                             opt, plan.kernel.fused, plan.stash)
-    compiled = CompiledMesh if kind == "mesh" else CompiledPartition
-    return compiled(g, cfg, plan, model, opt, device, batches, seed, mesh)
+    if kind == "mesh":
+        return CompiledMesh(g, cfg, plan, model, opt, device, batches, seed,
+                            mesh, obs)
+    return CompiledPartition(g, cfg, plan, model, opt, device, batches, seed,
+                             mesh)

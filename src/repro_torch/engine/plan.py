@@ -11,14 +11,13 @@ A plan composes orthogonal policies:
   autoprec byte budget with a refresh cadence;
 * :class:`StashPolicy`: how saved-for-backward state is stored;
 * :class:`KernelPolicy`: the compression stack's kernel backend and the
-  fused matmul-quant pair's mode.
+  fused matmul-quant pair's mode;
+* :class:`~repro_torch.obs.policy.ObsPolicy`: spans, metrics and the
+  quant-health probe (:mod:`repro_torch.obs`), off by default.
 
 ``train_gnn`` / ``train_gnn_batched`` build a plan with
 :meth:`ExecutionPlan.from_legacy` and hand it to
 :func:`repro_torch.engine.runner.run`.  Plans are frozen and hashable.
-
-Not ported yet, and raising where it is asked for: the observability
-policy (``obs``, ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -26,6 +25,7 @@ import dataclasses
 
 from repro_torch.core.backend import VALID_FUSED
 from repro_torch.kernels.ops import VALID_IMPLS
+from repro_torch.obs.policy import ObsPolicy
 from repro_torch.offload.engine import POLICIES
 
 SAMPLING_KINDS = ("full", "partition", "mesh")
@@ -104,8 +104,11 @@ class SamplingPolicy:
 class PrecisionPolicy:
     """Fixed widths from the ``GNNConfig``, or an autoprec byte budget:
     ``bit_budget`` average stash bits an element, re-solved every
-    ``refresh`` epochs (0 = once).  ``calibration="obs"`` needs the
-    quant-health telemetry (A.10); the controller raises on it."""
+    ``refresh`` epochs (0 = once).  ``calibration="obs"`` takes the
+    layers' sensitivities from the quant-health probe
+    (:mod:`repro_torch.obs.quantstats`) in place of the two-seed gradient
+    probe; the plan then needs ``obs=ObsPolicy(enabled=True,
+    quant_stats=True)``."""
 
     kind: str = "fixed"           # "fixed" | "autoprec"
     bit_budget: float | None = None
@@ -188,20 +191,11 @@ class KernelPolicy:
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
-    """``obs`` stands for the reference's observability policy; anything
-    but None raises (A.10)."""
-
     sampling: SamplingPolicy = SamplingPolicy()
     precision: PrecisionPolicy = PrecisionPolicy()
     stash: StashPolicy = StashPolicy()
     kernel: KernelPolicy = KernelPolicy()
-    obs: None = None
-
-    def __post_init__(self):
-        if self.obs is not None:
-            raise NotImplementedError(
-                "ExecutionPlan(obs=...): observability is not ported yet "
-                "(ROADMAP A.10)")
+    obs: ObsPolicy = ObsPolicy()
 
     @classmethod
     def from_legacy(cls, *, n_parts: int | None = None,
@@ -212,7 +206,7 @@ class ExecutionPlan:
                     halo: int = 0, node_multiple: int = 64,
                     edge_multiple: int = 256, renormalize: bool = False,
                     shuffle: bool = True, grad_accum: int = 1,
-                    obs=None) -> "ExecutionPlan":
+                    obs: ObsPolicy | None = None) -> "ExecutionPlan":
         """The plan a keyword spelling means: ``n_parts=None`` is the
         full-graph loop, any integer (1 included) the partition engine;
         ``offload=None`` keeps per-tensor stashes, a policy string asks for
@@ -234,7 +228,8 @@ class ExecutionPlan:
         stash = (StashPolicy() if offload is None
                  else StashPolicy(kind="arena", placement=offload))
         return cls(sampling=sampling, precision=precision, stash=stash,
-                   kernel=KernelPolicy(impl=impl, fused=fused), obs=obs)
+                   kernel=KernelPolicy(impl=impl, fused=fused),
+                   obs=obs if obs is not None else ObsPolicy())
 
     @property
     def offload(self) -> str | None:
@@ -253,7 +248,14 @@ class ExecutionPlan:
         prec = ("fixed" if self.precision.kind == "fixed"
                 else f"autoprec {self.precision.bit_budget} bits/elt "
                      f"(refresh {self.precision.refresh})")
-        return (f"sampling={samp} | precision={prec} | "
+        base = (f"sampling={samp} | precision={prec} | "
                 f"stash={self.stash.kind}@{self.stash.placement} | "
                 f"kernel={self.kernel.impl or 'cfg'} "
                 f"fused={self.kernel.fused}")
+        if self.obs.enabled:
+            on = [tag for tag, flag in (("trace", self.obs.trace),
+                                        ("metrics", self.obs.metrics),
+                                        ("quant", self.obs.quant_stats))
+                  if flag]
+            base += f" | obs={'+'.join(on) or 'on'}"
+        return base

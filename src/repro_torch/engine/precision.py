@@ -1,6 +1,6 @@
 """Autoprec's lifecycle: the variance-guided bit allocation behind
 ``train_gnn(bit_budget=...)`` and ``train_gnn_batched(bit_budget=...)``
-(the reference's ``repro.engine.precision``, ``calibration="probe"``).
+(the reference's ``repro.engine.precision``).
 
 Owns the budget (frozen on the first allocation, so refreshes re-split the
 same byte ceiling), the current per-layer widths and the refresh cadence.
@@ -18,8 +18,11 @@ from repro_torch.core import autoprec
 from repro_torch.engine import seeds
 from repro_torch.engine.compile import masked_nll
 from repro_torch.engine.forward import stash_gnn_forward
+from repro_torch.engine.plan import CALIBRATION_KINDS
 from repro_torch.graph.analysis import collect_layer_stats
 from repro_torch.graph.models import GNN, DeviceGraph, GNNConfig
+from repro_torch.obs.quantstats import (measure_quant_health,
+                                        measured_sensitivity)
 
 
 class AutoprecController:
@@ -37,17 +40,20 @@ class AutoprecController:
     batch's node mask.  The stats pass reads no node mask, as the
     reference's does not.
 
-    ``calibration="obs"`` (sensitivities from the quant-health telemetry)
-    needs the ``obs`` package, queue A.10, and raises.
+    ``calibration="obs"`` replaces the gradient probe with the quant-health
+    probe (:mod:`repro_torch.obs.quantstats`): the *measured* SR
+    dequantization variance of each layer's stash at the template widths,
+    divided by the same bit-scaling curve.  One pass through the RP and
+    quant kernels instead of two forward and backward passes, and the
+    sensitivity is the statistic the run-time monitor reports beside the
+    Eq. 10 prediction.
     """
 
     def __init__(self, graph: DeviceGraph, cfg: GNNConfig, bit_budget: float,
                  refresh: int, seed: int, calibration: str = "probe"):
-        if calibration != "probe":
-            raise NotImplementedError(
-                f"calibration={calibration!r} sources sensitivities from the "
-                "quant-health telemetry of obs, which is not ported yet "
-                "(ROADMAP A.10); use calibration='probe'")
+        if calibration not in CALIBRATION_KINDS:
+            raise ValueError(f"calibration={calibration!r} not in "
+                             f"{CALIBRATION_KINDS}")
         self.templates = cfg.layer_compression()
         if all(c is None for c in self.templates):
             raise ValueError(
@@ -57,6 +63,7 @@ class AutoprecController:
         self.bit_budget = float(bit_budget)
         self.refresh = int(refresh)
         self.seed = seed
+        self.calibration = calibration
         self.budget_bytes: int | None = None
         self.bits: tuple[int, ...] | None = None
 
@@ -88,6 +95,24 @@ class AutoprecController:
             out.append(dataclasses.replace(st, grad_sens=sens or None))
         return out
 
+    def _obs_sens(self, model: GNN, stats):
+        """Telemetry-sourced sensitivities: the measured dequantization
+        variance of each layer's stash at the template width, re-priced
+        through :func:`repro_torch.core.autoprec.normalized_sr_variance`:
+        the ``grad_sens`` contract without a gradient pass."""
+        measured = measure_quant_health(model, self.graph, self.base_cfg,
+                                        seed=self.seed)
+        out = []
+        for st, s in zip(stats, measured_sensitivity(measured,
+                                                     self.templates)):
+            if st is None or s is None:
+                out.append(st)
+                continue
+            # a degenerate zero measurement (constant activations) keeps
+            # the range-moment fallback, like a zero gradient probe
+            out.append(dataclasses.replace(st, grad_sens=s or None))
+        return out
+
     def allocate(self, model: GNN) -> tuple[GNNConfig, bool]:
         """(Re)solve the allocation from ``model``'s current weights;
         returns (cfg, changed)."""
@@ -96,7 +121,8 @@ class AutoprecController:
         if self.budget_bytes is None:
             self.budget_bytes = autoprec.budget_bytes_for(
                 stats, self.templates, self.bit_budget)
-        stats = self._probe_grad_sens(model, stats)
+        stats = (self._obs_sens(model, stats) if self.calibration == "obs"
+                 else self._probe_grad_sens(model, stats))
         bits = autoprec.allocate_bits(stats, self.templates,
                                       self.budget_bytes)
         changed = bits != self.bits

@@ -3,9 +3,9 @@ Table-1 memory model, pure arithmetic equal to the reference's numbers; the
 bytes a training step's stash holds (equal to the model's for a compressed
 layer; an uncompressed layer holds a packed 1-bit ReLU mask where the model
 counts an f32 ReLU context); the per-layer statistics
-autoprec allocates from; and the Table-2 / App. D activation-distribution
-instrumentation.  (``variance_validation_report`` needs the quant-health
-probe of ``obs``, queue A.10.)"""
+autoprec allocates from; the measured-against-Eq. 10 variance report of
+the quant-health probe; and the Table-2 / App. D activation-distribution
+instrumentation."""
 from __future__ import annotations
 
 import numpy as np
@@ -124,6 +124,26 @@ def collect_layer_stats(model: GNN, graph: DeviceGraph, cfg: GNNConfig,
             n_blocks=int(blocks.shape[0]),
             rng_sq_mean=float(torch.mean(rng.to(torch.float32) ** 2))))
     return stats
+
+
+def variance_validation_report(model: GNN, graph: DeviceGraph,
+                               cfg: GNNConfig, seed: int = 0) -> list[dict]:
+    """Measured SR dequantization variance against the Eq. 10 prediction,
+    one row per compressed layer.
+
+    Runs the quant-health probe (:mod:`repro_torch.obs.quantstats`) on
+    ``model``: the quantize and dequantize the training stash performs,
+    through the same kernels and the same per-layer seeds, and prices each
+    layer through :func:`repro_torch.core.autoprec.expected_layer_variance`.
+    Rows carry ``measured_var``, ``predicted_var``, ``ratio`` and
+    ``sat_rate``; a ratio far from 1 on a real layer means the variance
+    model autoprec prices with has drifted from what the quantizer does."""
+    # obs.quantstats reaches back into this module for _iter_layer_inputs:
+    # import at call time, not at module load
+    from repro_torch.obs.quantstats import health_rows, measure_quant_health
+
+    measured = measure_quant_health(model, graph, cfg, seed=seed)
+    return health_rows(measured, cfg.layer_compression())
 
 
 def collect_projected_activations(model: GNN, graph: DeviceGraph,

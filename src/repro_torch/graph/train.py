@@ -220,14 +220,15 @@ def activation_memory_report(g: Graph, cfg: GNNConfig, n_parts: int = 1,
     before the card is used) and ``device_peak_bytes``
     (``torch.cuda.max_memory_allocated``, None before the card is used).
 
-    ``quant_health`` belongs to queue A.10 and raises."""
+    ``quant_health`` attaches the quant-health probe's per-layer
+    measured-against-Eq. 10 rows
+    (:func:`repro_torch.obs.quantstats.health_rows`, or
+    ``result["obs"].quant_rows()``) verbatim under ``"quant_health"``: the
+    byte ledger and the variance ledger of the same run in one report."""
     if plan is None:
         plan = ExecutionPlan.from_legacy(
             n_parts=n_parts if n_parts > 1 else None,
             offload=check_policy(offload), node_multiple=node_multiple)
-    if quant_health is not None:
-        raise NotImplementedError("activation_memory_report(quant_health=) "
-                                  "is not ported yet (ROADMAP A.10)")
     mesh_kind = plan.sampling.kind == "mesh"
     if plan.sampling.kind in ("partition", "mesh"):
         n_parts = plan.sampling.n_parts
@@ -285,4 +286,6 @@ def activation_memory_report(g: Graph, cfg: GNNConfig, n_parts: int = 1,
             "device_peak_bytes":
                 stats.get("peak_bytes_in_use") if stats else None,
         }
+    if quant_health:
+        out["quant_health"] = quant_health
     return out

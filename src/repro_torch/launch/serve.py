@@ -19,8 +19,12 @@ page-locked host memory and serves it one layer ahead through a device
 stage (:class:`repro_torch.serving.kvcache.HostKVPool`); the tokens are
 the ``device`` policy's bit for bit.
 
+``--obs`` turns on the engine's serving telemetry
+(:class:`repro_torch.obs.ObsPolicy`) and prints its counters after the
+summary.
+
 Not ported yet: the legacy loop of the SSM / hybrid / enc-dec families and
-the MoE model (ROADMAP A.11) and ``--obs`` (A.10); each raises.
+the MoE model (ROADMAP A.11); each raises.
 """
 from __future__ import annotations
 
@@ -31,8 +35,14 @@ from repro_torch.configs import get, reduce_for_smoke
 from repro_torch.core.device import resolve_device
 from repro_torch.data import batch_for_step
 from repro_torch.models import Model
+from repro_torch.obs import ObsPolicy
 from repro_torch.serving import (KV_FAMILIES, KVCacheConfig, Request,
                                  ServeEngine)
+
+
+#: The serving counters ``--obs`` prints (the reference's).
+OBS_KEYS = ("serve/admitted", "serve/completed", "serve/rejected",
+            "serve/decode_steps", "serve/pages_in_use")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -62,7 +72,8 @@ def parser() -> argparse.ArgumentParser:
                     help="fixed = legacy sequential batch loop, as a "
                          "scheduler configuration")
     ap.add_argument("--obs", action="store_true",
-                    help="engine metrics (not ported yet: ROADMAP A.10)")
+                    help="enable scheduler/engine metrics "
+                         "(queue depth, occupancy, TTFT/TPOT, page residency)")
     ap.add_argument("--device", default="cuda",
                     help="where the model and the KV pool live (cuda, or "
                          "cpu for the plain versions)")
@@ -72,9 +83,6 @@ def parser() -> argparse.ArgumentParser:
 def build_model(args) -> Model:
     """The model ``args`` name, with random weights from seed 0 drawn on
     ``args.device``."""
-    if args.obs:
-        raise NotImplementedError("--obs waits for the port's obs package "
-                                  "(ROADMAP A.10)")
     device = resolve_device(args.device)
     cfg = get(args.arch)
     if args.smoke:
@@ -102,7 +110,8 @@ def build_engine(args, model: Model | None = None, *,
                        n_pages=n_pages)
     engine = ServeEngine(model, kv=kv, max_batch=args.max_batch,
                          max_prompt=args.prompt_len, gen_cap=args.gen_len,
-                         mode=args.mode, collect_logits=collect_logits)
+                         mode=args.mode, collect_logits=collect_logits,
+                         obs=ObsPolicy(enabled=True) if args.obs else None)
     requests = [
         Request(rid=i,
                 prompt=batch_for_step(cfg.vocab, 1, args.prompt_len,
@@ -124,6 +133,11 @@ def report(args, engine, out) -> None:
     print(f"kv pool: {out['kv_pool_bytes']} B "
           f"({out['kv_f32_pool_bytes']} B as f32, "
           f"{out['kv_f32_pool_bytes'] / max(out['kv_pool_bytes'], 1):.1f}x)")
+    if args.obs:
+        snap = engine.session.summary().get("metrics", {})
+        for key in OBS_KEYS:
+            if key in snap:
+                print(f"  {key}: {snap[key]}")
 
 
 def main(argv=None):

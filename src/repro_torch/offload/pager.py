@@ -19,19 +19,24 @@ Neither blocks the host.  The overlap is measured on the device: the time
 the compute stream waited for a round's copies against the copies' own
 time, read back (with CUDA events) when :meth:`FeaturePager.stats` is
 called; ``overlap_frac`` is the lifetime share of copy time hidden behind
-compute and ``overlap_frac_window`` the mean of the last ``window``
-fetches.  On the CPU the pages are plain tensors copied in program order,
-and nothing waits.  A metrics registry (``metrics=``) comes with the
-observability package (ROADMAP A.10) and raises until then.
+compute.  Each fetch's own overlap lands, once its timings are read, in
+the windowed ``pager/overlap_frac`` histogram of the metrics registry
+(``metrics=``, the run's :class:`~repro_torch.obs.metrics.MetricsRegistry`;
+a private one when none is passed), so ``overlap_frac_window`` is the mean
+of the last ``window`` fetches: recent behaviour, where the lifetime share
+averages early stalls away.  The registry also counts ``pager/fetches``
+and ``pager/prefetch_hits`` and holds the ``pager/round_bytes`` and
+``pager/host_bytes`` gauges.  On the CPU the pages are plain tensors
+copied in program order, and nothing waits.
 """
 from __future__ import annotations
 
-import collections
 import time
 
 import numpy as np
 import torch
 
+from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.offload.engine import PAGE_WORDS, SideStream, host_empty
 
 #: Default size of the per-fetch overlap window (rounds, not epochs).
@@ -43,12 +48,9 @@ class FeaturePager:
     time: rows ``features[r, rank]`` for round ``r``."""
 
     def __init__(self, features: np.ndarray, device, *, rank: int = 0,
-                 page_rows: int | None = None, metrics=None,
+                 page_rows: int | None = None,
+                 metrics: MetricsRegistry | None = None,
                  window: int = OVERLAP_WINDOW):
-        if metrics is not None:
-            raise NotImplementedError(
-                "FeaturePager(metrics=...): the metrics registry is not "
-                "ported yet (ROADMAP A.10)")
         if features.ndim != 4:
             raise ValueError("features must be (rounds, m, n_pad, F); got "
                              f"shape {features.shape}")
@@ -80,7 +82,14 @@ class FeaturePager:
         self._span_s = 0.0
         self._fetches = 0
         self._prefetch_hits = 0
-        self._overlap = collections.deque(maxlen=window)
+        # a private enabled registry when the caller passes none, so the
+        # windowed stats exist without an obs session
+        reg = metrics if metrics is not None else MetricsRegistry()
+        self._overlap = reg.histogram("pager/overlap_frac", window=window)
+        self._fetch_ctr = reg.counter("pager/fetches")
+        self._hit_ctr = reg.counter("pager/prefetch_hits")
+        reg.gauge("pager/round_bytes").set(self.round_bytes)
+        reg.gauge("pager/host_bytes").set(self.host_bytes)
 
     def prefetch(self, r: int) -> None:
         """Queue round ``r``'s copies to the device (idempotent until the
@@ -119,12 +128,14 @@ class FeaturePager:
         compute stream waits for their copies.  Consumes the prefetch."""
         if r in self._inflight:
             self._prefetch_hits += 1
+            self._hit_ctr.inc()
         else:
             self.prefetch(r)
         dev, start, done = self._inflight.pop(r)
         self._fetches += 1
+        self._fetch_ctr.inc()
         if done is None:
-            self._overlap.append(1.0)
+            self._overlap.observe(1.0)
         else:
             stream = torch.cuda.current_stream(self.device)
             before, after = (torch.cuda.Event(enable_timing=True)
@@ -143,7 +154,7 @@ class FeaturePager:
             blocked = max(0.0, before.elapsed_time(after) / 1e3)
             self._span_s += span
             self._blocked_s += blocked
-            self._overlap.append(max(0.0, 1.0 - blocked / span))
+            self._overlap.observe(max(0.0, 1.0 - blocked / span))
         self._pending = []
 
     def stats(self) -> dict:
@@ -151,7 +162,6 @@ class FeaturePager:
         copy seconds and the lifetime and windowed overlap shares."""
         self._settle()
         span = self._span_s
-        window = list(self._overlap)
         return {
             "fetches": self._fetches,
             "prefetch_hits": self._prefetch_hits,
@@ -164,8 +174,7 @@ class FeaturePager:
             "span_s": span,
             "overlap_frac": (0.0 if span == 0.0
                              else max(0.0, 1.0 - self._blocked_s / span)),
-            "overlap_frac_window": (sum(window) / len(window) if window
-                                    else 0.0),
-            "overlap_frac_window_min": min(window) if window else 0.0,
-            "overlap_window_size": len(window),
+            "overlap_frac_window": self._overlap.window_mean,
+            "overlap_frac_window_min": self._overlap.window_min,
+            "overlap_window_size": self._overlap.window_size,
         }

@@ -23,8 +23,15 @@ reference blocks until ready) makes TTFT real.  The host mirrors of the
 scheduler advance without reading the card; the decode step takes its
 active slots from them.
 
-Not ported yet: the ``ObsSession`` spans and counters (ROADMAP A.10); the
-summary carries the reference's percentiles with obs off.
+``obs=`` (an :class:`~repro_torch.obs.session.ObsSession` or an
+:class:`~repro_torch.obs.policy.ObsPolicy`) records the reference's
+serving telemetry: the spans ``serve/prefill`` (which waits for the card)
+and ``serve/decode_step`` (host time: the step's enqueueing), the counters
+``serve/prefill_tokens``, ``admitted``, ``completed``, ``rejected`` and
+``decode_steps``, the gauge ``serve/pages_in_use`` (its maximum) and the
+histograms ``serve/ttft_ms``, ``tpot_ms``, ``queue_depth`` and
+``occupancy``.  None of it touches the slot state or the pool, so tokens
+and logits are those of a run without it.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import torch
 from repro_torch.engine.seeds import kv_seed
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import mm, rmsnorm, swiglu
+from repro_torch.obs.session import ObsSession
 from repro_torch.serving import kvcache
 from repro_torch.serving.kvcache import KVCacheConfig, plan_kv_layout
 from repro_torch.serving.scheduler import MODES, Scheduler
@@ -169,9 +177,6 @@ class ServeEngine:
                 "legacy loop, which the port has not yet (ROADMAP A.11)")
         if mode not in MODES:
             raise ValueError(f"mode={mode!r} not in {MODES}")
-        if obs:
-            raise NotImplementedError("serving observability waits for the "
-                                      "port's obs package (ROADMAP A.10)")
         self.model, self.mode = model, mode
         self.device = model.device
         kv = kv or KVCacheConfig()
@@ -183,6 +188,8 @@ class ServeEngine:
         self.max_pages_per_slot = -(-(max_prompt + gen_cap - 1) // T)
         self.max_batch = max_batch
         self.collect_logits = collect_logits
+        self.session = (obs if isinstance(obs, ObsSession)
+                        else ObsSession.from_policy(obs))
         self.pool, self.mechanism = kvcache.place_kv_pool(
             kvcache.init_kv_pool(self.layout, self.device), self.layout)
         self.alloc = kvcache.PageAllocator(kv.n_pages)
@@ -230,6 +237,7 @@ class ServeEngine:
 
     def _admit_group(self, group, state, page_table_np):
         """Prefill one same-prompt-length admission group and seat it."""
+        m = self.session
         S = group[0][1].prompt.shape[0]
         npg_prompt = -(-S // self.layout.page_tokens)
         slots = np.asarray([si for si, _, _ in group], np.int32)
@@ -242,22 +250,29 @@ class ServeEngine:
             page_table_np[si, :] = self.layout.null_page
             page_table_np[si, :len(pages)] = pages
             phys[gi, :] = pages[:npg_prompt]
-        self.pool, state = self._prefill(
-            self.pool, state, torch.as_tensor(prompts, device=self.device),
-            phys, slots, targets)
-        _sync(self.device)
+        with m.span("serve/prefill", batch=len(group), prompt_len=int(S)):
+            self.pool, state = self._prefill(
+                self.pool, state, torch.as_tensor(prompts,
+                                                  device=self.device),
+                phys, slots, targets)
+            _sync(self.device)
         now = time.perf_counter()
         for si, req, _ in group:
             slot = self.sched.slots[si]
             slot.gen = 1
             slot.t_first = now
+        m.counter("serve/prefill_tokens").inc(int(prompts.size))
         return state
 
     # ------------------------------------------------------------ main run
     def run(self, requests) -> dict:
         """Drive a request list (with step-indexed arrivals) to completion;
         returns per-request results plus throughput/latency metrics."""
-        requests = list(requests)
+        with self.session.activate():
+            return self._run(list(requests))
+
+    def _run(self, requests) -> dict:
+        m = self.session
         B, maxp = self.max_batch, self.max_pages_per_slot
         state = self._init_state()
         page_table_np = np.full((B, maxp), self.layout.null_page, np.int32)
@@ -293,6 +308,9 @@ class ServeEngine:
                 self.sched.complete(si)
                 page_table_np[si, :] = self.layout.null_page
                 dirty = True
+                m.counter("serve/completed").inc()
+                m.histogram("serve/ttft_ms").observe(ttft * 1e3)
+                m.histogram("serve/tpot_ms").observe(tpot * 1e3)
             if dirty:
                 page_table = torch.as_tensor(page_table_np,
                                              device=self.device)
@@ -305,6 +323,8 @@ class ServeEngine:
                 if not ok:
                     results[req.rid] = RequestResult(
                         rid=req.rid, status="rejected", reason=reason)
+                    m.counter("serve/rejected").inc()
+            m.histogram("serve/queue_depth").observe(len(self.sched.queue))
             admitted = self.sched.admit()
             if admitted:
                 by_len: dict[int, list] = {}
@@ -314,6 +334,8 @@ class ServeEngine:
                     state = self._admit_group(group, state, page_table_np)
                 page_table = torch.as_tensor(page_table_np,
                                              device=self.device)
+                m.counter("serve/admitted").inc(len(admitted))
+                m.gauge("serve/pages_in_use").max(self.alloc.used_pages)
             completions(state)
             if self.sched.active_count == 0:
                 if self.sched.queue:
@@ -324,10 +346,14 @@ class ServeEngine:
                     step_idx = max(step_idx + 1, pending[0].arrival)
                     continue
                 break
-            state = self._step(page_table, state)
+            with m.span("serve/decode_step", step=step_idx):
+                state = self._step(page_table, state)
             step_idx += 1
             decode_steps += 1
             self.sched.tick()
+            m.counter("serve/decode_steps").inc()
+            m.histogram("serve/occupancy").observe(
+                self.sched.active_count / B)
             completions(state)
 
         wall = time.perf_counter() - t0

@@ -244,8 +244,8 @@ def test_controller_rules():
     _, tg = _graphs()
     _, tcfg = _cfgs()
     dg = device_graph(tg, "sage", "cpu")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        AutoprecController(dg, tcfg, 2.0, 2, 0, calibration="obs")
+    with pytest.raises(ValueError, match="calibration"):
+        AutoprecController(dg, tcfg, 2.0, 2, 0, calibration="bogus")
     with pytest.raises(ValueError, match="compression"):
         AutoprecController(dg, TCfg(hidden=(32, 32), n_classes=6), 2.0, 2, 0)
     ctrl = AutoprecController(dg, tcfg, 2.0, 3, 0)
@@ -260,6 +260,38 @@ def test_controller_rules():
     cfg2, changed2 = ctrl.allocate(model)
     assert ctrl.budget_bytes == budget       # frozen on the first allocate
     assert cfg2 == cfg and not changed2
+
+
+@pytest.mark.parametrize("arch", ["sage", "gcn"])
+def test_obs_calibration_allocates_as_reference(arch):
+    """``calibration="obs"`` prices each layer from the quant-health probe's
+    measured variance: the same widths and budget as the reference's
+    controller on the same weights, and the widths its sensitivities give
+    through the copied allocator."""
+    from repro.engine.precision import AutoprecController as JController
+    from repro_torch.obs.quantstats import (measure_quant_health,
+                                            measured_sensitivity)
+
+    jg, tg = _graphs()
+    jcfg, tcfg = _cfgs(arch)
+    jp, model = _carried(jcfg, tcfg)
+    dg = device_graph(tg, arch, "cpu")
+    ctrl = AutoprecController(dg, tcfg, 2.0, 2, 0, calibration="obs")
+    cfg, changed = ctrl.allocate(model)
+    jctrl = JController(graph_tuple(jg), jg.labels,
+                        jg.train_mask.astype(np.float32), jcfg, 2.0, 2, 0,
+                        calibration="obs")
+    jctrl.allocate(jp)
+    assert changed and ctrl.bits == jctrl.bits
+    assert ctrl.budget_bytes == jctrl.budget_bytes
+    assert [c.bits for c in cfg.layer_compression()] == list(ctrl.bits)
+    stats = t_analysis.collect_layer_stats(model, dg, tcfg)
+    sens = measured_sensitivity(measure_quant_health(model, dg, tcfg),
+                                tcfg.layer_compression())
+    stats = [s.__class__(s.shape, s.n_blocks, s.rng_sq_mean, v)
+             for s, v in zip(stats, sens)]
+    assert t_ap.allocate_bits(stats, tcfg.layer_compression(),
+                              ctrl.budget_bytes) == ctrl.bits
 
 
 def test_recompile_keeps_model_state_and_graph():

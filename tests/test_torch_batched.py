@@ -424,13 +424,24 @@ def test_plan_validation(make, match):
         make()
 
 
-@pytest.mark.parametrize("call,item", [
-    (lambda g, c: ExecutionPlan(obs=object()), "A.10")])
-def test_unported_parts_raise(call, item):
-    _, tg = _graphs()
-    _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match=item):
-        call(tg, tcfg)
+@pytest.mark.parametrize("obs", [
+    dict(enabled=True), dict(enabled=True, trace=False),
+    dict(enabled=True, quant_stats=True, quant_stats_every=2),
+    dict(enabled=True, trace=False, metrics=False)])
+def test_plan_obs_policy_equal_to_reference(obs):
+    """The obs policy rides the plan: ``from_legacy(obs=)`` carries it and
+    ``describe()`` reads as the reference's for the same plan."""
+    from repro.engine.plan import ExecutionPlan as JPlan
+    from repro.engine.plan import ObsPolicy as JObs
+    from repro_torch.engine.plan import ObsPolicy
+
+    kw = dict(n_parts=2, bit_budget=2.0, autoprec_refresh=2,
+              offload="device")
+    plan = ExecutionPlan.from_legacy(obs=ObsPolicy(**obs), **kw)
+    assert plan.obs == ObsPolicy(**obs)
+    assert plan.describe() == JPlan.from_legacy(obs=JObs(**obs),
+                                                **kw).describe()
+    assert ExecutionPlan.from_legacy(**kw).obs == ObsPolicy()
 
 
 def test_train_gnn_batched_offload_host_runs():

@@ -1169,3 +1169,103 @@ def test_cuda_two_ranks_share_the_card(cuda):
         np.testing.assert_array_equal(pa, pb)
         np.testing.assert_allclose(pa, pr.detach().cpu().numpy(), rtol=2e-4,
                                    atol=2e-5)
+
+
+# ---------------------------------------------------------- observability
+@pytest.mark.gpu
+@pytest.mark.parametrize("rp", [8, 0])
+def test_cuda_quant_probe_through_the_kernels(cuda, rp):
+    """The quant-health probe on the card launches one ``rp_project`` per
+    RP layer and one ``quant_pack`` and ``dequant_unpack`` per compressed
+    layer, and agrees with ``impl="torch"`` on the same inputs: without RP
+    the codes are bit-equal (``measured_var`` within rtol 1e-6,
+    ``sat_rate`` equal), with RP 8 within rtol 1e-3 and atol 1e-3."""
+    from repro_torch.graph.models import device_graph
+    from repro_torch.obs.quantstats import measure_quant_health
+
+    g, cfg, model = _small_batched_setup(rp)
+    model = model.cuda()
+    dg = device_graph(g, "sage", "cuda")
+    wrappers = (t_qk.quant_pack, t_qk.dequant_unpack, t_rk.rp_project)
+    for w in wrappers:
+        w.launches = 0
+    got = measure_quant_health(model, dg, cfg)
+    n = cfg.n_layers
+    assert [w.launches for w in wrappers] == [n, n, n if rp else 0]
+    want = measure_quant_health(model, dg, cfg.with_impl("torch"))
+    assert [w.launches for w in wrappers] == [n, n, n if rp else 0]
+    for a, b in zip(got, want):
+        assert a["n_elements"] == b["n_elements"]
+        assert a["n_blocks"] == b["n_blocks"]
+        if rp:
+            np.testing.assert_allclose(a["measured_var"], b["measured_var"],
+                                       rtol=1e-3)
+            assert abs(a["sat_rate"] - b["sat_rate"]) <= 1e-3
+        else:
+            np.testing.assert_allclose(a["measured_var"], b["measured_var"],
+                                       rtol=1e-6)
+            assert a["sat_rate"] == b["sat_rate"]
+        np.testing.assert_allclose(a["rng_sq_mean"], b["rng_sq_mean"],
+                                   rtol=1e-3 if rp else 1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_pager_registry_without_a_sync_per_fetch(cuda, monkeypatch):
+    """With a registry, the pager's overlap histogram gets one observation
+    a fetch, read from the CUDA events when ``stats()`` is called: the
+    fetch loop itself waits on nothing."""
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.offload.pager import FeaturePager
+
+    feats = np.random.default_rng(0).normal(
+        size=(3, 1, 5000, 128)).astype(np.float32)
+    reg = MetricsRegistry()
+    pager = FeaturePager(feats, "cuda", metrics=reg)
+    waits = []
+    real_event_sync = torch.cuda.Event.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: waits.append("device"))
+    monkeypatch.setattr(torch.cuda.Event, "synchronize",
+                        lambda self: waits.append("event"))
+    monkeypatch.setattr(torch.cuda.Stream, "synchronize",
+                        lambda self: waits.append("stream"))
+    pager.prefetch(0)
+    for r in range(6):
+        _busy(1024, 2)
+        pager.fetch(r % 3)
+        pager.prefetch((r + 1) % 3)
+    assert waits == []
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", real_event_sync)
+    st = pager.stats()
+    snap = reg.snapshot()
+    assert snap["pager/fetches"] == st["fetches"] == 6
+    assert snap["pager/overlap_frac"]["count"] == 6
+    assert 0.0 <= st["overlap_frac_window"] <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["full", "partition", "mesh"])
+def test_cuda_obs_on_is_bit_identical(cuda, kind):
+    """Spans, metrics and the quant probe every 2 epochs move no bit of a
+    run on the card: losses, parameters and the live stash."""
+    import dataclasses
+
+    from repro_torch.engine.plan import (ExecutionPlan, ObsPolicy,
+                                         SamplingPolicy)
+    from repro_torch.engine.runner import run
+
+    g, cfg, model = _small_batched_setup(8)
+    sampling = {"full": SamplingPolicy(),
+                "partition": SamplingPolicy(kind="partition", n_parts=2),
+                "mesh": SamplingPolicy(kind="mesh", n_parts=2)}[kind]
+    plan = ExecutionPlan(sampling=sampling)
+    obs = ObsPolicy(enabled=True, quant_stats=True, quant_stats_every=2)
+    off = run(g, cfg, plan, n_epochs=3, params=model)
+    on = run(g, cfg, dataclasses.replace(plan, obs=obs), n_epochs=3,
+             params=model)
+    assert [h[1] for h in off["history"]] == [h[1] for h in on["history"]]
+    assert all(torch.equal(p, q) for p, q in
+               zip(off["model"].parameters(), on["model"].parameters()))
+    assert off["stash_bytes"] == on["stash_bytes"]
+    rows = on["obs"].quant_rows()
+    assert len(rows) == cfg.n_layers and rows[0]["epoch"] == 2

@@ -282,8 +282,27 @@ def test_serve_launcher_kv_host_policies(policy):
         np.testing.assert_array_equal(a, b)
 
 
+def test_serve_launcher_obs(capsys):
+    """``--obs`` serves the same tokens and prints the reference's serving
+    counters."""
+    argv = ["--arch", "qwen1.5-4b", "--smoke", "--device", "cpu",
+            "--requests", "3", "--max-batch", "2", "--prompt-len", "12",
+            "--gen-len", "5", "--kv-bits", "4"]
+    plain = t_serve.main(argv)
+    capsys.readouterr()
+    outs = t_serve.main(argv + ["--obs"])
+    for a, b in zip(outs, plain):
+        np.testing.assert_array_equal(a, b)
+    printed = dict(line.strip().split(": ", 1)
+                   for line in capsys.readouterr().out.splitlines()
+                   if line.startswith("  serve/"))
+    # a counter prints once it has counted: nothing was rejected
+    assert set(printed) == set(t_serve.OBS_KEYS) - {"serve/rejected"}
+    assert printed["serve/admitted"] == printed["serve/completed"] == "3"
+    assert int(printed["serve/decode_steps"]) > 0
+
+
 @pytest.mark.parametrize("argv,error,match", [
-    (["--obs"], NotImplementedError, "A.10"),
     (["--arch", "mamba2-780m"], NotImplementedError, "A.11"),
 ])
 def test_serve_launcher_refuses_what_is_not_ported(argv, error, match):

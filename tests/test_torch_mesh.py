@@ -412,9 +412,34 @@ def test_feature_pager_round_trip_and_stats():
 def test_feature_pager_refusals():
     with pytest.raises(ValueError, match="rounds, m, n_pad, F"):
         FeaturePager(np.zeros((2, 3, 4), np.float32), "cpu")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        FeaturePager(np.zeros((1, 1, 4, 2), np.float32), "cpu",
-                     metrics=object())
+
+
+
+def test_feature_pager_metrics_registry():
+    """``metrics=`` takes a registry: the reference's counters, gauges and
+    windowed overlap histogram land in it, one observation a fetch, and
+    ``stats()`` reads its window."""
+    from repro_torch.obs.metrics import MetricsRegistry
+
+    feats = np.random.default_rng(0).normal(
+        size=(3, 1, 100, 16)).astype(np.float32)
+    reg = MetricsRegistry()
+    pager = FeaturePager(feats, "cpu", page_rows=7, metrics=reg, window=2)
+    pager.prefetch(0)
+    for r in range(3):
+        np.testing.assert_array_equal(pager.fetch(r).numpy(), feats[r, 0])
+        pager.prefetch((r + 1) % 3)
+    st = pager.stats()
+    snap = reg.snapshot()
+    assert snap["pager/fetches"] == st["fetches"] == 3
+    assert snap["pager/prefetch_hits"] == st["prefetch_hits"] == 3
+    assert snap["pager/round_bytes"] == st["round_bytes"]
+    assert snap["pager/host_bytes"] == st["host_bytes"]
+    assert snap["pager/overlap_frac"]["count"] == 3
+    assert snap["pager/overlap_frac"]["window_size"] == 2
+    assert st["overlap_window_size"] == 2
+    assert st["overlap_frac_window"] == snap["pager/overlap_frac"][
+        "window_mean"]
 
 
 # ------------------------------------------------------- the byte ledger

@@ -393,10 +393,59 @@ def test_engine_rejection_reasons(served):
     assert not ok and "KV pages" in reason
 
 
+@pytest.mark.parametrize("mode", ["continuous", "fixed"])
+def test_engine_obs_counters_equal_to_reference(served, mode):
+    """``obs=ObsPolicy(enabled=True)``: the tokens and logits of a run
+    without it, every request admitted and completed, and the serving
+    counters, gauge and histogram counts the reference's engine records
+    for the same requests (times differ, so only counts are compared)."""
+    from repro.obs import ObsPolicy as JObs
+    from repro_torch.obs import ObsPolicy, ObsSession
+
+    jm, params, tm, prompts = served
+    maxp = -(-(S + GEN - 1) // T)
+    reqs = [Request(rid=i, prompt=prompts[i], max_new=GEN) for i in range(3)]
+    plain = _engine(tm, prompts, bits=4, n_pages=2 * maxp, max_batch=2,
+                    mode=mode, collect_logits=True)
+    session = ObsSession(ObsPolicy(enabled=True))
+    kv = KVCacheConfig(bits=4, group_size=64, page_tokens=T,
+                       n_pages=2 * maxp)
+    eng = ServeEngine(tm, kv=kv, max_batch=2, max_prompt=S, gen_cap=GEN,
+                      mode=mode, obs=session, collect_logits=True)
+    assert eng.session is session
+    out = eng.run(reqs)
+    for a, b in zip(out["results"], plain["results"]):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+        np.testing.assert_array_equal(out["logits"][a.rid],
+                                      plain["logits"][b.rid])
+    snap = session.registry.snapshot()
+    assert snap["serve/admitted"] == snap["serve/completed"] == 3
+    assert snap["serve/ttft_ms"]["count"] == 3
+    names = [sp.name for sp in session.tracer.spans]
+    assert names.count("serve/decode_step") == snap["serve/decode_steps"]
+    jkv = JKV(bits=4, group_size=64, page_tokens=T, n_pages=2 * maxp)
+    jeng = JEngine(jm, params, kv=jkv, max_batch=2, max_prompt=S,
+                   gen_cap=GEN, mode=mode, obs=JObs(enabled=True))
+    jeng.run([JRequest(rid=i, prompt=prompts[i], max_new=GEN)
+              for i in range(3)])
+    jsnap = jeng.session.registry.snapshot()
+    assert set(snap) == set(jsnap)
+    for key, want in jsnap.items():
+        if isinstance(want, dict):
+            assert snap[key]["count"] == want["count"], key
+            if key in ("serve/queue_depth", "serve/occupancy"):
+                assert snap[key] == want, key
+        else:
+            assert snap[key] == want, key
+    jnames = [sp.name for sp in jeng.session.tracer.spans]
+    assert names == jnames
+    # a policy that is off binds the shared null session
+    assert ServeEngine(tm, max_batch=1, max_prompt=S, gen_cap=GEN,
+                       obs=ObsPolicy()).session.registry is None
+
+
 def test_engine_refuses_what_is_not_ported(served):
     _, _, tm, _ = served
-    with pytest.raises(NotImplementedError, match="A.10"):
-        ServeEngine(tm, max_batch=1, max_prompt=S, gen_cap=GEN, obs=True)
     mamba = dataclasses.replace(tm.cfg, family="ssm")
     fake = type("M", (), {"cfg": mamba})()
     with pytest.raises(ValueError, match="families"):

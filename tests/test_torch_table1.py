@@ -209,12 +209,26 @@ def test_activation_memory_report_equal(case, hidden):
     assert t_report(tg, tcfg) == j_report(jg, jcfg)
 
 
-@pytest.mark.parametrize("kw,item", [({"quant_health": []}, "A.10")])
-def test_activation_memory_report_unported_sections_raise(kw, item):
-    _, tg = _graphs()
-    _, tcfg = _cfgs((2, 125, 8, False))
-    with pytest.raises(NotImplementedError, match=item):
-        t_report(tg, tcfg, **kw)
+def test_activation_memory_report_quant_health():
+    """``quant_health=`` attaches the probe's rows verbatim, beside the
+    byte ledger, as the reference's report does (an empty list attaches
+    nothing)."""
+    from repro_torch.graph.analysis import variance_validation_report
+    from repro_torch.graph.models import device_graph
+
+    jg, tg = _graphs()
+    jc, tc = _cfgs((2, 125, 8, False))
+    jp = init_gnn_params(jax.random.PRNGKey(0), jc, jg.n_feats)
+    model = params_from_numpy([{k: np.asarray(v) for k, v in p.items()}
+                               for p in jp], tc, device="cpu")
+    rows = variance_validation_report(model, device_graph(tg, "sage", "cpu"),
+                                      tc)
+    got = t_report(tg, tc, quant_health=rows)
+    assert got["quant_health"] is rows
+    assert [r["layer"] for r in rows] == [0, 1, 2]
+    want = j_report(jg, jc, quant_health=rows)
+    assert got == want
+    assert "quant_health" not in t_report(tg, tc, quant_health=[])
 
 
 @pytest.mark.parametrize("kw", [

@@ -91,6 +91,31 @@ def train(rank: int, world: int, entry: str, arch: str, compressed: bool,
             **{k: res[k] for k in keep if k in res}}
 
 
+def train_plan(rank: int, world: int, obs: bool) -> dict:
+    """``engine.runner.run`` under a mesh plan of 4 parts over the default
+    group for 2 epochs, with the obs policy on or off; with it on, also the
+    rank's metrics and its count of ``mesh/round`` spans."""
+    from repro_torch.engine.plan import (ExecutionPlan, ObsPolicy,
+                                         SamplingPolicy)
+    from repro_torch.engine.runner import run
+
+    g, cfg = graph(), config()
+    plan = ExecutionPlan(sampling=SamplingPolicy(kind="mesh", n_parts=4),
+                         obs=ObsPolicy(enabled=obs))
+    res = run(g, cfg, plan, n_epochs=2, seed=0, params=model(cfg),
+              device="cpu", mesh=dist.group.WORLD)
+    out = {"losses": [h[1] for h in res["history"]],
+           "params": [p.detach().cpu().numpy()
+                      for p in res["model"].parameters()],
+           **{k: res[k] for k in ("halo_bytes_sent", "halo_bytes_per_epoch",
+                                  "updates_per_epoch")}}
+    if obs:
+        out["snapshot"] = res["obs"].registry.snapshot()
+        out["rounds"] = sum(s.name == "mesh/round"
+                            for s in res["obs"].tracer.spans)
+    return out
+
+
 def fail_on_rank_1(rank: int, world: int) -> int:
     """Rank 1 raises; rank 0 returns its rank."""
     if rank == 1:
