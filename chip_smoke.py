@@ -14,7 +14,7 @@ Phases, in order; any failure raises and exits non-zero:
    shapes, the bf16 tensor-core kernel also bit-identical from call to
    call with at most 1 % of its outputs not bit-equal to the plain
    version's, timed beside float32 and bf16 SDPA; the seeded quant_pack
-   and the window dequant_unpack at the KV cache's shapes; RP/IRP also bit-identical from call to call, with the
+   and the page dequant_unpack at the KV cache's shapes; RP/IRP also bit-identical from call to call, with the
    tensor-core kernel's bytes bound beside the float32 SIMT bound);
    then a small training run with the kernels against the plain path, and
    the full-size aggregation (spmm) checked for bit-reproducibility;
@@ -67,15 +67,21 @@ Phases, in order; any failure raises and exits non-zero:
 8. slice 3: serving full-width qwen1.5-4b (random bf16 weights, seed 0)
    through ``repro_torch.launch.serve``'s engine: 8 requests of 1000 prompt
    tokens and 32 generated, 4 slots, continuous batching, 4-bit KV pages
-   (G=64, 16 tokens a page).  Every request served with 32 tokens; launch
+   (G=64, 16 tokens a page), decode reading the cache one page per
+   online-softmax step.  Every request served with 32 tokens; launch
    counts as planned (flash 80, seeded quant_pack 5120, dequant_unpack
-   4960, no plain attention on the card); the live pool's bytes equal the
-   layout's; TTFT, TPOT, tokens/s and peak memory of that run, which
-   collects no logits, as the launcher runs; two more runs that collect
-   the logits give the same tokens and identical, finite logits; at 2
-   layers of full width the prefill logits with the kernel agree with the
-   plain attention on the card; prefill and decode step times, and one
-   profiled prefill and decode step;
+   161,200: 62 steps x 40 layers x 65 pages, K and V of a page in one
+   launch, no plain attention on the card); the live pool's bytes equal the layout's; TTFT,
+   TPOT, tokens/s and peak memory of that run, which collects no logits,
+   as the launcher runs; two more runs that collect the logits give the
+   same tokens and identical, finite logits; at 2 layers of full width the
+   prefill logits with the kernel agree with the plain attention on the
+   card, and a decode step's logits through the paged read agree with
+   ``decode_attend`` over the same pages dequantized by the plain version
+   and laid end to end (logged at 40 layers too); prefill and decode step
+   times, the decode step through the paged read and through the whole-
+   window read it replaced in turns, and one profiled prefill and decode
+   step;
 9. slice 11, the stash arena and offload engine: (a)-(d) run after phase
    7 on phase 4's graph and weights, (e) after phase 8.  (a) ``train_gnn``
    on phase 4's config for 3 epochs under ``offload=None``, ``"device"``,
@@ -91,7 +97,9 @@ Phases, in order; any failure raises and exits non-zero:
    within ``device_resident_stash_bytes``, no misaligned packed view,
    epoch times and peak memory logged; then one probe step a placement
    (``host_store_bytes`` the plan's bytes after the forward, 0 after the
-   backward), profiled under the host placements (the side stream's copy
+   backward; the measured residual bytes, the reference offload
+   benchmark's ``ordering_ok``: ``pinned-paged <= device <= None`` at
+   (a)-(c)), profiled under the host placements (the side stream's copy
    time hidden under the compute stream's kernels, from the trace).  (e)
    the kernels at its shapes, then phase 8's recipe on 2 requests of 1000
    + 8 tokens under the KV policies ``device``, ``host`` and
@@ -137,7 +145,26 @@ Phases, in order; any failure raises and exits non-zero:
    round and ``halo/bytes`` the bytes sent; (e) phase 9 (e)'s ``device``
    recipe with ``--obs``: its tokens and logits, 2 requests completed, 2
    TTFT observations.  The phase stays under PHASE11_LIMIT_S;
-12. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+12. slice 14, the training launcher (``repro_torch.launch.train``) in
+   process, after phase 11 (e): (a) the graph half at phase 4's size:
+   ``--graph-batches 8 --steps 3`` equal to ``engine.runner.run`` on the
+   same plan bit for bit, its printed peak and live stash equal to
+   ``activation_memory_report``; ``--mesh-parts 8 --steps 2`` on one rank
+   equal to ``train_gnn_batched(shuffle=False)`` bit for bit; the device
+   arena with autoprec at ``--bit-budget 2.0`` and ``--obs --trace-out``
+   (widths within the budget, the arena line, the trace files); (b) the
+   LM half on qwen1.5-4b at full width and 40 layers under ``act`` (B 2 x
+   1024, 5 steps: a finite, falling loss, 40 quant_pack and dequant_unpack
+   launches a step, step times, the peak beside the reckoning, one
+   profiled step), then at 8 layers 2 steps each of none / remat / act
+   from the same weights (peak, step times, and the loss graph's residual
+   bytes, which must order act < remat < none), and act with the
+   pinned-paged stash bit-identical to the device stash; (c) at the smoke
+   width, 4 steps checkpointed every 2, then ``--steps 6`` in the same
+   directory resumes at step 4 and equals an uninterrupted 6-step run bit
+   for bit, and ``--fail-at 3`` raises and leaves ``step_2`` loadable.
+   The phase stays under PHASE12_LIMIT_S;
+13. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX; without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -145,6 +172,7 @@ the repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import json
@@ -244,7 +272,9 @@ EXTRA_QUANT = (("flickr", 89_250, 125, 2, None),
                ("adamw8", 1_000, 256, 8, None),
                ("adamw8", 512, 256, 8, None),
                ("adamw8", 14, 256, 8, None),
-               ("adamw8", 1, 256, 8, None))
+               ("adamw8", 1, 256, 8, None),
+               # phase 12's LM stash: B 2 x 1024 tokens x 2560 / G 256
+               ("lm", 20_480, 256, 2, None))
 
 
 #: Phase 7's 2-bit VM blocks of 256: the RP-8 stashes of a halo-0 batch
@@ -310,8 +340,8 @@ def quant_case(torch, qk, ref, n_blocks, G, bits, lv, flush, gen) -> tuple:
 def check_quant(torch, qk, ref, levels, flush, gen) -> dict:
     """quant_pack / dequant_unpack at the main path's block counts: slice
     1's 2-bit blocks of 256 (uniform and VM), phase 7's
-    (BATCH_QUANT_BLOCKS), then EXTRA_QUANT (ragged words and the 256-level
-    table)."""
+    (BATCH_QUANT_BLOCKS), then EXTRA_QUANT (ragged words, the 256-level
+    table, the 8-bit AdamW moments and the LM's layer stash)."""
     from repro_torch.core.variance import optimize_levels
 
     cases = [(n, 256, 2, lv) for n in (21_168, 42_336)
@@ -1242,7 +1272,8 @@ def check_flash(torch, fa, ref, flush, gen) -> dict:
 #: token, 40 blocks of G=64 at 4 bits; 4 slots x 65 pages x 16 tokens.
 KV_G, KV_BITS, KV_NBT = 64, 4, 40
 KV_PREFILL_TOKENS = 4 * 1008         # a group's page-aligned prompt rows
-KV_WINDOW_TOKENS = 4 * 65 * 16       # the decode window of 4 slots
+KV_PAGE_TOKENS = 2 * 4 * 16          # one decode read: K and V of a page
+                                     # of each of 4 slots
 
 
 def check_kv_quant(torch, qk, ref, flush, gen) -> dict:
@@ -1274,7 +1305,7 @@ def check_kv_quant(torch, qk, ref, flush, gen) -> dict:
                    library_ms=None, bytes=nbytes)
         log(f"quant_pack (seeded) {tag} {n}x{KV_G}: bit-equal; {row}")
         rows[("quant_pack", f"{tag} {n}x{KV_G}")] = row
-    n = KV_WINDOW_TOKENS * KV_NBT
+    n = KV_PAGE_TOKENS * KV_NBT
     x = torch.randn((n, KV_G), device="cuda", generator=gen)
     pk, zk, rk = qk.quant_pack(x, KV_BITS, 5)
     got = qk.dequant_unpack(pk, zk, rk, KV_BITS, KV_G)
@@ -1282,7 +1313,7 @@ def check_kv_quant(torch, qk, ref, flush, gen) -> dict:
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     if err > 1e-6:
-        raise AssertionError(f"dequant_unpack kv window: max abs err {err}")
+        raise AssertionError(f"dequant_unpack kv page: max abs err {err}")
     nbytes = n * KV_G * 4 + n * KV_G * KV_BITS // 8 + 8 * n
     bnd = bound(nbytes, 4 * n * KV_G)
     row = dict(ms=time_ms(torch, lambda: qk.dequant_unpack(
@@ -1291,8 +1322,8 @@ def check_kv_quant(torch, qk, ref, flush, gen) -> dict:
                    pk, zk, rk, KV_BITS, KV_G), flush),
                bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=err,
                library_ms=None, bytes=nbytes)
-    log(f"dequant_unpack kv window {n}x{KV_G}: max abs err {err}; {row}")
-    rows[("dequant_unpack", f"kv window {n}x{KV_G}")] = row
+    log(f"dequant_unpack kv page {n}x{KV_G}: max abs err {err}; {row}")
+    rows[("dequant_unpack", f"kv page {n}x{KV_G}")] = row
     return rows
 
 
@@ -1300,29 +1331,105 @@ SERVE_ARGV = ["--arch", "qwen1.5-4b", "--requests", "8", "--max-batch", "4",
               "--prompt-len", "1000", "--gen-len", "32", "--kv-bits", "4",
               "--kv-group", "64", "--page-tokens", "16", "--mode",
               "continuous", "--kv-policy", "device", "--device", "cuda"]
+#: A slot's page table: ceil((1000 + 32 - 1) / 16) pages.
+SERVE_PAGES_PER_SLOT = 65
 #: Launches over one serving run: 2 prefill groups x 40 layers of flash;
 #: quant_pack once per layer and stream for each group's prompt and each of
 #: the 62 decode steps (2 groups x 31); dequant_unpack once per layer and
-#: stream for each decode step's window.
+#: page of the table (K and V together: the page-by-page read) each step.
 SERVE_LAUNCHES = {"flash_attention": 80, "quant_pack": 2 * 80 + 62 * 80,
-                  "dequant_unpack": 62 * 80}
+                  "dequant_unpack": 62 * 40 * SERVE_PAGES_PER_SLOT}
 #: 40 layers x 260 pages x 51,200 bytes (4-bit words + zero/range, K and V)
 SERVE_POOL_BYTES = 532_480_000
 
 
-def profile_serve(torch, engine, requests) -> dict:
-    """One admission group's prefill and single decode steps of a fresh
-    engine: host time (synchronized), then one profiled prefill and one
-    profiled decode step (device time by kernel, idle share)."""
-    from torch.profiler import ProfilerActivity, profile
+@contextlib.contextmanager
+def window_read(dequant):
+    """Inside: the serving engine's decode reads each slot's pages as one
+    float32 window, as the port did before the page-by-page read: every
+    page of the table gathered (null pages as zeros) and dequantized at
+    once by ``dequant`` (the kernel: one launch a layer and stream), then
+    ``decode_attend`` over the window.  The engine's ``make_page_fetch``
+    and ``decode_attend_paged`` are swapped for it and restored after."""
+    from repro_torch.models import attention as attn
+    from repro_torch.serving import kvcache
 
-    def admit():
-        for r in requests[:engine.max_batch]:
-            engine.sched.submit(r)
-        group = engine.sched.admit()
-        table = np.full((engine.max_batch, engine.max_pages_per_slot),
-                        engine.layout.null_page, np.int32)
-        return group, table
+    def fetch(pool_l, layout, table):
+        return pool_l, layout, table
+
+    def attend(q, pos, n_chunks, fetched, *, n_kv_heads, out_dtype):
+        pool_l, layout, table = fetched
+        b, maxp = table.shape
+        kv = []
+        for name in ("k", "v"):
+            pk, pz, pr = (kvcache._gather_pages(pool_l[f"{name}_{f}"], table,
+                                                layout.n_pages)
+                          for f in ("packed", "zero", "rng"))
+            blocks = dequant(pk.reshape(-1, layout.words_per_block),
+                             pz.reshape(-1), pr.reshape(-1), layout.bits,
+                             layout.group_size)
+            kv.append(blocks.reshape(b, maxp * layout.page_tokens,
+                                     layout.n_kv_heads, layout.d_head))
+        return attn.decode_attend(q, kv[0], kv[1], pos, out_dtype=out_dtype)
+
+    saved = kvcache.make_page_fetch, attn.decode_attend_paged
+    kvcache.make_page_fetch, attn.decode_attend_paged = fetch, attend
+    try:
+        yield
+    finally:
+        kvcache.make_page_fetch, attn.decode_attend_paged = saved
+
+
+def admit_group(engine, requests):
+    """Seat the first ``max_batch`` requests as one prefill group of a
+    fresh state; returns (state, host page table, prefill ms)."""
+    import torch
+
+    for r in requests[:engine.max_batch]:
+        engine.sched.submit(r)
+    group = engine.sched.admit()
+    table = np.full((engine.max_batch, engine.max_pages_per_slot),
+                    engine.layout.null_page, np.int32)
+    state = engine._init_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = engine._admit_group(group, state, table)
+    torch.cuda.synchronize()
+    return state, table, (time.perf_counter() - t0) * 1e3
+
+
+def paged_against_window(torch, engine, page_table, state, ref) -> tuple:
+    """One decode step of every seated slot through the page-by-page read,
+    then the same step from the same pool and state through
+    ``decode_attend`` over the window dequantized by the plain version
+    (``window_read(ref.dequantize_packed)``).  The engine must collect
+    logits; returns (max abs difference of the step's logits, their
+    largest magnitude, argmax equal); the pool and state are left as the
+    window step leaves them."""
+    rows = torch.arange(engine.max_batch, device="cuda")
+    col = state["gen"].to(torch.int64)
+    pool0 = {k: v.clone() for k, v in engine.pool.items()}
+    state0 = {k: v.clone() for k, v in state.items()}
+    paged = engine._step(page_table, state)["logits"][rows, col].clone()
+    for k, v in engine.pool.items():
+        v.copy_(pool0[k])
+    with window_read(ref.dequantize_packed):
+        window = engine._step(page_table, state0)["logits"][rows, col]
+    torch.cuda.synchronize()
+    if not (torch.isfinite(paged).all() and torch.isfinite(window).all()):
+        raise AssertionError("[serve] non-finite decode logits")
+    return (float((paged - window).abs().max()), float(window.abs().max()),
+            bool(torch.equal(paged.argmax(-1), window.argmax(-1))))
+
+
+def profile_serve(torch, engine, requests, qk, ref) -> dict:
+    """One admission group's prefill and single decode steps of a fresh
+    engine (collecting logits): host time (synchronized), the decode step
+    through the page-by-page read and through the window read it replaced
+    (``window_read`` with the kernel) in turns, one step's logits through
+    both reads (``paged_against_window``), then one profiled prefill and
+    one profiled decode step (device time by kernel, idle share)."""
+    from torch.profiler import ProfilerActivity, profile
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -1348,30 +1455,38 @@ def profile_serve(torch, engine, requests) -> dict:
         return out
 
     out = {}
-    state = engine._init_state()
-    group, table = admit()
-    state, out["prefill_ms"] = timed(
-        lambda: engine._admit_group(group, state, table))
+    state, table, out["prefill_ms"] = admit_group(engine, requests)
     page_table = torch.as_tensor(table, device=engine.device)
-    steps = []
-    for _ in range(5):
-        state, ms = timed(lambda: engine._step(page_table, state))
-        engine.sched.tick()
-        steps.append(ms)
+    steps = {"paged": [], "window": []}
+    for read in ("paged", "window", "window", "paged"):
+        for _ in range(3):
+            with (window_read(qk.dequant_unpack) if read == "window"
+                  else contextlib.nullcontext()):
+                state, ms = timed(lambda: engine._step(page_table, state))
+            engine.sched.tick()
+            steps[read].append(ms)
     out["decode_ms"] = steps
+    err, scale, same = paged_against_window(torch, engine, page_table, state,
+                                            ref)
+    engine.sched.tick()
+    log(f"[serve] 40 layers: a decode step's logits through the paged read "
+        f"against decode_attend over the plain-dequantized window: max abs "
+        f"err {err} (logits up to {scale}); argmax equal {same}")
     profiled(lambda: engine._step(page_table, state), "decode step")
     for si in range(engine.max_batch):
         engine.sched.complete(si)
-    state = engine._init_state()
-    group, table = admit()
-    profiled(lambda: engine._admit_group(group, state, table),
+    for r in requests[:engine.max_batch]:
+        engine.sched.submit(r)
+    group = engine.sched.admit()
+    profiled(lambda: engine._admit_group(group, engine._init_state(), table),
              "prefill (4 x 1000 tokens)")
     log(f"[serve] unprofiled: prefill of a 4 x 1000 group "
-        f"{out['prefill_ms']:.3f} ms; decode steps {steps} ms")
+        f"{out['prefill_ms']:.3f} ms; decode steps, paged read "
+        f"{steps['paged']} ms, window read {steps['window']} ms")
     return out
 
 
-def slice_serve(torch, wrappers, fa, ref) -> dict:
+def slice_serve(torch, wrappers, fa, qk, ref) -> dict:
     """Slice 3: serving full-width qwen1.5-4b through the launcher's engine
     (see the module docstring).  Returns the serving run's launch counts."""
     from repro_torch.configs import get
@@ -1453,7 +1568,9 @@ def slice_serve(torch, wrappers, fa, ref) -> dict:
         "identical to each other and finite")
     del out, first, again, runs
 
-    profile_serve(torch, serve.build_engine(args, model)[0], requests)
+    profile_serve(torch, serve.build_engine(args, model,
+                                            collect_logits=True)[0],
+                  requests, qk, ref)
     del model
     torch.cuda.empty_cache()
 
@@ -1477,7 +1594,20 @@ def slice_serve(torch, wrappers, fa, ref) -> dict:
     # bf16 value (2**-8 relative), which the rest of the layer carries on
     if err > 0.1:
         raise AssertionError(f"[serve] 2-layer logits differ by {err}")
-    del two
+    # and a decode step's logits through the paged read against
+    # decode_attend over the same pages laid end to end (plain-dequantized):
+    # the same bf16 band (the two sum the softmax in other orders)
+    two.impl = "auto"
+    engine2 = serve.build_engine(args, two, collect_logits=True)[0]
+    state, table, _ = admit_group(engine2, requests)
+    err, scale, same = paged_against_window(
+        torch, engine2, torch.as_tensor(table, device="cuda"), state, ref)
+    log(f"[serve] 2 layers: a decode step's logits through the paged read "
+        f"against the plain-dequantized window: max abs err {err} (logits "
+        f"up to {scale}); argmax equal {same}")
+    if err > 0.1:
+        raise AssertionError(f"[serve] 2-layer decode logits differ by {err}")
+    del two, engine2
     return launches
 
 
@@ -1521,14 +1651,17 @@ def copy_overlap(trace_path: str) -> dict:
 
 
 def offload_probe(torch, graph, cfg, model, policy, fused: str, what: str,
-                  profile_it: bool = False) -> None:
+                  profile_it: bool = False) -> int:
     """One forward and backward of ``cfg`` on ``graph`` through a fresh
     ArenaStore at ``policy`` (None: the per-tensor stash): host_store_bytes
     must be the plan's bytes after the forward (0 for None and "device")
     and 0 after the backward; logs the peak the step adds to what was
-    allocated before it.  With ``profile_it``, a second step runs under
-    torch.profiler and each stream's host copies are read against the other
-    streams' kernels."""
+    allocated before it.  Returns the step's measured residual bytes, the
+    reference offload benchmark's measure: the device bytes allocated with
+    the forward's graph (through the loss) alive, less those allocated once
+    the backward has run and its outputs are released.  With
+    ``profile_it``, a second step runs under torch.profiler and each
+    stream's host copies are read against the other streams' kernels."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -1544,22 +1677,26 @@ def offload_probe(torch, graph, cfg, model, policy, fused: str, what: str,
 
     def step(seed):
         logits = stash_gnn_forward(model, graph, cfg, seed, fused, store)
+        loss = masked_nll(logits, graph.labels, graph.train_mask)
         torch.cuda.synchronize()
         after = host_store_bytes()
-        loss = masked_nll(logits, graph.labels, graph.train_mask)
-        torch.autograd.grad(loss, model.flat_params())
+        with_graph = torch.cuda.memory_allocated()
+        grads = torch.autograd.grad(loss, model.flat_params())
         torch.cuda.synchronize()
-        return after, host_store_bytes()
+        del logits, loss, grads
+        released = torch.cuda.memory_allocated()
+        return after, host_store_bytes(), with_graph - released
 
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    fwd, bwd = step(0)
+    fwd, bwd, residual = step(0)
     first_ms = (time.perf_counter() - t0) * 1e3
     want = 0 if policy in (None, "device") else plan.total_bytes
     log(f"[{what}] probe step: host_store_bytes {fwd} after the forward "
-        f"(planned {plan.total_bytes}), {bwd} after the backward; peak "
+        f"(planned {plan.total_bytes}), {bwd} after the backward; measured "
+        f"residual {residual} bytes; peak "
         f"{torch.cuda.max_memory_allocated() - base} bytes above the {base} "
         f"allocated before it; {first_ms:.3f} ms (a first step: host "
         "arenas allocated)")
@@ -1567,7 +1704,7 @@ def offload_probe(torch, graph, cfg, model, policy, fused: str, what: str,
         raise AssertionError(f"[{what}] host store {fwd} / {bwd}, expected "
                              f"{want} / 0")
     if not profile_it:
-        return
+        return residual
     with tempfile.TemporaryDirectory() as tmp:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1585,6 +1722,19 @@ def offload_probe(torch, graph, cfg, model, policy, fused: str, what: str,
         f"over streams {busy:.3f} ms; host copies by stream {streams}")
     if not streams:
         raise AssertionError(f"[{what}] the profile shows no host copy")
+    return residual
+
+
+def check_ordering(residual: dict, what: str) -> None:
+    """The reference offload benchmark's ``ordering_ok``: measured residual
+    bytes ``pinned-paged <= device <= None`` (host arena <= device arena <=
+    the per-tensor stash)."""
+    order = [residual[p] for p in ("pinned-paged", "device", None)]
+    log(f"[{what}] measured residual bytes: pinned-paged {order[0]}, device "
+        f"{order[1]}, None {order[2]}")
+    if not order[0] <= order[1] <= order[2]:
+        raise AssertionError(f"[{what}] residual ordering pinned-paged <= "
+                             f"device <= None fails: {order}")
 
 
 def offload_runs(torch, wrappers, what: str, want: dict, policies,
@@ -1647,10 +1797,10 @@ def slice_offload(torch, g, cfg, cfg0, model0, wrappers) -> dict:
         torch, wrappers, "offload rp8", planned(3, 3, steps=3), PLACEMENTS,
         lambda p: train_gnn(g, cfg, n_epochs=3, seed=0, params=model0,
                             offload=p)))
-    for policy in PLACEMENTS:
-        offload_probe(torch, dg, cfg, model, policy, "auto",
-                      f"offload rp8 {policy}", policy in ("host",
-                                                          "pinned-paged"))
+    check_ordering({policy: offload_probe(
+        torch, dg, cfg, model, policy, "auto", f"offload rp8 {policy}",
+        policy in ("host", "pinned-paged")) for policy in PLACEMENTS},
+        "offload rp8")
 
     # (b) rp_ratio 0, fused="auto": the fused backward reads the packed
     # words the reader hands back
@@ -1661,9 +1811,9 @@ def slice_offload(torch, g, cfg, cfg0, model0, wrappers) -> dict:
         torch, wrappers, "offload rp0 auto", fused_want, PLACEMENTS,
         lambda p: train_gnn(g, cfg0, n_epochs=steps, seed=0, params=model0,
                             fused="auto", offload=p)))
-    for policy in PLACEMENTS:
-        offload_probe(torch, dg, cfg0, model, policy, "auto",
-                      f"offload rp0 {policy}", policy == "pinned-paged")
+    check_ordering({policy: offload_probe(
+        torch, dg, cfg0, model, policy, "auto", f"offload rp0 {policy}",
+        policy == "pinned-paged") for policy in PLACEMENTS}, "offload rp0")
 
     # (c) uncompressed: every layer's raw f32 input in the arena; the
     # host window (layers 1-2) is visibly smaller than the pool
@@ -1674,9 +1824,11 @@ def slice_offload(torch, g, cfg, cfg0, model0, wrappers) -> dict:
         (None, "device", "pinned-paged"),
         lambda p: train_gnn(g, raw, n_epochs=2, seed=0, params=model0,
                             offload=p)))
-    for policy in (None, "device", "pinned-paged"):
-        offload_probe(torch, dg, raw, model, policy, "auto",
-                      f"offload raw {policy}", policy == "pinned-paged")
+    check_ordering({policy: offload_probe(
+        torch, dg, raw, model, policy, "auto", f"offload raw {policy}",
+        policy == "pinned-paged") for policy in (None, "device",
+                                                 "pinned-paged")},
+        "offload raw")
     del dg
 
     # (d) the mini-batch engine, halo 0, 8 parts
@@ -2302,9 +2454,10 @@ SERVE9_ARGV = ["--arch", "qwen1.5-4b", "--requests", "2", "--max-batch", "2",
                "--kv-group", "64", "--page-tokens", "16", "--mode",
                "continuous", "--device", "cuda"]
 #: One prefill group (40 layers of flash; quant_pack per layer and stream)
-#: and 7 decode steps (quant_pack and dequant_unpack per layer and stream).
+#: and 7 decode steps (quant_pack per layer and stream, dequant_unpack per
+#: layer and page of a slot's ceil((1000 + 8 - 1) / 16) = 63).
 SERVE9_LAUNCHES = {"flash_attention": 40, "quant_pack": 80 + 7 * 80,
-                   "dequant_unpack": 7 * 80}
+                   "dequant_unpack": 7 * 40 * 63}
 #: 40 layers x 126 pages (2 x 63) x 51,200 bytes.
 SERVE9_POOL_BYTES = 258_048_000
 
@@ -2313,7 +2466,7 @@ def check_serve9_shapes(torch, qk, fa, ref, gen) -> None:
     """The kernels at phase 9 (e)'s shapes against their plain versions:
     flash at (40, 1000, 128) bf16 (as check_flash's tolerance), the seeded
     quant_pack at the 2-request prefill and decode rows and dequant_unpack
-    at the 2-slot window, bit-equal."""
+    at K and V of a page of each of the 2 slots, bit-equal."""
     from repro_torch.engine.seeds import kv_seed
 
     q, k, v = (torch.randn((40, 1000, 128), device="cuda", generator=gen)
@@ -2332,12 +2485,12 @@ def check_serve9_shapes(torch, qk, fa, ref, gen) -> None:
                 ref.quantize_packed(x, KV_BITS, seeds,
                                     rows_per_seed=KV_NBT))):
             raise AssertionError(f"[serve9] quant_pack at {n_tok} tokens")
-    x = torch.randn((2 * 63 * 16 * KV_NBT, KV_G), device="cuda",
+    x = torch.randn((2 * 2 * 16 * KV_NBT, KV_G), device="cuda",
                     generator=gen)
     pk, zk, rk = qk.quant_pack(x, KV_BITS, 9)
     if not torch.equal(qk.dequant_unpack(pk, zk, rk, KV_BITS, KV_G),
                        ref.dequantize_packed(pk, zk, rk, KV_BITS, KV_G)):
-        raise AssertionError("[serve9] dequant_unpack at the window")
+        raise AssertionError("[serve9] dequant_unpack at a page")
     log("[serve9] flash, seeded quant_pack and dequant_unpack at phase 9 "
         "(e)'s shapes: within bands / bit-equal")
 
@@ -2391,6 +2544,317 @@ def slice_offload_serve(torch, wrappers) -> tuple:
     log("[serve9] host and pinned-paged: tokens and logits bit-equal to "
         "the device policy's")
     return dict(total), model, base
+
+
+# ------------------------------------------------ phase 12: the launcher
+#: Seconds phase 12 may take in all.
+PHASE12_LIMIT_S = 150.0
+#: The launcher's graph half at phase 4's size: arxiv-like at full scale,
+#: SAGE 256-256, INT2, G = 256, RP 8.
+GRAPH_ARGV = ["--graph-dataset", "arxiv", "--graph-scale", "1.0",
+              "--act-mode", "act", "--device", "cuda"]
+#: The launcher's LM half: qwen1.5-4b at full width and depth.  Five steps
+#: leave no warmup (``--steps // 5``), and AdamW's first step moves every
+#: random weight by about lr: the default 3e-4 raised the loss from 12.40
+#: to 17.14 at this width (H100 80GB HBM3), so the smoke asks for 3e-5.
+LM_LR = 3e-5
+LM_ARGV = ["--arch", "qwen1.5-4b", "--batch", "2", "--seq", "1024",
+           "--lr", str(LM_LR), "--act-mode", "act", "--steps", "5",
+           "--device", "cuda"]
+LM_LAYERS_SHORT = 8
+#: Resume at the smoke width (a full checkpoint would be ~47 GB).
+SMOKE_LM_ARGV = ["--arch", "qwen1.5-4b", "--smoke", "--batch", "2", "--seq",
+                 "64", "--act-mode", "act", "--device", "cuda"]
+BUILD = Path(__file__).resolve().parent / "build"
+
+
+def launcher(train, argv: list, fn) -> tuple:
+    """``fn(args)`` on the launcher's parsed ``argv`` with its report
+    captured; logs the report, returns (result, report text)."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = fn(train.parser().parse_args(argv))
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"  | {line}")
+    return res, text
+
+
+def same_model(torch, a, b) -> bool:
+    return all(torch.equal(p, q) for p, q in zip(a.parameters(),
+                                                 b.parameters()))
+
+
+def slice_launcher_graph(torch, wrappers) -> collections.Counter:
+    """Phase 12 (a): the launcher's graph half at phase 4's size."""
+    from repro_torch.core import autoprec
+    from repro_torch.engine import run
+    from repro_torch.graph import activation_memory_report
+    from repro_torch.graph.analysis import collect_layer_stats
+    from repro_torch.graph.models import device_graph
+    from repro_torch.graph.sampling import make_subgraph_batches
+    from repro_torch.graph.train import train_gnn_batched
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig
+
+    total = collections.Counter()
+    opt = AdamWConfig(lr=5e-3, weight_decay=0.0)
+
+    # 1. 8 batches, 3 epochs: engine.runner.run on the same plan, bit for bit
+    want = planned(3, 3, steps=8 * 3)
+    (res, text), counts, peak = counted_run(
+        torch, wrappers, want, "launcher graph batches",
+        lambda: launcher(train, GRAPH_ARGV + ["--graph-batches", "8",
+                                              "--steps", "3"],
+                         train.graph_main))
+    total.update(counts)
+    g, plan = res["graph"], res["plan"]
+    ref, counts, _ = counted_run(
+        torch, wrappers, want, "launcher graph batches: run",
+        lambda: run(g, res["cfg"], plan, opt, n_epochs=3, seed=0))
+    total.update(counts)
+    if not ([h[1] for h in res["history"]] == [h[1] for h in ref["history"]]
+            and same_model(torch, res["model"], ref["model"])):
+        raise AssertionError("[launcher graph] not engine.runner.run on the "
+                             "same plan, bit for bit")
+    rep = activation_memory_report(g, res["cfg"],
+                                   batch_nodes=res["batch_nodes"], plan=plan)
+    line = (f"peak saved-activation bytes/batch: "
+            f"{rep['batched']['peak_saved_bytes'] / 1e6:.2f} MB")
+    ledger = [r.get("compressed_bytes", r["fp32_bytes"])
+              for r in rep["batched"]["per_layer"]]
+    log(f"[launcher graph] epochs {[h for h in res['history']]}; run's "
+        f"{[h for h in ref['history']]}; bit-identical; live stash "
+        f"{res['stash_bytes']} ledger {ledger}; max_memory_allocated {peak}")
+    if line not in text or res["stash_bytes"] != ledger:
+        raise AssertionError("[launcher graph] the printed peak or the live "
+                             "stash differs from activation_memory_report")
+
+    # 2. the mesh engine on one rank: the batched engine without shuffling
+    (res, _), counts, _ = counted_run(
+        torch, wrappers, planned(3, 3, steps=8 * 2), "launcher mesh",
+        lambda: launcher(train, GRAPH_ARGV + ["--mesh-parts", "8",
+                                              "--steps", "2"],
+                         train.graph_main))
+    total.update(counts)
+    batched = train_gnn_batched(g, res["cfg"], 8, n_epochs=2, seed=0,
+                                shuffle=False)
+    if not ([h[1] for h in res["history"]]
+            == [h[1] for h in batched["history"]]
+            and same_model(torch, res["model"], batched["model"])):
+        raise AssertionError("[launcher mesh] not train_gnn_batched("
+                             "shuffle=False), bit for bit")
+    log(f"[launcher mesh] epochs {res['history']}: train_gnn_batched("
+        "shuffle=False) bit for bit")
+
+    # 3. the arena, autoprec (allocated once) and obs with a trace
+    trace = BUILD / "obs" / "phase12"
+    for suffix in (".jsonl", ".trace.json"):
+        Path(f"{trace}{suffix}").unlink(missing_ok=True)
+    argv = GRAPH_ARGV + ["--graph-batches", "8", "--offload", "device",
+                         "--bit-budget", "2.0", "--obs", "--trace-out",
+                         str(trace), "--steps", "3"]
+    (res, text), counts, peak = counted_run(
+        torch, wrappers, planned(3, 3, steps=8 * 3, probes=2, stats=1,
+                                 quant_probes=1),
+        "launcher arena autoprec obs", lambda: launcher(
+            train, argv, train.graph_main))
+    total.update(counts)
+    bits, budget = res["bits_per_layer"], res["bit_budget_bytes"]
+    batch0 = make_subgraph_batches(g, 8, method="bfs", seed=0)[0]
+    alloc = autoprec.total_stash_bytes(
+        collect_layer_stats(res["model"], device_graph(batch0, "sage",
+                                                       "cuda"), res["cfg"]),
+        res["cfg"].layer_compression())
+    files = [Path(f"{trace}{suffix}") for suffix in (".jsonl",
+                                                     ".trace.json")]
+    log(f"[launcher arena autoprec obs] bits {bits}, allocation {alloc} of "
+        f"the budget's {budget} bytes, live stash {res['stash_bytes']}, "
+        f"arena {res['arena']}, trace files "
+        f"{[(str(f), f.stat().st_size) for f in files if f.exists()]}, "
+        f"max_memory_allocated {peak}")
+    if not (all(b in autoprec.BIT_CHOICES for b in bits) and alloc <= budget
+            and "stash arena[device]" in text
+            and all(f.exists() and f.stat().st_size for f in files)):
+        raise AssertionError("[launcher arena autoprec obs] widths, budget, "
+                             "arena line or trace files")
+    return total
+
+
+def lm_residual(torch, model, tokens, vocab_chunk: int) -> int:
+    """The device bytes the loss's graph holds for its backward: allocated
+    with the graph alive, less allocated once the backward has run and its
+    outputs are released (as phase 9's probe measures)."""
+    params = list(model.parameters())
+    torch.cuda.synchronize()
+    loss = model.loss(tokens, act_seed=1, vocab_chunk=vocab_chunk)
+    torch.cuda.synchronize()
+    with_graph = torch.cuda.memory_allocated()
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    del loss, grads
+    return with_graph - torch.cuda.memory_allocated()
+
+
+def lm_short(torch, train, mode: str, offload: str = "none") -> dict:
+    """2 steps of the launcher's LM at full width and LM_LAYERS_SHORT
+    layers (seed-0 weights, the same for every mode), with the peak, step
+    times and the loss graph's residual bytes."""
+    from repro_torch.data import batch_for_step
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    args = train.parser().parse_args(
+        LM_ARGV[:LM_ARGV.index("--act-mode")] + ["--act-mode", mode,
+                                                 "--offload", offload,
+                                                 "--device", "cuda"])
+    cfg = dataclasses.replace(train.lm_config(args),
+                              n_layers=LM_LAYERS_SHORT)
+    model = Model(cfg, generator=torch.Generator("cuda").manual_seed(0))
+    opt = AdamWConfig(lr=LM_LR, weight_decay=0.01, grad_clip=1.0)
+    step = make_train_step(model, opt)
+    state = adamw_init(list(model.parameters()), opt)
+    tokens = [torch.as_tensor(batch_for_step(cfg.vocab, 2, 1024, i),
+                              device="cuda") for i in range(2)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for i in range(2):
+        t0 = time.perf_counter()
+        losses.append(float(step(state, {"tokens": tokens[i]})["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    residual = lm_residual(torch, model, tokens[0], cfg.vocab_chunk)
+    log(f"[lm {LM_LAYERS_SHORT} layers {mode} offload={offload}] losses "
+        f"{losses} step ms {ms} max_memory_allocated {peak} ({peak - base} "
+        f"above the {base} of weights and moments); loss graph residual "
+        f"{residual} bytes")
+    return {"losses": losses, "ms": ms, "peak": peak, "residual": residual,
+            "model": model}
+
+
+def slice_launcher_lm(torch, wrappers) -> collections.Counter:
+    """Phase 12 (b): the launcher's LM half, qwen1.5-4b at full width and
+    depth under ``act``, then 8 layers under none / remat / act and the
+    pinned-paged stash."""
+    from repro_torch.configs import get
+    from repro_torch.launch import train
+
+    total = collections.Counter()
+    cfg = get("qwen1.5-4b")
+    n_params = cfg.param_count()
+    toks = 2 * 1024
+    stash = cfg.n_layers * (toks * cfg.d_model // 4
+                            + toks * cfg.d_model // 256 * 8)
+    logits = 2 * 2048 * cfg.vocab * 4
+    log(f"[lm] reckoning: {n_params} parameters, bf16 weights and grads "
+        f"{2 * n_params} + {2 * n_params} bytes, float32 AdamW moments "
+        f"{8 * n_params}, INT2 stashes {stash}, a loss chunk's float32 "
+        f"logits {logits} (and as much again for their gradient)")
+    steps = 5
+    (res, text), counts, peak = counted_run(
+        torch, wrappers, dict(planned(0, 0, 0),
+                              quant_pack=cfg.n_layers * steps,
+                              dequant_unpack=cfg.n_layers * steps),
+        "launcher lm", lambda: launcher(train, LM_ARGV, train.lm_main))
+    total.update(counts)
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    log(f"[launcher lm] qwen1.5-4b 40 layers act: losses {losses}; step s "
+        f"{[h['dt'] for h in hist]}; max_memory_allocated {peak} bytes")
+    if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"[launcher lm] losses {losses}")
+    batch = res["make_batch"](steps)
+    profile_call(torch, lambda: float(res["step_fn"](
+        (res["model"], res["opt_state"]), batch)[1]["loss"]),
+        "lm step (qwen1.5-4b, 40 layers, act, B 2 x 1024)", top=20)
+    del res, batch
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for mode in ("none", "remat", "act"):
+        runs[mode] = lm_short(torch, train, mode)
+        del runs[mode]["model"]
+        torch.cuda.empty_cache()
+    log("[lm 8 layers] peak / residual bytes / step ms: " + "; ".join(
+        f"{m} {r['peak']} / {r['residual']} / {r['ms']}"
+        for m, r in runs.items()))
+    res_order = [runs[m]["residual"] for m in ("act", "remat", "none")]
+    if not res_order[0] < res_order[1] < res_order[2]:
+        raise AssertionError(f"[lm 8 layers] loss graph residual bytes act "
+                             f"< remat < none fails: {res_order}")
+    dev = lm_short(torch, train, "act")
+    pinned = lm_short(torch, train, "act", "pinned-paged")
+    if not (dev["losses"] == pinned["losses"]
+            and same_model(torch, dev["model"], pinned["model"])):
+        raise AssertionError("[lm 8 layers] pinned-paged stash is not the "
+                             "device stash bit for bit")
+    log("[lm 8 layers] act with the pinned-paged stash: losses and params "
+        "bit-identical to the device stash")
+    del dev, pinned
+    torch.cuda.empty_cache()
+    return total
+
+
+def slice_launcher_resume(torch, wrappers) -> collections.Counter:
+    """Phase 12 (c): checkpoint and resume at the smoke width."""
+    import shutil
+
+    from repro_torch.checkpoint import latest_step, load_checkpoint
+    from repro_torch.launch import train
+
+    total = collections.Counter()
+    ckpt = BUILD / "ckpt" / "phase12"
+    failed = BUILD / "ckpt" / "phase12_fail"
+    for d in (ckpt, failed):
+        shutil.rmtree(d, ignore_errors=True)
+    n_layers = 2
+
+    def lm(argv, steps):
+        res, counts, _ = counted_run(
+            torch, wrappers, dict(planned(0, 0, 0),
+                                  quant_pack=n_layers * steps,
+                                  dequant_unpack=n_layers * steps),
+            f"launcher resume {argv[-6:]}",
+            lambda: launcher(train, SMOKE_LM_ARGV + argv, train.lm_main)[0])
+        total.update(counts)
+        return res
+
+    whole = lm(["--steps", "6"], 6)
+    lm(["--steps", "4", "--ckpt-dir", str(ckpt), "--ckpt-every", "2"], 4)
+    resumed = lm(["--steps", "6", "--ckpt-dir", str(ckpt), "--ckpt-every",
+                  "2"], 2)
+    hist = resumed["history"]
+    log(f"[launcher resume] resumed steps {[h['step'] for h in hist]} losses "
+        f"{[h['loss'] for h in hist]}; uninterrupted "
+        f"{[h['loss'] for h in whole['history']]}")
+    if not ([h["step"] for h in hist] == [4, 5]
+            and [h["loss"] for h in hist]
+            == [h["loss"] for h in whole["history"][4:]]
+            and same_model(torch, resumed["model"], whole["model"])):
+        raise AssertionError("[launcher resume] not the uninterrupted run "
+                             "bit for bit")
+    try:
+        lm(["--steps", "6", "--ckpt-dir", str(failed), "--ckpt-every", "2",
+            "--fail-at", "3"], 3)
+    except RuntimeError as exc:
+        log(f"[launcher resume] --fail-at 3 raised: {exc}")
+    else:
+        raise AssertionError("[launcher resume] --fail-at 3 did not raise")
+    like = (whole["model"], whole["opt_state"])
+    state = load_checkpoint(failed, 2, like)
+    if latest_step(failed) != 2 or state[1]["step"] != 2:
+        raise AssertionError("[launcher resume] step_2 not intact")
+    log("[launcher resume] after the failure: latest step 2, which loads "
+        "with its step counter 2")
+    return total
+
+
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -2541,7 +3005,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 8. slice 3: serving
-    served = slice_serve(torch, wrappers, fa, ref)
+    served = slice_serve(torch, wrappers, fa, qk, ref)
     launches["flash_attention"] = served["flash_attention"]
     torch.cuda.empty_cache()
 
@@ -2561,8 +3025,22 @@ def main() -> int:
         raise AssertionError(f"phase 11 took {obs_s:.1f} s, over "
                              f"{PHASE11_LIMIT_S} s")
     del model9, device9
+    torch.cuda.empty_cache()
 
-    # 12. results
+    # 12. slice 14: the training launcher, graph and LM halves
+    t0 = time.perf_counter()
+    for part in (slice_launcher_graph, slice_launcher_lm,
+                 slice_launcher_resume):
+        for name, n in part(torch, wrappers).items():
+            launches[name] += n
+        torch.cuda.empty_cache()
+    launcher_s = time.perf_counter() - t0
+    log(f"phase 12: {launcher_s:.1f} s")
+    if not launcher_s < PHASE12_LIMIT_S:
+        raise AssertionError(f"phase 12 took {launcher_s:.1f} s, over "
+                             f"{PHASE12_LIMIT_S} s")
+
+    # 13. results
     sources = {"quant_pack": ("src/repro_torch/csrc/quant_blockwise.cu",
                               "src/repro/kernels/quant_blockwise.py:62"),
                "dequant_unpack": ("src/repro_torch/csrc/quant_blockwise.cu",
@@ -2601,6 +3079,7 @@ def main() -> int:
                if key in row},
             **({"serving_launches": served[name]}
                if name in ("quant_pack", "dequant_unpack") else {})})
+    log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,4 @@
+from repro_torch.checkpoint.checkpointer import (latest_step, load_checkpoint,
+                                                 save_checkpoint)
+
+__all__ = ["latest_step", "load_checkpoint", "save_checkpoint"]

@@ -18,6 +18,8 @@ levels.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.core import quant as quantmod
@@ -29,6 +31,24 @@ from repro_torch.kernels.quant_blockwise import (
     unsupported as quant_kernel_unsupported)
 
 VALID_FUSED = ("auto", "on", "off")
+
+
+@contextlib.contextmanager
+def use_impl(impl: str | None):
+    """Override every ``impl`` (a config's, or one named in a call) for the
+    kernel calls made inside the context; ``None`` is a no-op.  The
+    reference's override acts while a step is traced; this one acts while
+    the calls run (it is a context variable read at each dispatch)."""
+    if impl is None:
+        yield
+        return
+    if impl not in ops.VALID_IMPLS:
+        raise ValueError(f"impl={impl!r} not in {ops.VALID_IMPLS}")
+    token = ops.IMPL_OVERRIDE.set(impl)
+    try:
+        yield
+    finally:
+        ops.IMPL_OVERRIDE.reset(token)
 
 
 # ----------------------------------------------------------------- routing

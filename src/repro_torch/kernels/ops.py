@@ -12,8 +12,13 @@ bit-identical packed words, zero and range: the SR noise is the counter hash
 on the global element index and the pack layout is shared.  The CUDA kernels
 mask their own ragged edges, so unlike the reference's Pallas entry points
 nothing here pads rows to a tile multiple.
+
+An override set by :func:`repro_torch.core.backend.use_impl` replaces every
+``impl`` named to this module while it is active.
 """
 from __future__ import annotations
+
+import contextvars
 
 import torch
 
@@ -25,9 +30,20 @@ from repro_torch.kernels import rp_matmul as rk
 
 VALID_IMPLS = ("auto", "torch", "cuda")
 
+#: The innermost ``core.backend.use_impl`` override (None: none active).
+IMPL_OVERRIDE: contextvars.ContextVar = contextvars.ContextVar(
+    "impl_override", default=None)
+
+
+def effective_impl(impl: str) -> str:
+    """``impl``, or the active ``use_impl`` override in its place."""
+    override = IMPL_OVERRIDE.get()
+    return impl if override is None else override
+
 
 def resolve_impl(impl: str, device) -> str:
     """Concrete impl ("torch" | "cuda") for tensors on ``device``."""
+    impl = effective_impl(impl)
     if impl not in VALID_IMPLS:
         raise ValueError(f"impl={impl!r} not in {VALID_IMPLS}")
     is_cuda = torch.device(device).type == "cuda"
@@ -42,7 +58,7 @@ def resolve_impl(impl: str, device) -> str:
 def _plain(impl: str, device) -> bool:
     """True when the caller asked for the plain version by name."""
     resolve_impl(impl, device)  # an unknown name, or "cuda" off the card, raises
-    return impl == "torch"
+    return effective_impl(impl) == "torch"
 
 
 def static_levels(levels):

@@ -1,8 +1,77 @@
 """Step functions the launchers and tests drive (the reference's
-``repro.launch.steps``; the training step waits for ROADMAP A.11)."""
+``repro.launch.steps``): train (with gradient accumulation), prefill and
+decode.  The model's parameters and the optimizer state are updated in
+place, where the reference returns new ones."""
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import backend
+from repro_torch.engine.seeds import step_seed
+from repro_torch.optim import AdamWConfig, adamw_update
+
+
+def make_train_step(model, opt: AdamWConfig, accum_dtype=torch.float32,
+                    act_impl: str | None = None):
+    """``train_step(opt_state, batch) -> {"loss": ...}``: the loss of
+    ``batch`` (``tokens`` (B, S), optional ``prefix_embeds``) at the
+    activation seed ``step_seed(opt_state["step"])``, its gradients, and
+    one AdamW update of ``model``'s parameters in place.
+
+    ``cfg.grad_accum = a > 1`` splits the batch into ``a`` micro-batches,
+    sums their gradients from zeros in ``accum_dtype`` and divides the sum
+    by ``a`` (a tensor: on CUDA a division by a Python number is a
+    multiplication by its reciprocal); the loss is the micro-batches' mean.
+    No update happens between the micro-batches, so each backward
+    recomputes from the parameters its forward saw.  ``act_impl`` pins the
+    compression kernels' backend for the step ("torch" | "cuda" | "auto",
+    :func:`repro_torch.core.backend.use_impl`); None defers to the config's
+    ``act_compression.impl``."""
+    cfg = model.cfg
+    params = list(model.parameters())
+
+    def loss_fn(mb, step):
+        with backend.use_impl(act_impl):
+            return model.loss(mb["tokens"],
+                              prefix_embeds=mb.get("prefix_embeds"),
+                              act_seed=step_seed(step),
+                              vocab_chunk=cfg.vocab_chunk)
+
+    def train_step(opt_state: dict, batch: dict) -> dict:
+        step = opt_state["step"]
+        if cfg.grad_accum > 1:
+            a = cfg.grad_accum
+            grads = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+                     for p in params]
+            losses = []
+            for i in range(a):
+                mb = {k: v.reshape(a, v.shape[0] // a, *v.shape[1:])[i]
+                      for k, v in batch.items()}
+                loss = loss_fn(mb, step)
+                for s, g in zip(grads, torch.autograd.grad(loss, params)):
+                    s.add_(g.to(accum_dtype))
+                losses.append(loss.detach())
+            div = torch.tensor(a, dtype=accum_dtype, device=grads[0].device)
+            grads = [g / div for g in grads]
+            loss = torch.stack(losses).mean()
+        else:
+            loss = loss_fn(batch, step)
+            grads = torch.autograd.grad(loss, params)
+        adamw_update(grads, opt_state, params, opt)
+        return {"loss": loss.detach()}
+
+    return train_step
+
+
+def make_prefill_step(model, max_seq: int | None = None):
+    """``prefill_step(batch) -> (last logits (B, V) float32, cache)``."""
+
+    def prefill_step(batch):
+        return model.prefill(batch["tokens"],
+                             prefix_embeds=batch.get("prefix_embeds"),
+                             max_seq=max_seq)
+
+    return prefill_step
 
 
 def make_serve_step(model):

@@ -1,13 +1,19 @@
-"""GQA attention (the reference's ``repro.models.attention``): the
-training/prefill path through the flash-attention kernel, and the cached
-decode paths.
+"""GQA attention (the reference's ``repro.models.attention``): the prefill
+path through the flash-attention kernel, the training path in plain
+differentiable ops, and the cached decode paths.
 
 :func:`online_attention` computes what the reference's chunked
 online-softmax scan computes.  On the card it launches the hand-written
 kernel (``csrc/flash_attention.cu``), which keeps the running max, sum and
 accumulator of each 64-row query tile on chip; on the CPU it runs the
 kernel's plain version, a masked softmax over the full score matrix.  Both
-scale q in float32 before the product, as the reference does.
+scale q in float32 before the product, as the reference does.  The kernel
+has no backward, so training attends through :func:`chunked_attention`,
+the reference's ``k_chunk`` scan spelled in torch ops that autograd
+differentiates (the reference computes it in jnp, outside any kernel).
+
+Decode reads the quantized paged KV cache one page per online-softmax step
+(:func:`decode_attend_paged`), as the reference does.
 """
 from __future__ import annotations
 
@@ -55,6 +61,47 @@ def online_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     return out.reshape(b, h, sq, dh).transpose(1, 2)
 
 
+def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                      kv_len: int | None = None, k_chunk: int = 1024):
+    """The reference's ``online_attention`` (its ``k_chunk`` scan) in
+    differentiable torch ops: keys and values padded to whole chunks, one
+    online-softmax step a chunk with float32 running max, sum and
+    accumulator.  Shapes as :func:`online_attention`'s."""
+    b, sq, h, dh = q.shape
+    skv = k.shape[1]
+    scale = float(1.0 / np.sqrt(dh))
+    qf = (q.to(torch.float32) * scale).transpose(1, 2)            # B,H,Sq,Dh
+    kf = k.to(torch.float32).permute(0, 2, 3, 1)                  # B,H,Dh,Skv
+    vf = v.to(torch.float32).transpose(1, 2)                      # B,H,Skv,Dh
+    n_chunks = max(1, -(-skv // k_chunk))
+    pad = n_chunks * k_chunk - skv
+    if pad:
+        kf = torch.nn.functional.pad(kf, (0, pad))
+        vf = torch.nn.functional.pad(vf, (0, 0, 0, pad))
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    limit = kv_len if kv_len is not None else skv
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, dh), dtype=torch.float32, device=q.device)
+    for c in range(n_chunks):
+        kc = kf[..., c * k_chunk:(c + 1) * k_chunk]
+        vc = vf[:, :, c * k_chunk:(c + 1) * k_chunk]
+        s = torch.einsum("bhqd,bhdk->bhqk", qf, kc)
+        kv_pos = c * k_chunk + torch.arange(k_chunk, device=q.device)
+        mask = (kv_pos[None, :] < limit).expand(sq, k_chunk)
+        if causal:
+            mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vc)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)                        # B,Sq,H,Dh
+
+
 def qkv_project(x, p, cfg, positions):
     """x (B,S,D) -> q (B,S,H,Dh), k/v (B,S,Hkv,Dh) with rope + qk-norm.
     ``p`` holds the layer's attention weights (``wq``, ``wk``, ``wv``, and
@@ -75,14 +122,16 @@ def qkv_project(x, p, cfg, positions):
     return q, k, v
 
 
-def attention_block(x, p, cfg, *, causal=True, impl: str = "auto"):
-    """Full-sequence attention (training / prefill)."""
+def attention_block(x, p, cfg, *, causal=True, k_chunk: int = 1024):
+    """Full-sequence attention for training, through
+    :func:`chunked_attention` (differentiable); prefill attends through
+    :func:`online_attention`, the kernel on the card."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = qkv_project(x, p, cfg, positions)
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    out = online_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
-                           causal=causal, impl=impl)
+    out = chunked_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
+                            causal=causal, k_chunk=k_chunk)
     return mm(out.reshape(b, s, cfg.n_heads * cfg.d_head), p.wo)
 
 
@@ -112,6 +161,41 @@ def decode_attend(q, kf, vf, pos, *, out_dtype):
     pexp = torch.exp(s - m)
     l = pexp.sum(-1, keepdim=True)
     out = torch.einsum("bkgs,bskd->bkgd", pexp / l, vf)    # (B,Hkv,G,Dh)
+    return out.reshape(b, 1, hq * dh).to(out_dtype)
+
+
+def decode_attend_paged(q, pos, n_chunks: int, fetch_chunk, *,
+                        n_kv_heads: int, out_dtype):
+    """Single-token online-softmax attention over lazily fetched KV chunks.
+
+    The serving engine's quantized paged KV cache reads through this:
+    ``fetch_chunk(j) -> (kf, vf, kv_pos)`` with kf/vf (B,C,Hkv,Dh) float32
+    and kv_pos (C,) absolute positions; the caller dequantizes exactly one
+    page a step, so no other page's float32 K/V exists at the same time.
+    Chunk 0 must hold position 0 (valid for every slot), so the running
+    max is finite after the first step and a masked score adds exactly 0.
+    Returns (B, 1, Hq*Dh) in ``out_dtype`` (before ``wo``).
+    """
+    b, _, hq, dh = q.shape
+    hkv = n_kv_heads
+    g = hq // hkv
+    qg = _grouped_q(q, hkv)                                  # (B,Hkv,G,Dh)
+    pos = pos[:, None, None, None]
+    m = torch.full((b, hkv, g), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hkv, g), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, dh), dtype=torch.float32, device=q.device)
+    for j in range(n_chunks):
+        kf, vf, kv_pos = fetch_chunk(j)
+        s = torch.matmul(qg, kf.permute(0, 2, 3, 1))         # (B,Hkv,G,C)
+        s = torch.where(kv_pos <= pos, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.matmul(p, vf.transpose(1, 2))
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, 1, hq * dh).to(out_dtype)
 
 

@@ -4,18 +4,36 @@
 Parameters are an ``nn.Module`` tree with the reference's names and
 layouts (``wq`` is (d_model, H*Dh) and multiplies from the right), one
 module per layer in ``layers`` instead of the reference's stacked layer
-axis.  Weights are frozen (``requires_grad=False``): this slice serves.
+axis, and a Python loop over the layers instead of its ``lax.scan``.
+
+Training (``hidden_states`` / ``loss``) wraps each layer by ``act_mode``,
+the paper's technique applied to the residual stream:
+
+* ``"none"``: autograd saves everything;
+* ``"remat"``: ``torch.utils.checkpoint`` (non-reentrant) a layer;
+* ``"act"``: :func:`repro_torch.core.act_compress.compressed_block`: the
+  layer input stored block-quantized (INT2, G = 256 by default) and the
+  layer recomputed from the reconstruction in the backward.
+
+Training attention is the reference's chunked scan in differentiable ops
+(:func:`repro_torch.models.attention.chunked_attention`); ``prefill`` and
+``decode_step`` run under ``no_grad`` through the flash kernel and the
+cache, as serving does.
 
 Not ported yet, each raising with its ROADMAP item: the MoE, SSM, hybrid
-and enc-dec families and the vlm frontend (A.11), and the training path
-(``hidden_states``/``loss`` with ``act_mode`` wrapping, A.11).
+and enc-dec families and the vlm frontend (A.11).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.act_compress import compressed_block
+from repro_torch.core.compressor import CompressionConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.core.prng import MASK32
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (dense_init, embed_init, mm, rmsnorm,
                                        swiglu)
@@ -84,13 +102,13 @@ def init_params(cfg, gen: torch.Generator) -> dict:
 
 
 def _module(tree: dict) -> nn.Module:
-    """A nested dict of tensors as an ``nn.Module`` of frozen parameters."""
+    """A nested dict of tensors as an ``nn.Module`` of parameters."""
     m = nn.Module()
     for name, val in tree.items():
         if isinstance(val, dict):
             m.add_module(name, _module(val))
         else:
-            m.register_parameter(name, nn.Parameter(val, requires_grad=False))
+            m.register_parameter(name, nn.Parameter(val))
     return m
 
 
@@ -118,10 +136,9 @@ class Model(nn.Module):
         if params is None:
             params = init_params(cfg, generator
                                  or torch.Generator(device).manual_seed(0))
-        self.embed = nn.Parameter(params["embed"], requires_grad=False)
-        self.final_norm = nn.Parameter(params["final_norm"],
-                                       requires_grad=False)
-        self.lm_head = nn.Parameter(params["lm_head"], requires_grad=False)
+        self.embed = nn.Parameter(params["embed"])
+        self.final_norm = nn.Parameter(params["final_norm"])
+        self.lm_head = nn.Parameter(params["lm_head"])
         self.layers = nn.ModuleList(_module(lp) for lp in params["layers"])
         self.to(device)
 
@@ -129,11 +146,80 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def hidden_states(self, *args, **kwargs):
-        raise _not_ported("LM training (hidden_states / act_mode wrapping)")
+    # ---------------------------------------------------- layer wrapping
+    def _wrap(self, layer_fn):
+        """``act_mode`` around ``layer_fn(x, lp) -> x``, as
+        ``step(x, lp, seed)``."""
+        cfg = self.cfg
+        if cfg.act_mode == "act":
+            comp = cfg.act_compression or CompressionConfig(
+                bits=2, group_size=256, rp_ratio=0)
+            offload = getattr(cfg, "act_offload", None)
+            return compressed_block(
+                layer_fn, comp,
+                offload=None if offload == "device" else offload)
+        if cfg.act_mode == "remat":
+            return lambda x, lp, seed: checkpoint(layer_fn, x, lp,
+                                                  use_reentrant=False)
+        return lambda x, lp, seed: layer_fn(x, lp)
 
-    def loss(self, *args, **kwargs):
-        raise _not_ported("LM training (loss)")
+    def _dense_layer(self, h, lp):
+        cfg = self.cfg
+        h = h + attn.attention_block(rmsnorm(h, lp.ln1), lp.attn, cfg,
+                                     causal=True, k_chunk=cfg.k_chunk)
+        return self._mlp(h, lp)
+
+    # ------------------------------------------------------------ training
+    def hidden_states(self, tokens: torch.Tensor, *, prefix_embeds=None,
+                      act_seed: int = 0):
+        """Token ids (B, S) (after an optional (B, P, D) prefix) -> (final
+        hidden (B, P+S, D), aux loss).  Layer ``li`` stashes with the seed
+        ``act_seed + li`` mod 2**32 (the reference's uint32 add)."""
+        h = self.embed[tokens]
+        if prefix_embeds is not None:
+            h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+        step = self._wrap(self._dense_layer)
+        for li, lp in enumerate(self.layers):
+            h = step(h, lp, (int(act_seed) + li) & MASK32)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        return rmsnorm(h, self.final_norm), aux
+
+    def loss(self, tokens: torch.Tensor, *, prefix_embeds=None,
+             act_seed: int = 0, vocab_chunk: int = 4096):
+        """Next-token cross-entropy, the vocabulary projection chunked over
+        the sequence so the (B, S, V) float32 logits never exist at once:
+        each chunk of ``vocab_chunk`` positions is checkpointed (its logits
+        recomputed in the backward), the sequence padded to whole chunks
+        with padded positions weighing 0, and the sum divided by the valid
+        count times B, as the reference does."""
+        cfg = self.cfg
+        h, aux = self.hidden_states(tokens, prefix_embeds=prefix_embeds,
+                                    act_seed=act_seed)
+        npfx = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+        h_pred = h[:, npfx:npfx + tokens.shape[1] - 1]
+        targets = tokens[:, 1:].to(torch.int64)
+        b, s = h_pred.shape[0], h_pred.shape[1]
+        n_chunks = max(1, -(-s // vocab_chunk))
+        pad = n_chunks * vocab_chunk - s
+        if pad:
+            h_pred = F.pad(h_pred, (0, 0, 0, pad))
+            targets = F.pad(targets, (0, pad))
+        valid = (torch.arange(n_chunks * vocab_chunk, device=h.device)
+                 < s).reshape(n_chunks, vocab_chunk)
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c in range(n_chunks):
+            sl = slice(c * vocab_chunk, (c + 1) * vocab_chunk)
+            total = total + checkpoint(self._chunk_nll, h_pred[:, sl],
+                                       targets[:, sl], valid[c],
+                                       use_reentrant=False)
+        nll = total / torch.clamp(valid.sum() * b, min=1)
+        return nll + cfg.aux_loss_weight * aux
+
+    def _chunk_nll(self, hx, tx, vx):
+        logits = mm(hx, self.lm_head).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tx[..., None])[..., 0]
+        return torch.sum((lse - gold) * vx.to(torch.float32))
 
     def _mlp(self, h, lp):
         m = lp.mlp

@@ -9,7 +9,9 @@ backward prefetch (the reference's ``repro.offload``).
 * :mod:`repro_torch.offload.engine`: the placements ``{"device", "host",
   "pinned-paged"}``: the arena on the card, or each layer's segments moved
   to pageable or page-locked host memory after its forward on a side CUDA
-  stream and brought back one layer ahead of the backward walk.
+  stream and brought back one layer ahead of the backward walk; and
+  :class:`HostStash` (``offload_compressed`` / ``fetch_compressed``), one
+  per-op stash of ``core.act_compress`` parked in host memory.
 * :mod:`repro_torch.offload.gnn`: the GNN stash planner
   (:func:`plan_gnn_stashes`); the forward that consumes it is
   :mod:`repro_torch.engine.forward`.
@@ -25,11 +27,13 @@ Entry points: an arena :class:`~repro_torch.engine.plan.StashPolicy` on an
 from repro_torch.offload.arena import (StashPlan, arena_init, plan_stashes,
                                        read_mask, read_raw, stash_read,
                                        stash_write, write_mask, write_raw)
-from repro_torch.offload.engine import (POLICIES, ArenaStore, check_policy,
-                                        device_memory_stats,
+from repro_torch.offload.engine import (POLICIES, ArenaStore, HostStash,
+                                        check_policy, device_memory_stats,
                                         device_resident_stash_bytes,
-                                        host_store_bytes, make_reader,
-                                        make_writer, measure_live_bytes,
+                                        fetch_compressed, host_store_bytes,
+                                        make_reader, make_writer,
+                                        measure_live_bytes,
+                                        offload_compressed,
                                         resolve_mechanism)
 from repro_torch.offload.gnn import plan_gnn_stashes
 from repro_torch.offload.pager import OVERLAP_WINDOW, FeaturePager
@@ -41,5 +45,6 @@ __all__ = [
     "POLICIES", "check_policy", "resolve_mechanism", "ArenaStore",
     "make_writer", "make_reader", "measure_live_bytes", "host_store_bytes",
     "device_resident_stash_bytes", "device_memory_stats",
+    "HostStash", "offload_compressed", "fetch_compressed",
     "plan_gnn_stashes", "FeaturePager", "OVERLAP_WINDOW",
 ]

@@ -240,6 +240,58 @@ class ArenaStore:
                 "misaligned_views": self.misaligned_views}
 
 
+# ----------------------------------------------- per-tensor residual offload
+class HostStash:
+    """A ``CompressedTensor`` whose packed words, ``zero`` and ``range`` wait
+    in host memory between a forward and its backward (the reference's
+    ``HostStash`` ticket).  ``"host"`` keeps them in pageable memory,
+    ``"pinned-paged"`` in page-locked memory, the words copied in
+    :data:`PAGE_WORDS`-word pages.  The copies out run on the stash's own
+    side stream after the compute stream's work queued so far (the stash
+    kernels among it); :func:`fetch_compressed` copies back on that stream
+    and makes the compute stream wait on its event before anything reads
+    the words.  On the CPU the copies are plain copies into new tensors."""
+
+    def __init__(self, ct: CompressedTensor, policy: str):
+        mechanism = resolve_mechanism(policy)
+        if mechanism == "device":
+            raise ValueError("offload='device' keeps the stash where it is")
+        self.shape, self.dtype, self.cfg = ct.shape, ct.dtype, ct.cfg
+        self.rp_seed = ct.rp_seed          # a host scalar already
+        self.device = ct.packed.device
+        self.side = SideStream(self.device)
+        pinned = mechanism == "pinned" and self.device.type == "cuda"
+        self._page = PAGE_WORDS if mechanism == "pinned" else None
+        self.side.follow_compute()
+        self.host = {}
+        for name in ("packed", "zero", "rng"):
+            t = getattr(ct, name)
+            self.host[name] = host_empty(t.shape, t.dtype, pinned)
+            self.side.copy(self.host[name].view(-1), t.reshape(-1),
+                           self._page if name == "packed" else None)
+
+
+def offload_compressed(ct: CompressedTensor, policy: str) -> HostStash:
+    """Move one ``CompressedTensor``'s words and block scalars to host
+    memory under ``policy`` ("host" | "pinned-paged")."""
+    return HostStash(ct, policy)
+
+
+def fetch_compressed(hs: HostStash) -> CompressedTensor:
+    """The stash back on its device, the compute stream waiting for the
+    copies before it reads it."""
+    bufs = {name: torch.empty(t.shape, dtype=t.dtype, device=hs.device)
+            for name, t in hs.host.items()}
+    hs.side.follow_compute()
+    for name, buf in bufs.items():
+        hs.side.copy(buf.view(-1), hs.host[name].view(-1),
+                     hs._page if name == "packed" else None)
+    hs.side.hand_over(hs.side.record())
+    return CompressedTensor(bufs["packed"], bufs["zero"], bufs["rng"],
+                            hs.rp_seed, shape=hs.shape, dtype=hs.dtype,
+                            cfg=hs.cfg)
+
+
 # ------------------------------------------------------- per-tensor stash
 class _TensorWriter:
     """Stash kind "tensor": no pool, no copy; the residual is the list of

@@ -4,13 +4,14 @@ block-quantized KV cache (the reference's ``repro.serving.engine``).
 One decode step serves every slot at once (static ``max_batch`` shapes):
 embed the slots' last tokens, walk the layer stack writing each new KV row
 into its page (quantized through the paper's block-wise SR path for
-``bits<16``, one seeded ``quant_pack`` launch per layer and stream), read
-the slots' page windows back (one ``dequant_unpack`` launch per layer and
-stream; raw pages for ``bits=16``) and attend with
-:func:`repro_torch.models.attention.decode_attend`.  The reference reads the
-quantized cache one page per online-softmax step; the window read computes
-the same attention up to float rounding with two launches per layer
-instead of two per page.  Generated tokens accumulate in a device-side
+``bits<16``, one seeded ``quant_pack`` launch per layer and stream), and
+attend as the reference does: over the quantized cache one page per
+online-softmax step (:func:`repro_torch.serving.kvcache.make_page_fetch`
+into :func:`repro_torch.models.attention.decode_attend_paged`: one
+``dequant_unpack`` launch per layer and page, K and V together, so no
+float32 K/V beyond one page exists), and over raw pages for ``bits=16``
+(:func:`repro_torch.models.attention.decode_attend` on the gathered
+window).  Generated tokens accumulate in a device-side
 ``(max_batch, gen_cap)`` buffer; the host copies a request's row **once**,
 on completion, with no per-token round trip.
 
@@ -101,10 +102,13 @@ def make_decode_fn(model, layout, *, gen_cap: int, collect_logits: bool):
                                 rows=rows)
             kvcache.commit_rows(pool, li, written)
             if layout.quantized:
-                kf, vf = kvcache.fetch_window(pool_l, layout, page_table)
+                fetch = kvcache.make_page_fetch(pool_l, layout, page_table)
+                a = attn.decode_attend_paged(
+                    q, pos, page_table.shape[1], fetch,
+                    n_kv_heads=cfg.n_kv_heads, out_dtype=x.dtype)
             else:
                 kf, vf = kvcache.gather_kv_raw(pool_l, layout, page_table)
-            a = attn.decode_attend(q, kf, vf, pos, out_dtype=x.dtype)
+                a = attn.decode_attend(q, kf, vf, pos, out_dtype=x.dtype)
             h = h + mm(a, lp.attn.wo)
             m = lp.mlp
             h = h + swiglu(rmsnorm(h, lp.ln2), m.w_gate, m.w_up, m.w_down)

@@ -39,6 +39,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import backend
 from repro_torch.core import pack as packmod
 from repro_torch.core.device import resolve_device
 from repro_torch.engine.seeds import kv_seed
@@ -414,34 +415,45 @@ def gather_kv_raw(pool_l: dict, layout: KVPageLayout, page_table):
         ).to(torch.float32) for name in ("k", "v"))
 
 
-def _dequant_pages(pool_l: dict, layout: KVPageLayout, name: str,
-                   table: torch.Tensor) -> torch.Tensor:
-    """Pages ``table`` (any shape) of stream ``name`` dequantized in one
-    ``dequant_unpack`` launch -> (*table.shape, T, Hkv, Dh) float32."""
-    P = layout.n_pages
-    pk = _gather_pages(pool_l[f"{name}_packed"], table, P)
-    pz = _gather_pages(pool_l[f"{name}_zero"], table, P)
-    pr = _gather_pages(pool_l[f"{name}_rng"], table, P)
-    blocks = ops.dequantize_packed(
-        pk.reshape(-1, layout.words_per_block), pz.reshape(-1),
-        pr.reshape(-1), layout.bits, layout.group_size)
-    return blocks.reshape(*table.shape, layout.page_tokens,
-                          layout.n_kv_heads, layout.d_head)
+def make_page_fetch(pool_l: dict, layout: KVPageLayout, page_table):
+    """Quantized read path: a ``fetch(j)`` closure for
+    :func:`repro_torch.models.attention.decode_attend_paged` that
+    dequantizes exactly page ``j`` of every slot, K and V together in one
+    ``dequant_unpack`` launch (through
+    :func:`repro_torch.core.backend.dequantize_blocks`: the kernel on the
+    card, the plain version on the CPU).  ``fetch(j)`` returns kf, vf
+    (B, T, Hkv, Dh) float32 and kv_pos (T,), the page's absolute positions.
 
-
-def fetch_window(pool_l: dict, layout: KVPageLayout, page_table):
-    """Quantized read path, whole window: every slot's pages dequantized
-    with one ``dequant_unpack`` launch per stream -> kf, vf (B,
-    max_pages*T, Hkv, Dh) float32: the reference's page-by-page reads
-    (its ``make_page_fetch``) laid end to end, null pages as zeros.  The
-    serving engine attends over it with
-    :func:`repro_torch.models.attention.decode_attend`; the float32 window
-    is one layer's transient."""
+    The pages' codes (the packed words and each block's ``zero`` and
+    ``range``, about an eighth of the float32 K/V at 4 bits) are gathered
+    once, page-major with K before V, so page ``j`` is one contiguous slice
+    and a fetch launches nothing but its dequantization; the float32 K/V
+    of no more than one page exists at a time, as in the reference's read.
+    A null page reads as zeros, as the reference's ``mode="fill"`` gather
+    does: its ``zero`` and ``range`` are zeroed, so every code dequantizes
+    to 0 (the codes themselves are read from a clamped page id)."""
     B, maxp = page_table.shape
-    return tuple(
-        _dequant_pages(pool_l, layout, name, page_table).reshape(
-            B, maxp * layout.page_tokens, layout.n_kv_heads, layout.d_head)
-        for name in ("k", "v"))
+    P, T = layout.n_pages, layout.page_tokens
+    n = B * T * layout.blocks_per_token          # blocks of a page, a stream
+    idx = page_table.T.clamp(max=P - 1).reshape(-1).to(torch.int64)
+    valid = (page_table.T < P).repeat(1, 2)[:, :, None]   # (maxp, 2B, 1)
+
+    def gather(field):
+        return torch.cat([pool_l[f"{name}_{field}"].index_select(0, idx)
+                          .view(maxp, n, -1) for name in ("k", "v")], 1)
+
+    packed = gather("packed")                           # (maxp, 2n, wpb)
+    zero, rng = (torch.where(valid, gather(f).view(maxp, 2 * B, -1), 0.0)
+                 .view(maxp, 2 * n) for f in ("zero", "rng"))
+    kv_pos = torch.arange(maxp * T, device=page_table.device).view(maxp, T)
+
+    def fetch(j: int):
+        kv = backend.dequantize_blocks(packed[j], zero[j], rng[j],
+                                       layout.bits, layout.group_size)
+        kv = kv.view(2, B, T, layout.n_kv_heads, layout.d_head)
+        return kv[0], kv[1], kv_pos[j]
+
+    return fetch
 
 
 # ============================================================= allocator

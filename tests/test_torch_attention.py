@@ -136,6 +136,39 @@ def test_online_attention_matches_jax(dtype, causal, sq, skv, q_offset,
                                atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,skv,q_offset,kv_len,k_chunk", [
+    (37, 37, 0, None, 16),       # ragged Skv against k_chunk
+    (20, 64, 0, 41, 16),         # a padded cache: 41 valid keys
+    (24, 50, 26, None, 32),      # chunked prefill: queries at 26..49
+])
+def test_chunked_attention_and_grads_match_jax(causal, sq, skv, q_offset,
+                                               kv_len, k_chunk):
+    """Training attention: the reference's scan spelled in torch ops, its
+    output and its q/k/v gradients (autograd against jax.vjp) within 1e-5
+    at float32."""
+    b, h, dh = 2, 4, 16
+    q = _normal((b, sq, h, dh), sq)
+    k = _normal((b, skv, h, dh), skv)
+    v = _normal((b, skv, h, dh), skv + 1)
+    g = _normal((b, sq, h, dh), 7)
+    fn = lambda q_, k_, v_: j_attn.online_attention(
+        q_, k_, v_, causal=causal, q_offset=q_offset, kv_len=kv_len,
+        k_chunk=k_chunk)
+    want, vjp = jax.vjp(fn, *map(jnp.asarray, (q, k, v)))
+    want_g = vjp(jnp.asarray(g))
+    qt, kt, vt = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    got = t_attn.chunked_attention(qt, kt, vt, causal=causal,
+                                   q_offset=q_offset, kv_len=kv_len,
+                                   k_chunk=k_chunk)
+    got.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-5, rtol=1e-5)
+    for t, j in zip((qt, kt, vt), want_g):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(j), atol=1e-5,
+                                   rtol=1e-5)
+
+
 def test_repeat_kv_matches_jax():
     k = _normal((2, 5, 3, 8), 1)
     np.testing.assert_array_equal(
@@ -207,14 +240,16 @@ def test_qkv_project_and_attention_block_match_jax(name):
     x = _normal((2, 11, cfg.d_model), 9)
     pos = np.arange(11, dtype=np.int32)[None].repeat(2, 0)
     want = j_attn.qkv_project(jnp.asarray(x), lp, cfg, jnp.asarray(pos))
-    got = t_attn.qkv_project(torch.from_numpy(x), tm.layers[0].attn,
-                             tm.cfg, torch.from_numpy(pos))
+    with torch.no_grad():   # the model's parameters are trainable
+        got = t_attn.qkv_project(torch.from_numpy(x), tm.layers[0].attn,
+                                 tm.cfg, torch.from_numpy(pos))
+        block = t_attn.attention_block(torch.from_numpy(x),
+                                       tm.layers[0].attn, tm.cfg)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5,
                                    rtol=1e-5)
     np.testing.assert_allclose(
-        t_attn.attention_block(torch.from_numpy(x), tm.layers[0].attn,
-                               tm.cfg).numpy(),
+        block.numpy(),
         np.asarray(j_attn.attention_block(jnp.asarray(x), lp, cfg,
                                           k_chunk=4)), atol=1e-5, rtol=1e-5)
 
@@ -222,8 +257,8 @@ def test_qkv_project_and_attention_block_match_jax(name):
 def test_decode_attend_and_paged_match_jax():
     """The decode core on a padded float32 window, GQA (8 query heads over
     2 KV heads), against the reference's dense masked softmax and against
-    its page-by-page online one (the port reads a slot's pages as one
-    window), within 1e-5."""
+    its page-by-page online one, and the port's page-by-page read against
+    the reference's (the same pages through both), within 1e-5."""
     b, s, hq, hkv, dh, T = 3, 24, 8, 2, 16, 8
     q = _normal((b, 1, hq, dh), 1)
     kf, vf = _normal((b, s, hkv, dh), 2), _normal((b, s, hkv, dh), 3)
@@ -246,4 +281,16 @@ def test_decode_attend_and_paged_match_jax():
                                         s // T, fetch_j, n_kv_heads=hkv,
                                         out_dtype=jnp.float32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want_p), atol=1e-5,
+                               rtol=1e-5)
+
+    def fetch_t(j):
+        return (torch.from_numpy(kf[:, j * T:(j + 1) * T]),
+                torch.from_numpy(vf[:, j * T:(j + 1) * T]),
+                j * T + torch.arange(T))
+
+    got_p = t_attn.decode_attend_paged(torch.from_numpy(q),
+                                       torch.from_numpy(pos), s // T,
+                                       fetch_t, n_kv_heads=hkv,
+                                       out_dtype=torch.float32)
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), atol=1e-5,
                                rtol=1e-5)

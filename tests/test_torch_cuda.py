@@ -74,7 +74,8 @@ def _assert_quant_round_trip(x, bits, seed, levels, rows_per_seed=None):
 #: Every shape the quant kernels take on the main path (PERF.md section 6):
 #: the RP-8 slice's layers and the rp_ratio-0 slice's fused="off" layer
 #: inputs (2 bits, uniform and VM levels), and the KV cache's prefill (one
-#: seed a token of 40 blocks), decode step and window (4 bits, uniform).
+#: seed a token of 40 blocks), decode step and one decode read: K and V of
+#: a page of each of 4 slots (4 bits, uniform).
 MAIN_QUANT_SHAPES = {
     **{f"{name}_{lv}": (n, 256, 2, None, lv) for name, n in (
         ("rp8_21168", 21_168), ("rp8_42336", 42_336),
@@ -82,7 +83,7 @@ MAIN_QUANT_SHAPES = {
        for lv in ("uniform", "vm")},
     "kv_prefill": (161_280, 64, 4, 40, "uniform"),
     "kv_decode": (160, 64, 4, 40, "uniform"),
-    "kv_window": (166_400, 64, 4, None, "uniform")}
+    "kv_page": (5_120, 64, 4, None, "uniform")}
 
 
 @pytest.mark.gpu
@@ -1269,3 +1270,143 @@ def test_cuda_obs_on_is_bit_identical(cuda, kind):
     assert off["stash_bytes"] == on["stash_bytes"]
     rows = on["obs"].quant_rows()
     assert len(rows) == cfg.n_layers and rows[0]["epoch"] == 2
+
+
+# --------------------------------------------- LM training and the decode
+def _block_params(d: int, seed: int) -> dict:
+    gen = torch.Generator().manual_seed(seed)
+    return {"w1": (torch.randn(d, 2 * d, generator=gen) / d ** 0.5).to(
+                torch.bfloat16).cuda().requires_grad_(),
+            "w2": (torch.randn(2 * d, d, generator=gen) / d ** 0.5).to(
+                torch.bfloat16).cuda().requires_grad_()}
+
+
+def _block(x, p):
+    return x + torch.nn.functional.silu(x @ p["w1"]) @ p["w2"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offload", [None, "pinned-paged"])
+def test_cuda_compressed_block_kernels_against_plain(cuda, offload):
+    """compressed_block on bf16 activations with the quant kernels and
+    with their plain versions on the card: the stash bit-equal (packed
+    words, zero, range), so the output and the gradients of x and of the
+    parameters are too; the pinned-paged stash gives the same bits."""
+    from repro_torch.core import backend
+    from repro_torch.core.act_compress import compressed_block
+    from repro_torch.core.compressor import CompressionConfig, compress
+
+    cfg = CompressionConfig(bits=2, group_size=256)
+    x0 = (torch.randn(2, 96, 256, generator=torch.Generator().manual_seed(1))
+          .to(torch.bfloat16).cuda())
+    g = torch.randn(2, 96, 256, device="cuda").to(torch.bfloat16)
+    stash = [compress(x0, cfg, 99)]
+    with backend.use_impl("torch"):
+        stash.append(compress(x0, cfg, 99))
+    for f in ("packed", "zero", "rng"):
+        assert torch.equal(getattr(stash[0], f), getattr(stash[1], f))
+    runs = []
+    for impl in ("auto", "torch"):
+        p = _block_params(256, 2)
+        x = x0.clone().requires_grad_()
+        with backend.use_impl(impl):
+            y = compressed_block(_block, cfg, offload)(x, p, 99)
+            y.backward(g)
+        runs.append((y.detach(), x.grad, p["w1"].grad, p["w2"].grad))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def _smoke_lm(device):
+    import dataclasses
+
+    from repro_torch.configs import get, reduce_for_smoke
+    from repro_torch.core.compressor import CompressionConfig
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(
+        reduce_for_smoke(get("qwen1.5-4b")), act_mode="act",
+        act_dtype="float32",
+        act_compression=CompressionConfig(bits=2, group_size=64))
+    return Model(cfg, device=device,
+                 generator=torch.Generator(device).manual_seed(0))
+
+
+@pytest.mark.gpu
+def test_cuda_lm_train_step_matches_cpu(cuda):
+    """One act-mode train step of the smoke LM (float32 activations) on the
+    card against the CPU's from the same weights: the loss within 1e-5
+    relative; of every updated parameter at least 99 % of the elements
+    within one bf16 ulp (2**-7 relative, 1e-6 absolute: the matmuls sum in
+    other orders) and all within 2 * lr (AdamW moves an element whose
+    gradient is rounding noise by about +-lr either way)."""
+    from repro_torch.data import batch_for_step
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cpu = _smoke_lm("cpu")
+    card = _smoke_lm("cpu").cuda()
+    opt = AdamWConfig(lr=3e-3, weight_decay=0.01, grad_clip=1.0)
+    tokens = torch.as_tensor(batch_for_step(512, 4, 64, 0))
+    losses = []
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        state = adamw_init(list(model.parameters()), opt)
+        step = make_train_step(model, opt)
+        losses.append(float(step(state, {"tokens": tokens.to(dev)})["loss"]))
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[0])
+    for a, b in zip(cpu.parameters(), card.parameters()):
+        a, b = a.detach().float(), b.detach().cpu().float()
+        close = torch.isclose(b, a, rtol=2.0 ** -7, atol=1e-6)
+        assert close.float().mean() >= 0.99
+        torch.testing.assert_close(b, a, rtol=0.0, atol=2 * opt.lr)
+
+
+@pytest.mark.gpu
+def test_cuda_page_fetch_kernel_bit_equal_to_plain(cuda):
+    """make_page_fetch on the card: each page (null pages included) read
+    through the dequant_unpack kernel bit-equal to the plain version."""
+    from repro_torch.core import backend
+    from repro_torch.serving import kvcache
+
+    layout = kvcache.plan_kv_layout(
+        kvcache.KVCacheConfig(bits=4, group_size=64, page_tokens=16,
+                              n_pages=12), n_layers=1, n_kv_heads=4,
+        d_head=32)
+    pool = kvcache.init_kv_pool(layout, "cuda")
+    gen = torch.Generator("cuda").manual_seed(3)
+    k, v = (torch.randn((1, 2, 64, 4, 32), device="cuda", generator=gen)
+            for _ in range(2))
+    kvcache.write_prompt(pool, layout, k, v,
+                         np.asarray([[0, 1, 2, 3], [4, 5, 6, 12]]), [0, 1])
+    table = torch.tensor([[0, 1, 2, 3, 12], [4, 5, 6, 12, 12]],
+                         dtype=torch.int32, device="cuda")
+    fetch = kvcache.make_page_fetch(kvcache.layer_view(pool, 0), layout,
+                                    table)
+    for j in range(table.shape[1]):
+        got = fetch(j)
+        with backend.use_impl("torch"):
+            want = fetch(j)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert not bool(fetch(4)[0].any())      # null pages read as zeros
+
+
+@pytest.mark.gpu
+def test_cuda_lm_resume_bit_identical(cuda, tmp_path):
+    """The launcher at the smoke width on the card: 4 steps checkpointed
+    every 2, then 6 in the same directory, equal to 6 uninterrupted steps
+    bit for bit (losses and parameters)."""
+    from repro_torch.launch import train
+
+    base = ["--arch", "qwen1.5-4b", "--smoke", "--batch", "2", "--seq", "64",
+            "--act-mode", "act"]
+    ck = ["--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "2"]
+    run = lambda argv: train.lm_main(train.parser().parse_args(base + argv))
+    whole = run(["--steps", "6"])
+    run(["--steps", "4"] + ck)
+    resumed = run(["--steps", "6"] + ck)
+    assert [h["step"] for h in resumed["history"]] == [4, 5]
+    assert [h["loss"] for h in resumed["history"]] == \
+        [h["loss"] for h in whole["history"][4:]]
+    assert all(torch.equal(p, q) for p, q in zip(
+        resumed["model"].parameters(), whole["model"].parameters()))

@@ -2,7 +2,8 @@
 the synthetic prompt source (exact), then ``Model.prefill`` logits and KV
 cache and several ``decode_step``s from the same weights
 (``params_from_jax``) for qwen1.5-4b (QKV bias, MHA), mistral-nemo-12b
-(GQA, H*Dh != d_model) and qwen3-32b (qk-norm), and the launcher.
+(GQA, H*Dh != d_model) and qwen3-32b (qk-norm), the training forward
+(``hidden_states`` and ``loss``), and the launcher.
 
 Tolerances: float32 activations 2e-5 absolute + 1e-5 relative (the
 matmuls sum in other orders); bf16 activations 0.1 absolute on logits of
@@ -121,7 +122,8 @@ def _pair(name, act_dtype):
 
 
 def _f32(a):
-    return a.to(torch.float32).numpy() if isinstance(a, torch.Tensor) \
+    return a.detach().to(torch.float32).numpy() \
+        if isinstance(a, torch.Tensor) \
         else np.asarray(a, np.float32)
 
 
@@ -190,7 +192,7 @@ def test_random_init_has_reference_shapes_and_dtypes(name):
     assert len(tm.layers) == cfg.n_layers
     assert sum(p.numel() for p in tm.parameters()) == sum(
         int(np.prod(s.shape)) for s in jax.tree.leaves(params))
-    w = tm.layers[0].mlp.w_gate.float()
+    w = tm.layers[0].mlp.w_gate.detach().float()
     assert abs(float(w.std()) * cfg.d_model ** 0.5 - 1) < 0.05
 
 
@@ -221,11 +223,21 @@ def test_model_lives_on_the_card_unless_the_cpu_is_asked_for():
     assert params_from_jax(params, cfg, device="cpu").device.type == "cpu"
 
 
-def test_training_entry_points_name_their_roadmap_item():
-    tm = Model(t_reduce(T_ARCHS["qwen1.5-4b"]), device="cpu")
-    for fn in (tm.hidden_states, tm.loss):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            fn(torch.zeros((1, 4), dtype=torch.int64))
+@pytest.mark.parametrize("name", LM_ARCHS)
+def test_hidden_states_and_loss_match_reference(name):
+    """The training forward (``act_mode="none"``): ``hidden_states`` and
+    ``loss`` from the same weights as the reference's, at float32
+    activations, for QKV bias, GQA and qk-norm."""
+    jm, params, tm = _pair(name, "float32")
+    tok = np.random.default_rng(5).integers(0, jm.cfg.vocab, (2, 20))
+    jh, _ = jm.hidden_states(params, jnp.asarray(tok, jnp.int32))
+    with torch.no_grad():
+        th, aux = tm.hidden_states(torch.as_tensor(tok))
+        tl = tm.loss(torch.as_tensor(tok), vocab_chunk=8)
+    np.testing.assert_allclose(_f32(th), _f32(jh), **TOL["float32"])
+    assert float(aux) == 0.0
+    jl = jm.loss(params, jnp.asarray(tok, jnp.int32), vocab_chunk=8)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
 
 
 def test_serve_step_greedy_decode_matches_reference():

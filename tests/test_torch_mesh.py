@@ -345,15 +345,31 @@ def test_compressed_matmul_matches_reference(rp):
     assert torch.equal(tx2.grad, tx.grad)
 
 
-@pytest.mark.parametrize("call", [
-    lambda: t_ac.compressed_matmul(torch.ones(4, 4), torch.ones(4, 4), 0,
-                                   TCC(group_size=16), offload="host"),
-    lambda: t_ac.compressed_elementwise(torch.relu, torch.ones(4), 0,
-                                        TCC()),
-    lambda: t_ac.compressed_block(lambda x, p: x, TCC())])
-def test_lm_parts_of_act_compress_raise(call):
-    with pytest.raises(NotImplementedError, match="A.11"):
-        call()
+@pytest.mark.parametrize("offload,rp", [("host", 0), ("host", 8),
+                                        ("pinned-paged", 8)])
+def test_compressed_matmul_host_placements_bit_identical(offload, rp):
+    """``offload="host"|"pinned-paged"`` parks the stash in host memory
+    between the forward and the backward: the output and every gradient
+    bit-identical to the stash kept where it was made (``"device"``), and
+    ``dw`` within 1e-4 of the reference's."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(96, 64)).astype(np.float32)
+    w = rng.normal(size=(64, 24)).astype(np.float32)
+    g = rng.normal(size=(96, 24)).astype(np.float32)
+    tc = TCC(bits=2, group_size=64, rp_ratio=rp)
+    jc = JCC(bits=2, group_size=64, rp_ratio=rp, impl="jnp")
+    outs = {}
+    for place in ("device", offload):
+        tx, tw = (torch.tensor(a, requires_grad=True) for a in (x, w))
+        y = t_ac.compressed_matmul(tx, tw, 77, tc, offload=place)
+        y.backward(torch.from_numpy(g))
+        outs[place] = (y.detach(), tx.grad, tw.grad)
+    for a, b in zip(outs["device"], outs[offload]):
+        assert torch.equal(a, b)
+    jdw = jax.grad(lambda w_: jnp.sum(j_cmatmul(
+        jnp.asarray(x), w_, jnp.uint32(77), jc) * g))(jnp.asarray(w))
+    np.testing.assert_allclose(outs[offload][2].numpy(), np.asarray(jdw),
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_relu_1bit_and_aggregate_gradients():
