@@ -164,7 +164,34 @@ Phases, in order; any failure raises and exits non-zero:
    directory resumes at step 4 and equals an uninterrupted 6-step run bit
    for bit, and ``--fail-at 3`` raises and leaves ``step_2`` loadable.
    The phase stays under PHASE12_LIMIT_S;
-13. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+13. slice 15, the MoE family, after phase 12: first flash at the MoE
+   prefill's (256, 1000, 128) bf16 beside SDPA, the seeded quant_pack and
+   page dequant_unpack at 4 KV heads and the 8-bit AdamW moments of a
+   (128, 4096, 1536) expert stack, each against its plain version and
+   timed; (a) qwen3-moe-235b-a22b at full width (128 experts top-8,
+   64 / 4 heads, qk-norm) cut to MOE_SERVE_LAYERS layers, seed-0 weights
+   (the reckoned bytes beside the model's), on phase 8's traffic through
+   the launcher's engine: 8 requests of 32 tokens, launches by phase 8's
+   formula, no plain attention on the card, the pool's bytes the
+   layout's, a run collecting logits with the same tokens and finite
+   logits, TTFT / TPOT / tokens/s / peak, one profiled decode step and
+   prefill; at 2 layers of the same weights the prefill logits with the
+   kernel against the plain attention and a paged decode step against
+   the plain-dequantized window (phase 8's bands); (b) layer 0 at the
+   prefill's (4, 1000, 4096): the card's routing (idx, keep, slot) equal
+   to the host's recomputation from the card's probabilities, y on
+   MOE_SAMPLE tokens against a float32 loop over each token's kept
+   experts within MOE_BAND, the dropped pairs at C = 80, and the layer's
+   time at the prefill's and a decode step's shape (the experts' share of
+   a decode step); (c) arctic-480b at full width (its dense FFN residual)
+   and ARCTIC_LAYERS layers serving 2 requests of 256 + 8 tokens: tokens,
+   finite logits, launches as planned; (d) ``launch.train`` on
+   qwen3-moe at full width cut to 1 layer (MOE_LM_ARGV: remat, 8-bit
+   AdamW, B 8 x 512 in the config's grad_accum 8 micro-batches, 5 steps):
+   a finite loss and aux every step, a nonzero router gradient, the
+   moments' launches as planned.  The phase stays under PHASE13_LIMIT_S;
+14. a JSON line of per-kernel numbers (phase 13's shapes under
+   ``moe_shapes``), then ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX; without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -284,9 +311,11 @@ EXTRA_QUANT = (("flickr", 89_250, 125, 2, None),
 BATCH_QUANT_BLOCKS = (2_648, 5_296, 16_504, 33_008, 21_184, 42_368)
 
 
-def quant_case(torch, qk, ref, n_blocks, G, bits, lv, flush, gen) -> tuple:
+def quant_case(torch, qk, ref, n_blocks, G, bits, lv, flush, gen,
+               plain_iters: int = 20) -> tuple:
     """quant_pack / dequant_unpack at one shape: bit-equal to the plain
-    version, then timed beside it and the bound.  Returns the two rows."""
+    version, then timed beside it (over ``plain_iters`` launches) and the
+    bound.  Returns the two rows."""
     from repro_torch.core.pack import packed_len
 
     x = torch.randn((n_blocks, G), device="cuda", generator=gen) * 2.3
@@ -325,11 +354,11 @@ def quant_case(torch, qk, ref, n_blocks, G, bits, lv, flush, gen) -> tuple:
     q_bound = bound(q_bytes, ops * n_blocks * G)
     d_bound = bound(q_bytes, 4 * n_blocks * G)
     q = dict(ms=time_ms(torch, lambda: qk.quant_pack(x, bits, 1234, lv), flush),
-             plain_ms=time_ms(torch, lambda: ref.quantize_packed(x, bits, 1234, lv), flush),
+             plain_ms=time_ms(torch, lambda: ref.quantize_packed(x, bits, 1234, lv), flush, plain_iters),
              bound_ms=q_bound[0], bound_by=q_bound[1], max_abs_err=q_err,
              library_ms=None, bytes=q_bytes)
     d = dict(ms=time_ms(torch, lambda: qk.dequant_unpack(pk, zk, rk, bits, G, lv), flush),
-             plain_ms=time_ms(torch, lambda: ref.dequantize_packed(pr, zr, rr, bits, G, lv), flush),
+             plain_ms=time_ms(torch, lambda: ref.dequantize_packed(pr, zr, rr, bits, G, lv), flush, plain_iters),
              bound_ms=d_bound[0], bound_by=d_bound[1], max_abs_err=d_err,
              library_ms=None, bytes=q_bytes)
     log(f"quant_pack     {tag}: bit-equal, max abs err {q_err}; {q}")
@@ -1150,9 +1179,10 @@ def slice_batched(torch, g, cfg, cfg0, model0, wrappers, rp8_peak) -> dict:
 FLASH_SHAPE = (80, 1000, 128)    # slice 3 prefill: 4 requests x 20 heads
 
 
-def check_flash(torch, fa, ref, flush, gen) -> dict:
+def check_flash(torch, fa, ref, flush, gen, shape=FLASH_SHAPE,
+                prefix: str = "") -> dict:
     """flash_attention against its plain version: at the serving prefill
-    shape, causal, bf16 (atol 1e-3, rtol 2**-7: an output may round to the
+    ``shape``, causal, bf16 (atol 1e-3, rtol 2**-7: an output may round to the
     other neighbouring bf16) and float32 (within 3e-5), in both scale
     orders, and at ragged Sq != Skv with q_offset / kv_len.  At the bf16
     prefill shape also two calls bit-identical, and at most 1 % of the
@@ -1167,7 +1197,8 @@ def check_flash(torch, fa, ref, flush, gen) -> dict:
     P V), at the bf16 tensor-core peak for bf16 inputs; the kernel's second
     P V pass for the split P is its own cost, not the function's.
     f32_bound_ms is the float32 SIMT bound (67 TFLOP/s), which the float32
-    kernel keeps."""
+    kernel keeps.  With a ``prefix`` (another model's prefill shape) only
+    the bf16 prefill case runs, its row tagged ``prefix + "prefill bf16"``."""
     import torch.nn.functional as F
 
     def single_bf16_p(q, k, v, scale_q):
@@ -1184,13 +1215,13 @@ def check_flash(torch, fa, ref, flush, gen) -> dict:
         return out.to(torch.bfloat16)
 
     rows = {}
-    bh, s, dh = FLASH_SHAPE
+    bh, s, dh = shape
     # (atol, rtol): float32 within 3e-5; a bf16 output within one bf16 ulp
     # of the plain version's (2**-7 relative), 1e-3 absolute near zero
     f32_tol, bf16_tol = (3e-5, 3e-5), (1e-3, 2.0 ** -7)
-    cases = [("prefill bf16", FLASH_SHAPE, s, torch.bfloat16, True, 0, None,
+    cases = [("prefill bf16", shape, s, torch.bfloat16, True, 0, None,
               bf16_tol),
-             ("prefill f32", FLASH_SHAPE, s, torch.float32, True, 0, None,
+             ("prefill f32", shape, s, torch.float32, True, 0, None,
               f32_tol),
              ("ragged f32", (6, 70, 128), 200, torch.float32, True, 130,
               None, f32_tol),
@@ -1198,6 +1229,8 @@ def check_flash(torch, fa, ref, flush, gen) -> dict:
               60, 137, bf16_tol),
              ("full kv_len f32", (6, 70, 64), 200, torch.float32, False, 0,
               131, f32_tol)]
+    if prefix:
+        cases = [(prefix + c[0], *c[1:]) for c in cases[:1]]
     for tag, (b, sq, d), skv, dt, causal, q_off, kv_len, tol in cases:
         errs, shares, ctrl = [], [], []  # this case's: each row its own
         q = torch.randn((b, sq, d), device="cuda", generator=gen).to(dt)
@@ -1220,7 +1253,7 @@ def check_flash(torch, fa, ref, flush, gen) -> dict:
                 shares.append(float((got != want).float().mean()))
                 log(f"  share of bf16 outputs not bit-equal to the plain "
                     f"version's: {shares[-1]}")
-            if tag == "prefill bf16":
+            if tag == prefix + "prefill bf16":
                 if not torch.equal(got, fa.flash_attention(q, k, v, **kw)):
                     raise AssertionError(f"flash_attention {tag}: two calls "
                                          "differ")
@@ -1236,7 +1269,7 @@ def check_flash(torch, fa, ref, flush, gen) -> dict:
                     raise AssertionError(f"flash_attention {tag}: a single "
                                          f"bf16 P gives {ctrl[-1]} <= 0.01, "
                                          "so the limit does not tell it")
-        if tag.startswith("prefill"):
+        if "prefill" in tag:
             kern = lambda: fa.flash_attention(q, k, v, causal=True,
                                               scale_q=True)
             plain = lambda: ref.flash_attention(q, k, v, causal=True,
@@ -1276,36 +1309,38 @@ KV_PAGE_TOKENS = 2 * 4 * 16          # one decode read: K and V of a page
                                      # of each of 4 slots
 
 
-def check_kv_quant(torch, qk, ref, flush, gen) -> dict:
-    """The KV cache's use of the quant kernels: quant_pack with one seed per
-    token (counters restarting per token) at a prefill group's and a
-    decode step's rows, bit-equal to the plain version; dequant_unpack of
-    a decode window's pages, bit-equal to the plain version.  Timed."""
+def check_kv_quant(torch, qk, ref, flush, gen, nbt: int = KV_NBT,
+                   prefix: str = "") -> dict:
+    """The KV cache's use of the quant kernels at ``nbt`` blocks a token:
+    quant_pack with one seed per token (counters restarting per token) at
+    a prefill group's and a decode step's rows, bit-equal to the plain
+    version; dequant_unpack of a page of K and V of 4 slots, bit-equal to
+    the plain version.  Timed; rows tagged with ``prefix``."""
     from repro_torch.engine.seeds import kv_seed
 
     rows = {}
     for tag, n_tok in (("kv prefill", KV_PREFILL_TOKENS), ("kv decode", 4)):
-        x = torch.randn((n_tok * KV_NBT, KV_G), device="cuda",
+        x = torch.randn((n_tok * nbt, KV_G), device="cuda",
                         generator=gen) * 1.3
         seeds = kv_seed(torch.arange(n_tok, device="cuda") % 1008,
                         torch.arange(n_tok, device="cuda") // 1008, 7, 1)
-        got = qk.quant_pack(x, KV_BITS, seeds, rows_per_seed=KV_NBT)
-        want = ref.quantize_packed(x, KV_BITS, seeds, rows_per_seed=KV_NBT)
+        got = qk.quant_pack(x, KV_BITS, seeds, rows_per_seed=nbt)
+        want = ref.quantize_packed(x, KV_BITS, seeds, rows_per_seed=nbt)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"seeded quant_pack {tag}: not bit-equal")
-        n = n_tok * KV_NBT
+        n = n_tok * nbt
         nbytes = n * KV_G * 4 + n * KV_G * KV_BITS // 8 + 8 * n + 4 * n_tok
         bnd = bound(nbytes, 18 * n * KV_G)
         row = dict(ms=time_ms(torch, lambda: qk.quant_pack(
-                       x, KV_BITS, seeds, rows_per_seed=KV_NBT), flush),
+                       x, KV_BITS, seeds, rows_per_seed=nbt), flush),
                    plain_ms=time_ms(torch, lambda: ref.quantize_packed(
-                       x, KV_BITS, seeds, rows_per_seed=KV_NBT), flush),
+                       x, KV_BITS, seeds, rows_per_seed=nbt), flush),
                    bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=0.0,
                    library_ms=None, bytes=nbytes)
-        log(f"quant_pack (seeded) {tag} {n}x{KV_G}: bit-equal; {row}")
-        rows[("quant_pack", f"{tag} {n}x{KV_G}")] = row
-    n = KV_PAGE_TOKENS * KV_NBT
+        log(f"quant_pack (seeded) {prefix}{tag} {n}x{KV_G}: bit-equal; {row}")
+        rows[("quant_pack", f"{prefix}{tag} {n}x{KV_G}")] = row
+    n = KV_PAGE_TOKENS * nbt
     x = torch.randn((n, KV_G), device="cuda", generator=gen)
     pk, zk, rk = qk.quant_pack(x, KV_BITS, 5)
     got = qk.dequant_unpack(pk, zk, rk, KV_BITS, KV_G)
@@ -1322,8 +1357,9 @@ def check_kv_quant(torch, qk, ref, flush, gen) -> dict:
                    pk, zk, rk, KV_BITS, KV_G), flush),
                bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=err,
                library_ms=None, bytes=nbytes)
-    log(f"dequant_unpack kv page {n}x{KV_G}: max abs err {err}; {row}")
-    rows[("dequant_unpack", f"kv page {n}x{KV_G}")] = row
+    log(f"dequant_unpack {prefix}kv page {n}x{KV_G}: max abs err {err}; "
+        f"{row}")
+    rows[("dequant_unpack", f"{prefix}kv page {n}x{KV_G}")] = row
     return rows
 
 
@@ -1422,6 +1458,37 @@ def paged_against_window(torch, engine, page_table, state, ref) -> tuple:
             bool(torch.equal(paged.argmax(-1), window.argmax(-1))))
 
 
+def timed(torch, fn):
+    """(``fn()``, host ms) with the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def profiled(torch, fn, what: str, top: int = 12):
+    """``fn()`` under torch.profiler: logs its wall time, device busy time,
+    idle share and device time by kernel; returns (``fn()``, wall ms,
+    busy ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out, wall_ms = timed(torch, fn)
+    rows = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.count,
+             e.key) for e in prof.key_averages()
+            if getattr(e, "device_type", None)
+            == torch.autograd.DeviceType.CUDA]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"profiled {what}: wall {wall_ms:.3f} ms, device busy "
+        f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}")
+    log_profile(rows, top)
+    return out, wall_ms, busy
+
+
 def profile_serve(torch, engine, requests, qk, ref) -> dict:
     """One admission group's prefill and single decode steps of a fresh
     engine (collecting logits): host time (synchronized), the decode step
@@ -1429,31 +1496,6 @@ def profile_serve(torch, engine, requests, qk, ref) -> dict:
     (``window_read`` with the kernel) in turns, one step's logits through
     both reads (``paged_against_window``), then one profiled prefill and
     one profiled decode step (device time by kernel, idle share)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    def profiled(fn, what):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            out, wall_ms = timed(fn)
-        rows = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.count,
-                 e.key) for e in prof.key_averages()
-                if getattr(e, "device_type", None)
-                == torch.autograd.DeviceType.CUDA]
-        rows.sort(reverse=True)
-        busy = sum(r[0] for r in rows)
-        log(f"profiled {what}: wall {wall_ms:.3f} ms, device busy "
-            f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}")
-        log_profile(rows, 12)
-        return out
-
     out = {}
     state, table, out["prefill_ms"] = admit_group(engine, requests)
     page_table = torch.as_tensor(table, device=engine.device)
@@ -1462,7 +1504,8 @@ def profile_serve(torch, engine, requests, qk, ref) -> dict:
         for _ in range(3):
             with (window_read(qk.dequant_unpack) if read == "window"
                   else contextlib.nullcontext()):
-                state, ms = timed(lambda: engine._step(page_table, state))
+                state, ms = timed(torch,
+                                  lambda: engine._step(page_table, state))
             engine.sched.tick()
             steps[read].append(ms)
     out["decode_ms"] = steps
@@ -1472,13 +1515,14 @@ def profile_serve(torch, engine, requests, qk, ref) -> dict:
     log(f"[serve] 40 layers: a decode step's logits through the paged read "
         f"against decode_attend over the plain-dequantized window: max abs "
         f"err {err} (logits up to {scale}); argmax equal {same}")
-    profiled(lambda: engine._step(page_table, state), "decode step")
+    profiled(torch, lambda: engine._step(page_table, state), "decode step")
     for si in range(engine.max_batch):
         engine.sched.complete(si)
     for r in requests[:engine.max_batch]:
         engine.sched.submit(r)
     group = engine.sched.admit()
-    profiled(lambda: engine._admit_group(group, engine._init_state(), table),
+    profiled(torch,
+             lambda: engine._admit_group(group, engine._init_state(), table),
              "prefill (4 x 1000 tokens)")
     log(f"[serve] unprofiled: prefill of a 4 x 1000 group "
         f"{out['prefill_ms']:.3f} ms; decode steps, paged read "
@@ -1502,25 +1546,18 @@ def slice_serve(torch, wrappers, fa, qk, ref) -> dict:
         f"(ArchConfig.param_count), {sum(p.numel() for p in model.parameters())} "
         f"in the model, built in {time.perf_counter() - t0:.1f} s")
 
-    # plain attention must not run on the card during the serving run
-    plain_calls = [0]
-    plain = ref.flash_attention
-
-    def counted(q, *a, **kw):
-        plain_calls[0] += q.is_cuda
-        return plain(q, *a, **kw)
-
-    # the counted and timed run is the launcher's: no logits collected
+    # the counted and timed run is the launcher's: no logits collected;
+    # plain attention must not run on the card during it
     engine, requests = serve.build_engine(args, model)
     pool_bytes = pool_nbytes(engine.pool)
-    ref.flash_attention = counted
-    for w in wrappers:
-        w.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    out = engine.run(requests)
-    torch.cuda.synchronize()
-    launches = {w.__name__: w.launches for w in wrappers}
-    ref.flash_attention = plain
+    plain_calls = [0]
+    with plain_attention_on_card(ref, plain_calls):
+        for w in wrappers:
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out = engine.run(requests)
+        torch.cuda.synchronize()
+        launches = {w.__name__: w.launches for w in wrappers}
     peak = torch.cuda.max_memory_allocated()
     serve.report(args, engine, out)
     log(f"[serve] launches over the run: {launches}; plain attention calls "
@@ -2854,6 +2891,467 @@ def slice_launcher_resume(torch, wrappers) -> collections.Counter:
     return total
 
 
+# -------------------------------------------------- phase 13: the MoE family
+#: Seconds phase 13 may take in all.
+PHASE13_LIMIT_S = 150.0
+MOE_ARCH = "qwen3-moe-235b-a22b"
+#: qwen3-moe-235b-a22b at full width, cut from 94 layers to 12 (~62 GB of
+#: bf16 weights; the 80 GB card holds 13 at most beside the serving run).
+MOE_SERVE_LAYERS = 12
+#: Phase 8's traffic on the MoE model: the launcher's flags but the arch.
+MOE_SERVE_ARGV = ["--arch", MOE_ARCH] + SERVE_ARGV[2:]
+#: The serving prefill's attention: 4 prompts x 64 query heads.
+MOE_FLASH_SHAPE = (256, 1000, 128)
+#: A token's K (or V) at 4 KV heads x 128: 8 blocks of G = 64.
+MOE_KV_NBT = 4 * 128 // KV_G
+#: Phase 8's launch formula at MOE_SERVE_LAYERS layers (2 prefill groups,
+#: 62 decode steps, 65 pages a slot, K and V each a quant_pack launch).
+MOE_SERVE_LAUNCHES = {
+    "flash_attention": 2 * MOE_SERVE_LAYERS,
+    "quant_pack": (2 + 62) * 2 * MOE_SERVE_LAYERS,
+    "dequant_unpack": 62 * MOE_SERVE_LAYERS * SERVE_PAGES_PER_SLOT}
+#: 12 layers x 260 pages x 2 x (16 tokens x 512 elements at 4 bits + 16 x 8
+#: blocks x 8 bytes of zero and range).
+MOE_SERVE_POOL_BYTES = MOE_SERVE_LAYERS * 260 * 2 * (16 * 512 // 2
+                                                     + 16 * 8 * 8)
+#: The 8-bit AdamW moments of one expert stack (128, 4096, 1536): blocks
+#: of 256.  The plain quantizer's int64 transients of the whole stack
+#: (6 GB each) do not fit beside it, so the plain comparison runs on 16
+#: experts' blocks (an eighth) and the kernel is also timed on the whole.
+MOE_MOMENT_BLOCKS = 128 * 4096 * 1536 // 256
+MOE_MOMENT_PLAIN_BLOCKS = MOE_MOMENT_BLOCKS // 8
+#: Tokens of the MoE layer check's sample, and its band on y (bf16 output
+#: of three bf16 products against float32 products from the same bf16
+#: inputs): 2**-6 of the sample's largest |y| plus 2**-6 relative.
+MOE_SAMPLE = 256
+MOE_BAND = 2.0 ** -6
+#: arctic-480b at full width, 2 of its 35 layers (~27.2 GB each).
+ARCTIC_ARGV = ["--arch", "arctic-480b", "--requests", "2", "--max-batch",
+               "2", "--prompt-len", "256", "--gen-len", "8", "--kv-bits", "4",
+               "--kv-group", "64", "--page-tokens", "16", "--device", "cuda"]
+ARCTIC_LAYERS = 2
+#: The launcher's MoE LM half: full width, 1 layer, the config's grad_accum
+#: 8 splitting B 8 into micro-batches of 1 x 512.
+MOE_LM_ARGV = ["--arch", MOE_ARCH, "--act-mode", "remat", "--opt-bits", "8",
+               "--batch", "8", "--seq", "512", "--steps", "5", "--lr",
+               str(LM_LR), "--device", "cuda"]
+
+
+@contextlib.contextmanager
+def plain_attention_on_card(ref, calls: list):
+    """Inside: every call of the plain attention with a CUDA tensor adds
+    one to ``calls[0]`` (the serving path must run none)."""
+    plain = ref.flash_attention
+
+    def counted(q, *a, **kw):
+        calls[0] += q.is_cuda
+        return plain(q, *a, **kw)
+
+    ref.flash_attention = counted
+    try:
+        yield
+    finally:
+        ref.flash_attention = plain
+
+
+def layer_tree(module) -> dict:
+    """A layer module's parameters as the nested dict ``Model`` takes,
+    sharing their storage."""
+    tree = {n: p.data for n, p in module.named_parameters(recurse=False)}
+    tree.update({n: layer_tree(c) for n, c in module.named_children()})
+    return tree
+
+
+def model_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def check_moe_shapes(torch, fa, qk, ref) -> dict:
+    """Phase 13's kernels at the MoE path's shapes against their plain
+    versions, timed: flash at the serving prefill's (256, 1000, 128) bf16
+    beside SDPA, the seeded quant_pack and page dequant_unpack at 4 KV
+    heads, and the 8-bit AdamW moments of an eighth of one (128, 4096,
+    1536) expert stack (and the kernels alone on the whole stack)."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    rows = check_flash(torch, fa, ref, flush, gen, MOE_FLASH_SHAPE, "moe ")
+    rows.update(check_kv_quant(torch, qk, ref, flush, gen, MOE_KV_NBT,
+                               "moe "))
+    tag, q, d = quant_case(torch, qk, ref, MOE_MOMENT_PLAIN_BLOCKS, 256, 8,
+                           None, flush, gen, plain_iters=3)
+    rows[("quant_pack", f"moe adamw8 {tag}")] = q
+    rows[("dequant_unpack", f"moe adamw8 {tag}")] = d
+    n = MOE_MOMENT_BLOCKS
+    x = torch.randn((n, 256), device="cuda", generator=gen)
+    words = qk.quant_pack(x, 8, 1234)
+    # an element's noise counter is its index in the stack, so the whole
+    # stack's first eighth is the plain version's of that eighth alone
+    m = MOE_MOMENT_PLAIN_BLOCKS
+    head = ref.quantize_packed(x[:m], 8, 1234)
+    if not all(torch.equal(a[:m], b) for a, b in zip(words, head)):
+        raise AssertionError("quant_pack moe adamw8 whole stack: its first "
+                             "eighth is not the plain version's")
+    del head
+    nbytes = n * (256 * 4 + 256 + 8)
+    for name, fn, ops in (
+            ("quant_pack", lambda: qk.quant_pack(x, 8, 1234), 18),
+            ("dequant_unpack", lambda: qk.dequant_unpack(*words, 8, 256), 4)):
+        bnd = bound(nbytes, ops * n * 256)
+        row = dict(ms=time_ms(torch, fn, flush, 5), plain_ms=None,
+                   bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+                   max_abs_err=0.0, bytes=nbytes)
+        log(f"{name} moe adamw8 whole stack {n}x256 int8 (its first "
+            f"eighth bit-equal to the plain version's): {row}")
+        rows[(name, f"moe adamw8 whole stack {n}x256")] = row
+    del flush, x, words
+    torch.cuda.empty_cache()
+    return rows
+
+
+def host_routing(probs: np.ndarray, k: int, c: int) -> dict:
+    """The dispatch plan recomputed on the host from (B, S, E) float32
+    probabilities, with no sort: the k largest per token (descending),
+    each pair's position its expert's count of earlier pairs in token
+    order, ``keep = pos < c``, ``slot = idx*c + pos`` or the dummy E*c."""
+    b, s, e = probs.shape
+    idx = np.argsort(-probs, axis=-1, kind="stable")[..., :k]
+    flat = idx.reshape(b, s * k)
+    onehot = flat[..., None] == np.arange(e)                 # (B, S*k, E)
+    before = np.cumsum(onehot, axis=1) - onehot
+    pos = np.take_along_axis(before, flat[..., None], 2)[..., 0]
+    pos = pos.reshape(b, s, k)
+    keep = pos < c
+    return {"idx": idx, "keep": keep,
+            "slot": np.where(keep, idx * c + pos, e * c)}
+
+
+def check_moe_layer(torch, model) -> dict:
+    """Phase 13 (b): one full-width MoE layer (layer 0 of ``model``) at
+    the prefill's (4, 1000, 4096), bf16 activations from a seed.  The
+    card's routing (idx, keep, slot) must equal the host's recomputation
+    from the card's own probabilities exactly; on MOE_SAMPLE tokens, y must
+    agree with a float32 loop over each token's kept experts (sum of gate
+    times that expert's SwiGLU) within MOE_BAND.  Times the layer at the
+    prefill's and at a decode step's shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe
+
+    cfg, lp = model.cfg, model.layers[0].moe
+    e, k, n = cfg.n_experts, cfg.top_k, 4000
+    gen = torch.Generator(device="cuda").manual_seed(131)
+    x = torch.randn((4, 1000, cfg.d_model), device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    c = moe.capacity(1000, e, k, cfg.moe_capacity_factor)
+    run = lambda xx: moe.moe_ffn(xx, lp, n_experts=e, top_k=k,
+                                 capacity_factor=cfg.moe_capacity_factor)
+    with torch.no_grad():
+        probs = moe.router_probs(x, lp.router)
+        r = moe.route(probs, k, c)
+        y, aux = run(x)
+    host = host_routing(probs.cpu().numpy(), k, c)
+    for key in ("idx", "keep", "slot"):
+        if not np.array_equal(r[key].cpu().numpy(), host[key]):
+            raise AssertionError(f"[moe layer] routing {key!r} differs "
+                                 "from the host's")
+    dropped = int((~r["keep"]).sum())
+    log(f"[moe layer] C = {c}: routing idx, keep, slot equal to the "
+        f"host's; {dropped} of {r['keep'].numel()} (token, expert) pairs "
+        "dropped")
+
+    sample = torch.randperm(n, generator=torch.Generator().manual_seed(7))
+    sample = sample[:MOE_SAMPLE].to("cuda")
+    xs = x.reshape(n, -1)[sample].float()
+    idx = r["idx"].reshape(n, k)[sample]
+    w = (r["gates"] * r["keep"]).reshape(n, k)[sample]
+    want = torch.zeros_like(xs)
+    with torch.no_grad():
+        for ex in torch.unique(idx).tolist():
+            rows, j = torch.nonzero(idx == ex, as_tuple=True)
+            xr = xs[rows]
+            h = (F.silu(xr @ lp.w_gate[ex].float())
+                 * (xr @ lp.w_up[ex].float())) @ lp.w_down[ex].float()
+            want.index_add_(0, rows, h * w[rows, j, None])
+    got = y.reshape(n, -1)[sample].float()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    log(f"[moe layer] y on {MOE_SAMPLE} tokens against the float32 loop "
+        f"over kept experts: max abs err {err} (|y| up to {scale}); aux "
+        f"{float(aux)!r}")
+    torch.testing.assert_close(got, want, atol=MOE_BAND * scale,
+                               rtol=MOE_BAND)
+
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32,
+                        device="cuda")
+    xd = x[:, :1].contiguous()
+    with torch.no_grad():
+        times = {"prefill_ms": time_ms(torch, lambda: run(x), flush, 5),
+                 "decode_ms": time_ms(torch, lambda: run(xd), flush, 10)}
+    # a decode step's FFN reads every expert (capacity(1, 128, 8) = 8)
+    w_bytes = 3 * e * cfg.d_model * cfg.moe_d_ff * 2
+    times["decode_bound_ms"] = w_bytes / PEAK_BYTES_PER_S * 1e3
+    log(f"[moe layer] moe_ffn at (4, 1000, {cfg.d_model}) "
+        f"{times['prefill_ms']:.3f} ms, at a decode step's (4, 1, "
+        f"{cfg.d_model}) {times['decode_ms']:.3f} ms (reading the "
+        f"{w_bytes} bytes of experts takes {times['decode_bound_ms']:.3f} "
+        "ms at the card's rate)")
+    return {"dropped": dropped, **times}
+
+
+def slice_moe_serve(torch, wrappers, qk, ref) -> tuple:
+    """Phase 13 (a) and (b): qwen3-moe-235b-a22b at full width and
+    MOE_SERVE_LAYERS layers served through the launcher's engine on phase
+    8's traffic, then the 2-layer kernel-vs-plain checks and the MoE layer
+    against a plain MoE.  Returns the serving run's launch counts and the
+    MoE layer's numbers."""
+    from repro_torch.configs import get
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.serving.kvcache import pool_nbytes
+
+    cfg = dataclasses.replace(get(MOE_ARCH), n_layers=MOE_SERVE_LAYERS,
+                              act_mode="none")
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    experts = 3 * e * d * f
+    attn_p = 2 * d * cfg.n_heads * cfg.d_head + 2 * d * cfg.n_kv_heads * \
+        cfg.d_head
+    reckon = (cfg.n_layers * (2 * (experts + attn_p) + 4 * d * e)
+              + 2 * 2 * cfg.vocab * d)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    log(f"[moe serve] {MOE_ARCH} at {cfg.n_layers} layers: reckoned "
+        f"{experts} expert + {attn_p} attention bf16 parameters and a "
+        f"{4 * d * e}-byte float32 router a layer, {2 * 2 * cfg.vocab * d} "
+        f"bytes of embedding and head: {reckon} bytes; the model holds "
+        f"{model_bytes(model)} bytes, built in {time.perf_counter() - t0:.1f}"
+        f" s (peak {torch.cuda.max_memory_allocated()})")
+
+    args = serve.parser().parse_args(MOE_SERVE_ARGV)
+    engine, requests = serve.build_engine(args, model)
+    pool_bytes = pool_nbytes(engine.pool)
+    plain_calls = [0]
+    with plain_attention_on_card(ref, plain_calls):
+        out, launches, peak = counted_run(
+            torch, wrappers, dict(planned(0, 0, 0), **MOE_SERVE_LAUNCHES),
+            "moe serve", lambda: engine.run(requests))
+    serve.report(args, engine, out)
+    if plain_calls[0]:
+        raise AssertionError("[moe serve] plain attention ran on the card")
+    done = [r for r in out["results"] if r.status == "done"]
+    if len(done) != 8 or any(r.tokens.shape != (32,) for r in done):
+        raise AssertionError(f"[moe serve] {len(done)}/8 requests served")
+    log(f"[moe serve] pool bytes {pool_bytes} layout "
+        f"{engine.layout.pool_bytes}")
+    if not pool_bytes == engine.layout.pool_bytes == MOE_SERVE_POOL_BYTES:
+        raise AssertionError("[moe serve] pool bytes differ from the layout")
+    log(f"[moe serve] TTFT mean {out['ttft_mean_ms']!r} ms, TPOT mean "
+        f"{out['tpot_mean_ms']!r} ms, {out['tokens_per_sec']!r} tokens/s, "
+        f"p50 {out['p50_latency_ms']!r} ms, p99 {out['p99_latency_ms']!r} "
+        f"ms, wall {out['wall_s']!r} s, {out['decode_steps']} decode steps, "
+        f"max_memory_allocated {peak} bytes")
+    log(f"[moe serve] first request's tokens {done[0].tokens.tolist()}")
+    del engine
+
+    eng, _ = serve.build_engine(args, model, collect_logits=True)
+    again = eng.run(requests)
+    for a, b in zip(out["results"], again["results"]):
+        if not np.array_equal(a.tokens, b.tokens):
+            raise AssertionError(f"[moe serve] request {a.rid}: tokens "
+                                 "differ in the run collecting logits")
+    if not all(np.isfinite(again["logits"][r.rid]).all() for r in done):
+        raise AssertionError("[moe serve] non-finite logits")
+    log("[moe serve] a run collecting logits: the same tokens, finite "
+        "logits")
+    del again
+
+    # where a prefill group and a decode step go
+    eng, _ = serve.build_engine(args, model, collect_logits=True)
+    state, table, prefill_ms = admit_group(eng, requests)
+    page_table = torch.as_tensor(table, device="cuda")
+    steps = []
+    for _ in range(3):
+        state, ms = timed(torch, lambda: eng._step(page_table, state))
+        eng.sched.tick()
+        steps.append(ms)
+    _, step_wall, step_busy = profiled(
+        torch, lambda: eng._step(page_table, state), "moe decode step")
+    for si in range(eng.max_batch):
+        eng.sched.complete(si)
+    for r in requests[:eng.max_batch]:
+        eng.sched.submit(r)
+    group = eng.sched.admit()
+    profiled(torch, lambda: eng._admit_group(group, eng._init_state(),
+                                             table),
+             "moe prefill (4 x 1000 tokens)")
+    log(f"[moe serve] unprofiled: prefill of a 4 x 1000 group "
+        f"{prefill_ms:.3f} ms; decode steps {steps} ms")
+    del eng, state
+
+    # 2 layers of the same weights: prefill logits with the kernel against
+    # the plain attention, and a paged decode step against decode_attend
+    # over the plain-dequantized window (phase 8's bands)
+    two = Model(dataclasses.replace(cfg, n_layers=2), dict(
+        embed=model.embed.data, final_norm=model.final_norm.data,
+        lm_head=model.lm_head.data,
+        layers=[layer_tree(lp) for lp in model.layers[:2]]))
+    prompts = torch.as_tensor(np.stack([r.prompt for r in requests[:4]]),
+                              device="cuda")
+    with_kernel, _ = two.prefill(prompts)
+    two.impl = "torch"
+    with_plain, _ = two.prefill(prompts)
+    two.impl = "auto"
+    err = float((with_kernel - with_plain).abs().max())
+    log(f"[moe serve] 2 layers: prefill logits kernel vs plain attention: "
+        f"max abs err {err} (logits up to {float(with_plain.abs().max())});"
+        f" argmax equal "
+        f"{torch.equal(with_kernel.argmax(-1), with_plain.argmax(-1))}")
+    if err > 0.1:
+        raise AssertionError(f"[moe serve] 2-layer logits differ by {err}")
+    eng2 = serve.build_engine(args, two, collect_logits=True)[0]
+    state, table, _ = admit_group(eng2, requests)
+    err, scale, same = paged_against_window(
+        torch, eng2, torch.as_tensor(table, device="cuda"), state, ref)
+    log(f"[moe serve] 2 layers: a decode step's logits through the paged "
+        f"read against the plain-dequantized window: max abs err {err} "
+        f"(logits up to {scale}); argmax equal {same}")
+    if err > 0.1:
+        raise AssertionError(f"[moe serve] 2-layer decode logits differ by "
+                             f"{err}")
+    del two, eng2, state
+
+    layer = check_moe_layer(torch, model)
+    share = cfg.n_layers * layer["decode_ms"]
+    log(f"[moe serve] moe_ffn of a decode step (CUDA events, gaps "
+        f"between its launches included): {cfg.n_layers} x "
+        f"{layer['decode_ms']:.3f} = {share:.3f} ms, {share / step_wall:.3f} "
+        f"of the profiled step's wall ({step_wall:.3f} ms; device busy "
+        f"{step_busy:.3f} ms)")
+    del model
+    torch.cuda.empty_cache()
+    return launches, layer
+
+
+def slice_moe_arctic(torch, wrappers) -> dict:
+    """Phase 13 (c): arctic-480b at full width and ARCTIC_LAYERS layers
+    (the dense FFN residual under ln3 before the experts) serving 2
+    requests of 256 + 8 tokens: tokens served, finite logits, launches as
+    planned.  Returns the launch counts."""
+    from repro_torch.configs import get
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get("arctic-480b"), n_layers=ARCTIC_LAYERS,
+                              act_mode="none")
+    d, e = cfg.d_model, cfg.n_experts
+    layer = 2 * (3 * e * d * cfg.moe_d_ff + 3 * d * cfg.d_ff
+                 + 2 * d * cfg.n_heads * cfg.d_head
+                 + 2 * d * cfg.n_kv_heads * cfg.d_head) + 4 * d * e
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    log(f"[arctic] reckoned {layer} bytes a layer (experts, dense "
+        f"residual, attention, router), {2 * 2 * cfg.vocab * d} of "
+        f"embedding and head; the model holds {model_bytes(model)} bytes, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    args = serve.parser().parse_args(ARCTIC_ARGV)
+    engine, requests = serve.build_engine(args, model, collect_logits=True)
+    pages = -(-(256 + 8 - 1) // 16)
+    want = dict(planned(0, 0, 0), flash_attention=ARCTIC_LAYERS,
+                quant_pack=(1 + 7) * 2 * ARCTIC_LAYERS,
+                dequant_unpack=7 * ARCTIC_LAYERS * pages)
+    out, launches, peak = counted_run(torch, wrappers, want, "arctic serve",
+                                      lambda: engine.run(requests))
+    serve.report(args, engine, out)
+    done = [r for r in out["results"] if r.status == "done"]
+    if len(done) != 2 or any(r.tokens.shape != (8,) for r in done):
+        raise AssertionError(f"[arctic] {len(done)}/2 requests served")
+    if not all(np.isfinite(out["logits"][r.rid]).all() for r in done):
+        raise AssertionError("[arctic] non-finite logits")
+    log(f"[arctic] 2 requests served, finite logits; tokens "
+        f"{[r.tokens.tolist() for r in done]}; max_memory_allocated {peak}")
+    del engine, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def lm_depth(train, n_layers: int):
+    """Inside: the launcher's LM config cut to ``n_layers`` layers."""
+    whole = train.lm_config
+    train.lm_config = lambda args: dataclasses.replace(whole(args),
+                                                       n_layers=n_layers)
+    try:
+        yield
+    finally:
+        train.lm_config = whole
+
+
+@contextlib.contextmanager
+def aux_taps(Model, out: list):
+    """Inside: each ``Model.hidden_states`` call appends its aux loss."""
+    whole = Model.hidden_states
+
+    def hidden_states(self, *a, **kw):
+        h, aux = whole(self, *a, **kw)
+        out.append(aux.detach())
+        return h, aux
+
+    Model.hidden_states = hidden_states
+    try:
+        yield
+    finally:
+        Model.hidden_states = whole
+
+
+def slice_moe_train(torch, wrappers) -> dict:
+    """Phase 13 (d): MoE LM training through the launcher, qwen3-moe at
+    full width and 1 layer, remat, 8-bit AdamW, B 8 x 512 in grad_accum 8
+    micro-batches, 5 steps: a finite loss and aux every step, a nonzero
+    router gradient, the 8-bit moments' launches as planned.  Returns the
+    launch counts."""
+    from repro_torch.configs import get
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get(MOE_ARCH), n_layers=1)
+    n = cfg.param_count()
+    log(f"[moe lm] reckoning: {n} parameters; bf16 weights {2 * n}, float32 "
+        f"grad sums {4 * n} (and as much again while they are divided and "
+        f"clipped), bf16 micro-batch grads {2 * n}; float32 moments would "
+        f"be {8 * n}, 8-bit ones are {2 * n + 2 * 8 * n // 256}")
+    n_leaves = 15     # embed, final_norm, lm_head, and 12 of the layer
+    steps = 5
+    auxes = []
+    with lm_depth(train, 1), aux_taps(Model, auxes):
+        (res, _), counts, peak = counted_run(
+            torch, wrappers, planned(0, 0, steps, moments=2 * n_leaves),
+            "moe lm", lambda: launcher(train, MOE_LM_ARGV, train.lm_main))
+    model = res["model"]
+    if len(list(model.parameters())) != n_leaves:
+        raise AssertionError("[moe lm] unexpected parameter count")
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    aux = torch.stack(auxes).reshape(steps, cfg.grad_accum).cpu()
+    log(f"[moe lm] losses {losses}; aux a step (mean of its micro-batches) "
+        f"{aux.mean(1).tolist()}; step s {[h['dt'] for h in hist]}; "
+        f"max_memory_allocated {peak}")
+    if not (all(map(math.isfinite, losses)) and torch.isfinite(aux).all()):
+        raise AssertionError(f"[moe lm] losses {losses}, aux {aux}")
+    tokens = res["make_batch"](steps)["tokens"][:1]
+    router = model.layers[0].moe.router
+    (g,) = torch.autograd.grad(model.loss(tokens, vocab_chunk=cfg.vocab_chunk),
+                               [router])
+    g_norm = float(g.norm())
+    log(f"[moe lm] router gradient norm {g_norm!r} on a 1 x 512 micro-batch")
+    if not (math.isfinite(g_norm) and g_norm > 0):
+        raise AssertionError("[moe lm] no router gradient")
+    del res, model, g
+    torch.cuda.empty_cache()
+    return counts
+
+
 T_START = time.perf_counter()
 
 
@@ -3040,7 +3538,25 @@ def main() -> int:
         raise AssertionError(f"phase 12 took {launcher_s:.1f} s, over "
                              f"{PHASE12_LIMIT_S} s")
 
-    # 13. results
+    # 13. slice 15: the MoE family
+    t0 = time.perf_counter()
+    moe_rows = check_moe_shapes(torch, fa, qk, ref)
+    log(f"phase 13 kernels: {time.perf_counter() - t0:.1f} s")
+    served13, moe_layer = slice_moe_serve(torch, wrappers, qk, ref)
+    log(f"phase 13 (a)-(b): {time.perf_counter() - t0:.1f} s")
+    launches13 = collections.Counter(served13)
+    launches13.update(slice_moe_arctic(torch, wrappers))
+    log(f"phase 13 (c): {time.perf_counter() - t0:.1f} s")
+    launches13.update(slice_moe_train(torch, wrappers))
+    moe_s = time.perf_counter() - t0
+    log(f"phase 13: {moe_s:.1f} s; launches {dict(launches13)}")
+    for name, n in launches13.items():
+        launches[name] += n
+    if not moe_s < PHASE13_LIMIT_S:
+        raise AssertionError(f"phase 13 took {moe_s:.1f} s, over "
+                             f"{PHASE13_LIMIT_S} s")
+
+    # 14. results
     sources = {"quant_pack": ("src/repro_torch/csrc/quant_blockwise.cu",
                               "src/repro/kernels/quant_blockwise.py:62"),
                "dequant_unpack": ("src/repro_torch/csrc/quant_blockwise.cu",
@@ -3062,6 +3578,13 @@ def main() -> int:
                 "matmul_quant": f"{N_NODES}x512@512x256",
                 "dequant_matmul": f"{N_NODES}x512@512x256",
                 "flash_attention": "prefill bf16"}
+    rows.update(moe_rows)
+    # phase 13's shapes of the kernels it runs, beside each kernel's row
+    moe_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err", "sdpa_bf16_ms", "mismatch_share")
+    moe_shapes = collections.defaultdict(dict)
+    for (name, tag), row in moe_rows.items():
+        moe_shapes[name][tag] = {k: row[k] for k in moe_keys if k in row}
     kernels = []
     for name, (source, replaces) in sources.items():
         row = rows[(name, main_tag[name])]
@@ -3078,7 +3601,10 @@ def main() -> int:
                                          "single_p_mismatch_share")
                if key in row},
             **({"serving_launches": served[name]}
-               if name in ("quant_pack", "dequant_unpack") else {})})
+               if name in ("quant_pack", "dequant_unpack") else {}),
+            **({"moe_shapes": moe_shapes[name], "moe_serving_launches":
+                served13[name]} if name in moe_shapes else {})})
+    log(f"[moe] decode experts {moe_layer}")
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

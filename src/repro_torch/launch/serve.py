@@ -8,9 +8,10 @@ paged KV cache (the reference's ``repro.launch.serve``).
 
 Runs on the card (``--device cuda``, the default) unless the CPU is asked
 for.  Weights are random, drawn from a seeded generator on the device.
-Dense families serve through :class:`repro_torch.serving.ServeEngine`:
-slot-based continuous batching with page-level admission control, KV
-written block-quantized (``--kv-bits {2,4,8}``; 16 = raw bf16).
+The attention-cache families serve through
+:class:`repro_torch.serving.ServeEngine`: slot-based continuous batching
+with page-level admission control, KV written block-quantized
+(``--kv-bits {2,4,8}``; 16 = raw bf16).
 ``--mode fixed`` recovers the sequential fixed-batch loop as a scheduler
 configuration.
 
@@ -23,8 +24,10 @@ the ``device`` policy's bit for bit.
 (:class:`repro_torch.obs.ObsPolicy`) and prints its counters after the
 summary.
 
-Not ported yet: the legacy loop of the SSM / hybrid / enc-dec families and
-the MoE model (ROADMAP A.11); each raises.
+The MoE family (``--arch qwen3-moe-235b-a22b``, ``--arch arctic-480b``)
+serves through the same engine: the experts replace the dense MLP in
+prefill and decode.  Not ported yet: the legacy loop of the SSM / hybrid /
+enc-dec families (ROADMAP A.11); each raises.
 """
 from __future__ import annotations
 

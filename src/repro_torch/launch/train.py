@@ -10,7 +10,8 @@
 Runs on the card (``--device cuda``, the default) unless the CPU is asked
 for; without a card the default raises.  Two halves:
 
-* **LM** (``--arch``): the dense family (``dense``, ``vlm``) trained with
+* **LM** (``--arch``): the dense family (``dense``, ``vlm``) and the MoE
+  family (``qwen3-moe-235b-a22b``, ``arctic-480b``) trained with
   ``--act-mode none|remat|act`` (``act``: each layer's input stored
   block-quantized, ``--act-bits`` / ``--act-group``, and the layer
   recomputed from it in the backward), ``--offload host|pinned-paged``
@@ -19,9 +20,14 @@ for; without a card the default raises.  Two halves:
   seed 0.  ``--ckpt-dir`` checkpoints every ``--ckpt-every`` steps and at
   the end and resumes from the latest checkpoint there
   (:class:`repro_torch.runtime.TrainRunner`); ``--fail-at`` injects a
-  failure.  Prints ``steps=N loss a -> b``; ``main`` returns one
-  ``{"step", "loss", "dt"}`` a step.  Other families raise (ROADMAP A.11),
-  and so does ``--production-mesh``: LM sharding is not ported (A.12b).
+  failure.  The config's ``grad_accum`` splits ``--batch`` into that many
+  micro-batches (qwen3-moe 8, arctic 4; ``--smoke`` configs 1), so the
+  batch must divide by it.  An MoE layer runs under ``act`` as under
+  ``none`` (the reference stashes no MoE layer compressed) and
+  ``remat`` checkpoints it.  Prints ``steps=N loss a -> b``; ``main``
+  returns one ``{"step", "loss", "dt"}`` a step.  The SSM, hybrid and
+  enc-dec families raise (ROADMAP A.11), and so does ``--production-mesh``:
+  LM sharding is not ported (A.12b).
 * **Graph** (``--graph-batches N`` or ``--mesh-parts N``): the GNN
   engines on an arxiv/flickr/papers100m-like graph.  The flags lower onto
   one :class:`~repro_torch.engine.plan.ExecutionPlan`; ``engine.runner.run``
@@ -246,6 +252,10 @@ def lm_config(args):
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
     check_family(cfg)
+    if args.batch % cfg.grad_accum:
+        raise ValueError(f"--batch {args.batch} does not split into "
+                         f"{cfg.name}'s grad_accum={cfg.grad_accum} "
+                         "micro-batches")
     if args.act_mode:
         comp = CompressionConfig(bits=args.act_bits, group_size=args.act_group,
                                  impl=args.act_impl)

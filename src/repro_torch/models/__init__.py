@@ -1,4 +1,5 @@
-"""LM substrate: the dense transformer (further families in later slices)."""
+"""LM substrate: the dense and MoE transformer (further families in later
+slices)."""
 from repro_torch.models.transformer import Model
 
 __all__ = ["Model"]

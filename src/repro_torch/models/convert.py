@@ -32,10 +32,12 @@ def _map(tree, fn):
 
 def params_from_jax(params_np: dict, cfg, device="cuda", *,
                     impl: str = "auto") -> Model:
-    """The reference's dense-family parameter pytree (numpy leaves, layer
-    weights stacked on a leading layer axis) as the port's :class:`Model`
-    on ``device`` (the card unless the CPU is asked for); the layer axis is
-    unstacked into one module per layer."""
+    """The reference's parameter pytree (numpy leaves, layer weights
+    stacked on a leading layer axis; a MoE layer's ``moe`` stacks are
+    (L, E, D, F)) as the port's :class:`Model` on ``device`` (the card
+    unless the CPU is asked for); the layer axis is unstacked into one
+    module per layer, every leaf keeping its dtype and bits (the router
+    float32, the experts bf16)."""
     check_family(cfg)
     device = resolve_device(device)
     layers = params_np["layers"]

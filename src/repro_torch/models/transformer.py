@@ -1,5 +1,7 @@
-"""The LM (the reference's ``repro.models.transformer``), dense family:
-``dense``, and ``vlm`` without its frontend.
+"""The LM (the reference's ``repro.models.transformer``): the dense family
+(``dense``, and ``vlm`` without its frontend) and the MoE family
+(:mod:`repro_torch.models.moe`'s experts in place of the dense MLP, with
+arctic's dense FFN residual under ``ln3`` where the config has one).
 
 Parameters are an ``nn.Module`` tree with the reference's names and
 layouts (``wq`` is (d_model, H*Dh) and multiplies from the right), one
@@ -15,15 +17,22 @@ the paper's technique applied to the residual stream:
   layer input stored block-quantized (INT2, G = 256 by default) and the
   layer recomputed from the reconstruction in the backward.
 
+An MoE layer returns its balance loss beside the residual stream, and the
+reference wraps it apart from the others: ``"remat"`` checkpoints the
+whole layer, and ``"act"`` stashes nothing compressed (the layer runs as
+under ``"none"``), as in the reference.
+
 Training attention is the reference's chunked scan in differentiable ops
 (:func:`repro_torch.models.attention.chunked_attention`); ``prefill`` and
 ``decode_step`` run under ``no_grad`` through the flash kernel and the
 cache, as serving does.
 
-Not ported yet, each raising with its ROADMAP item: the MoE, SSM, hybrid
-and enc-dec families and the vlm frontend (A.11).
+Not ported yet, each raising with its ROADMAP item: the SSM, hybrid and
+enc-dec families and the vlm frontend (A.11).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -37,9 +46,10 @@ from repro_torch.core.prng import MASK32
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (dense_init, embed_init, mm, rmsnorm,
                                        swiglu)
+from repro_torch.models.moe import moe_ffn
 
 #: Families this port's Model runs.
-FAMILIES = ("dense", "vlm")
+FAMILIES = ("dense", "vlm", "moe")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -88,17 +98,44 @@ def _dense_layer_params(cfg, gen: torch.Generator) -> dict:
             "mlp": _mlp_params(cfg.d_model, cfg.d_ff, gen)}
 
 
+def _experts(n: int, d_in: int, d_out: int, gen: torch.Generator):
+    """(n, d_in, d_out) bf16 at N(0, 1/d_in), drawn an expert at a time so
+    the float32 draw is one expert's, not the stack's (arctic's would be
+    17.8 GB)."""
+    out = torch.empty((n, d_in, d_out), dtype=torch.bfloat16,
+                      device=gen.device)
+    for i in range(n):
+        out[i] = dense_init(d_in, d_out, gen)
+    return out
+
+
+def _moe_layer_params(cfg, gen: torch.Generator) -> dict:
+    dev = gen.device
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    p = {"ln1": torch.ones(d, device=dev),
+         "attn": _attn_params(cfg, gen),
+         "ln2": torch.ones(d, device=dev),
+         "moe": {"router": dense_init(d, e, gen, dtype=torch.float32),
+                 "w_gate": _experts(e, d, f, gen),
+                 "w_up": _experts(e, d, f, gen),
+                 "w_down": _experts(e, f, d, gen)}}
+    if cfg.dense_residual:
+        p["ln3"] = torch.ones(d, device=dev)
+        p["mlp"] = _mlp_params(d, cfg.d_ff, gen)
+    return p
+
+
 def init_params(cfg, gen: torch.Generator) -> dict:
     """Random weights drawn from ``gen`` (on its device), with the
     reference's shapes, dtypes and scales: the embedding in ``act_dtype``,
-    dense weights bf16, norms and biases float32."""
+    dense and expert weights bf16, the router, norms and biases float32."""
     check_family(cfg)
     act_dtype = getattr(torch, getattr(cfg, "act_dtype", "bfloat16"))
+    layer = _moe_layer_params if cfg.family == "moe" else _dense_layer_params
     return {"embed": embed_init(cfg.vocab, cfg.d_model, gen, dtype=act_dtype),
             "final_norm": torch.ones(cfg.d_model, device=gen.device),
             "lm_head": dense_init(cfg.d_model, cfg.vocab, gen),
-            "layers": [_dense_layer_params(cfg, gen)
-                       for _ in range(max(cfg.n_layers, 1))]}
+            "layers": [layer(cfg, gen) for _ in range(max(cfg.n_layers, 1))]}
 
 
 def _module(tree: dict) -> nn.Module:
@@ -113,8 +150,8 @@ def _module(tree: dict) -> nn.Module:
 
 
 class Model(nn.Module):
-    """A dense decoder-only LM: ``prefill`` a prompt into a KV cache, then
-    ``decode_step`` one token at a time.
+    """A decoder-only LM, dense or MoE: ``prefill`` a prompt into a KV
+    cache, then ``decode_step`` one token at a time.
 
     ``params`` is the reference's parameter tree with one dict per layer in
     ``layers`` (see :func:`repro_torch.models.convert.params_from_jax`);
@@ -163,11 +200,16 @@ class Model(nn.Module):
                                                   use_reentrant=False)
         return lambda x, lp, seed: layer_fn(x, lp)
 
-    def _dense_layer(self, h, lp):
+    def _attend(self, h, lp):
         cfg = self.cfg
-        h = h + attn.attention_block(rmsnorm(h, lp.ln1), lp.attn, cfg,
-                                     causal=True, k_chunk=cfg.k_chunk)
-        return self._mlp(h, lp)
+        return h + attn.attention_block(rmsnorm(h, lp.ln1), lp.attn, cfg,
+                                        causal=True, k_chunk=cfg.k_chunk)
+
+    def _dense_layer(self, h, lp):
+        return self._ffn(self._attend(h, lp), lp)[0]
+
+    def _moe_layer(self, h, lp):
+        return self._ffn(self._attend(h, lp), lp)
 
     # ------------------------------------------------------------ training
     def hidden_states(self, tokens: torch.Tensor, *, prefix_embeds=None,
@@ -178,10 +220,21 @@ class Model(nn.Module):
         h = self.embed[tokens]
         if prefix_embeds is not None:
             h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
-        step = self._wrap(self._dense_layer)
-        for li, lp in enumerate(self.layers):
-            h = step(h, lp, (int(act_seed) + li) & MASK32)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        if self.cfg.family == "moe":
+            # the reference's MoE branch: remat checkpoints the layer,
+            # and no mode stashes it compressed
+            layer = self._moe_layer
+            if self.cfg.act_mode == "remat":
+                layer = functools.partial(checkpoint, self._moe_layer,
+                                          use_reentrant=False)
+            for lp in self.layers:
+                h, a = layer(h, lp)
+                aux = aux + a
+        else:
+            step = self._wrap(self._dense_layer)
+            for li, lp in enumerate(self.layers):
+                h = step(h, lp, (int(act_seed) + li) & MASK32)
         return rmsnorm(h, self.final_norm), aux
 
     def loss(self, tokens: torch.Tensor, *, prefix_embeds=None,
@@ -221,9 +274,24 @@ class Model(nn.Module):
         gold = torch.gather(logits, -1, tx[..., None])[..., 0]
         return torch.sum((lse - gold) * vx.to(torch.float32))
 
-    def _mlp(self, h, lp):
-        m = lp.mlp
-        return h + swiglu(rmsnorm(h, lp.ln2), m.w_gate, m.w_up, m.w_down)
+    def _ffn(self, h, lp):
+        """The layer's FFN on the residual stream -> (h, aux), shared by
+        training, prefill, decode and the serving engine: the dense SwiGLU
+        under ``ln2`` (aux None); for MoE the dense residual under ``ln3``
+        first where the config has one, then the experts under ``ln2``,
+        aux their balance loss."""
+        cfg = self.cfg
+        moe = cfg.family == "moe"
+        if not moe or cfg.dense_residual:
+            m = lp.mlp
+            h = h + swiglu(rmsnorm(h, lp.ln3 if moe else lp.ln2), m.w_gate,
+                           m.w_up, m.w_down)
+        if not moe:
+            return h, None
+        y, aux = moe_ffn(rmsnorm(h, lp.ln2), lp.moe, n_experts=cfg.n_experts,
+                         top_k=cfg.top_k,
+                         capacity_factor=cfg.moe_capacity_factor)
+        return h + y, aux
 
     def _logits(self, h):
         return mm(rmsnorm(h, self.final_norm), self.lm_head).to(torch.float32)
@@ -263,7 +331,7 @@ class Model(nn.Module):
                 causal=True, impl=self.impl)
             h = h + mm(out.reshape(b, s, cfg.n_heads * cfg.d_head),
                        lp.attn.wo)
-            h = self._mlp(h, lp)
+            h, _ = self._ffn(h, lp)
             cache["k"][li, :, :s] = k
             cache["v"][li, :, :s] = v
         return self._logits(h[:, -1]), cache
@@ -278,6 +346,6 @@ class Model(nn.Module):
             a, _, _ = attn.attention_decode(rmsnorm(h, lp.ln1), lp.attn,
                                             self.cfg, cache["k"][li],
                                             cache["v"][li], pos)
-            h = self._mlp(h + a, lp)
+            h, _ = self._ffn(h + a, lp)
         cache["pos"] = pos + 1
         return self._logits(h), cache

@@ -45,14 +45,15 @@ import torch
 
 from repro_torch.engine.seeds import kv_seed
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import mm, rmsnorm, swiglu
+from repro_torch.models.layers import mm, rmsnorm
 from repro_torch.obs.session import ObsSession
 from repro_torch.serving import kvcache
 from repro_torch.serving.kvcache import KVCacheConfig, plan_kv_layout
 from repro_torch.serving.scheduler import MODES, Scheduler
 
-#: Families the paged KV cache serves (attention KV caches); the port's
-#: Model runs the dense ones (moe waits for ROADMAP A.11).
+#: Families the paged KV cache serves (attention KV caches); SSM / hybrid
+#: state caches decode through the legacy loop, not ported yet (ROADMAP
+#: A.11).
 KV_FAMILIES = ("dense", "vlm", "moe")
 
 
@@ -78,7 +79,8 @@ def make_decode_fn(model, layout, *, gen_cap: int, collect_logits: bool):
     them.  ``active`` (B,) bool is the host's copy of ``state["active"]``
     and ``written`` the active slots' ``(page, offset)`` KV rows, both from
     the scheduler mirrors (a host pool copies those rows back).  Mirrors
-    ``Model.decode_step``'s layer math; only the KV storage differs."""
+    ``Model.decode_step``'s layer math (its FFN is ``Model._ffn``); only
+    the KV storage differs."""
     cfg = model.cfg
 
     @torch.no_grad()
@@ -109,9 +111,9 @@ def make_decode_fn(model, layout, *, gen_cap: int, collect_logits: bool):
             else:
                 kf, vf = kvcache.gather_kv_raw(pool_l, layout, page_table)
                 a = attn.decode_attend(q, kf, vf, pos, out_dtype=x.dtype)
-            h = h + mm(a, lp.attn.wo)
-            m = lp.mlp
-            h = h + swiglu(rmsnorm(h, lp.ln2), m.w_gate, m.w_up, m.w_down)
+            # the model's own FFN: the dense MLP, or (MoE) the dense
+            # residual under ln3 and the experts under ln2
+            h, _ = model._ffn(h + mm(a, lp.attn.wo), lp)
         logits = model._logits(h)[:, -1]                          # (B, V)
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         dev_active = state["active"]

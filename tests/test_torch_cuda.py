@@ -883,6 +883,83 @@ def test_cuda_serving_matches_cpu(cuda):
                                    outs["cpu"]["logits"][rid], atol=2e-3)
 
 
+@pytest.mark.gpu
+def test_cuda_moe_ffn_matches_cpu(cuda):
+    """``moe_ffn`` on the card against the CPU from the same weights, bf16
+    activations and experts at a small width: the routing (idx, keep,
+    slot) equal, with dropped pairs, and y within 2**-5 absolute + 2**-6
+    relative (each device rounds the three bf16 products its own way)."""
+    import types
+
+    from repro_torch.models import moe
+
+    rng = np.random.default_rng(21)
+    e, k, d, f = 16, 4, 256, 128
+    x = torch.from_numpy(rng.normal(size=(2, 64, d)).astype(np.float32))
+    w = {"router": rng.normal(size=(d, e)) * 0.1,
+         "w_gate": rng.normal(size=(e, d, f)) / d ** 0.5,
+         "w_up": rng.normal(size=(e, d, f)) / d ** 0.5,
+         "w_down": rng.normal(size=(e, f, d)) / f ** 0.5}
+    w = {n: torch.from_numpy(a.astype(np.float32)) for n, a in w.items()}
+    for n in ("w_gate", "w_up", "w_down"):
+        w[n] = w[n].to(torch.bfloat16)
+    x = x.to(torch.bfloat16)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = types.SimpleNamespace(**{n: t.to(dev) for n, t in w.items()})
+        xd = x.to(dev)
+        c = moe.capacity(64, e, k, 0.5)
+        r = moe.route(moe.router_probs(xd, p.router), k, c)
+        y, aux = moe.moe_ffn(xd, p, n_experts=e, top_k=k,
+                             capacity_factor=0.5)
+        out[dev] = ({key: r[key].cpu() for key in ("idx", "keep", "slot")},
+                    y.float().cpu(), float(aux))
+    for key in ("idx", "keep", "slot"):
+        assert torch.equal(out["cuda"][0][key], out["cpu"][0][key]), key
+    assert not out["cpu"][0]["keep"].all()
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1],
+                               atol=2.0 ** -5, rtol=2.0 ** -6)
+    assert abs(out["cuda"][2] - out["cpu"][2]) <= 1e-5 * out["cpu"][2]
+
+
+@pytest.mark.gpu
+def test_cuda_moe_serving_matches_cpu(cuda):
+    """The smoke-size qwen3-moe engine (2 layers, float32 activations,
+    8-bit KV) on the card against the CPU from the same weights: greedy
+    tokens equal, logits within 2e-3 (as the dense engine's test), the
+    flash kernel launched once a layer and group."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduce_for_smoke
+    from repro_torch.kernels import flash_attention as t_fa
+    from repro_torch.models import Model
+    from repro_torch.serving import KVCacheConfig, Request, ServeEngine
+
+    cfg = dataclasses.replace(reduce_for_smoke(ARCHS["qwen3-moe-235b-a22b"]),
+                              act_mode="none", act_dtype="float32")
+    model = Model(cfg, device="cpu",
+                  generator=torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (3, 40))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        eng = ServeEngine(copy.deepcopy(model).to(dev),
+                          kv=KVCacheConfig(bits=8, page_tokens=16,
+                                           n_pages=12),
+                          max_batch=2, max_prompt=40, gen_cap=8,
+                          collect_logits=True)
+        before = t_fa.flash_attention.launches
+        outs[dev] = eng.run([Request(rid=i, prompt=prompts[i], max_new=8)
+                             for i in range(3)])
+        launched = t_fa.flash_attention.launches - before
+        assert launched == (4 if dev == "cuda" else 0)   # 2 groups x 2 layers
+    for a, b in zip(outs["cuda"]["results"], outs["cpu"]["results"]):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    for rid in range(3):
+        np.testing.assert_allclose(outs["cuda"]["logits"][rid],
+                                   outs["cpu"]["logits"][rid], atol=2e-3)
+
+
 def _small_batched_setup(rp):
     from repro_torch.core.compressor import CompressionConfig
     from repro_torch.graph.data import synthetic_graph

@@ -196,8 +196,8 @@ def test_random_init_has_reference_shapes_and_dtypes(name):
     assert abs(float(w.std()) * cfg.d_model ** 0.5 - 1) < 0.05
 
 
-@pytest.mark.parametrize("name", ["qwen3-moe-235b-a22b", "mamba2-780m",
-                                  "zamba2-1.2b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("name", ["mamba2-780m", "zamba2-1.2b",
+                                  "seamless-m4t-large-v2"])
 def test_unported_families_name_their_roadmap_item(name):
     cfg = t_reduce(T_ARCHS[name])
     with pytest.raises(NotImplementedError, match="A.11"):
