@@ -64,21 +64,25 @@ Phases, in order; any failure raises and exits non-zero:
    ``BIT_CHOICES``, the allocation within the per-batch budget, a
    bit-identical repeat).  The quant, RP and fused kernels of phase 3 also
    run at these batches' shapes;
-8. slice 3: serving full-width qwen1.5-4b (random bf16 weights, seed 0)
-   through ``repro_torch.launch.serve``'s engine: 8 requests of 1000 prompt
+8. slice 3: serving full-width qwen1.5-4b (random bf16 weights, seed 0),
+   cut from 40 layers to SERVE_LAYERS (20) so the whole script keeps
+   within 900 s with phase 14 added (phase 8 was ~250 s
+   of it at 40), through ``repro_torch.launch.serve``'s engine: 8
+   requests of 1000 prompt
    tokens and 32 generated, 4 slots, continuous batching, 4-bit KV pages
    (G=64, 16 tokens a page), decode reading the cache one page per
    online-softmax step.  Every request served with 32 tokens; launch
-   counts as planned (flash 80, seeded quant_pack 5120, dequant_unpack
-   161,200: 62 steps x 40 layers x 65 pages, K and V of a page in one
-   launch, no plain attention on the card); the live pool's bytes equal the layout's; TTFT,
+   counts as planned (at 20 layers flash 40, seeded quant_pack 2,560,
+   dequant_unpack 80,600: 62 steps x 20 layers x 65 pages, K and V of a
+   page in one launch, no plain attention on the card); the live pool's
+   bytes equal the layout's; TTFT,
    TPOT, tokens/s and peak memory of that run, which collects no logits,
    as the launcher runs; two more runs that collect the logits give the
    same tokens and identical, finite logits; at 2 layers of full width the
    prefill logits with the kernel agree with the plain attention on the
    card, and a decode step's logits through the paged read agree with
    ``decode_attend`` over the same pages dequantized by the plain version
-   and laid end to end (logged at 40 layers too); prefill and decode step
+   and laid end to end (logged at SERVE_LAYERS too); prefill and decode step
    times, the decode step through the paged read and through the whole-
    window read it replaced in turns, and one profiled prefill and decode
    step;
@@ -190,8 +194,37 @@ Phases, in order; any failure raises and exits non-zero:
    AdamW, B 8 x 512 in the config's grad_accum 8 micro-batches, 5 steps):
    a finite loss and aux every step, a nonzero router gradient, the
    moments' launches as planned.  The phase stays under PHASE13_LIMIT_S;
-14. a JSON line of per-kernel numbers (phase 13's shapes under
-   ``moe_shapes``), then ``{"ok": true, "device": ...}``.
+14. slice 16, the SSM, hybrid and enc-dec families, after phase 13: first
+   the kernels at the families' shapes against their plain versions,
+   timed (FAMILY_FLASH: bf16 flash at the encoder's (64, 1024, 64)
+   non-causal, a decode step's cross-attention (64, 1, 64) over 1024 keys
+   and the hybrid's shared block (128, 1024, 128) causal, beside SDPA; the
+   INT2 stash at FAMILY_STASH's block counts); then, each at full width
+   and depth with seed-0 weights, served through the launcher's legacy
+   loop on phase 8's traffic (LEGACY_ARGV: 8 requests of 1024 + 32
+   tokens, 4 a batch; launches LEGACY_FLASH, no plain attention on the
+   card, TTFT, decode tokens/s, the peak and one profiled decode step):
+   (a) mamba2-780m (attention-free: no launch), a second run with the
+   same tokens, layer 0's real SSD inputs through ``ssd_chunked``
+   against a float64 recurrence on the host (SSD_BAND) and, on 2 layers,
+   prefill of 1024 tokens against prefill of PREFIX_TOKENS and
+   teacher-forced decode steps (logits 0.1, conv cache and SSD state
+   STATE_BAND); (b) zamba2-1.2b (6 shared sites), with the 3-layer
+   model's prefill logits through the kernel against the plain attention
+   (0.1); (c) seamless-m4t-large-v2 (24 + 24 layers), with the 2 + 2
+   layer model's encoder output and a decode step's logits through the
+   kernel against the plain attention, and a decode step's time in
+   cross-attention; (d) ``launch.train`` at full width and depth
+   (FAMILY_LM: mamba2 act B 4 x 2048 5 steps, zamba2 act B 2 x 2048 2
+   steps, seamless remat B 2 x 1024 with ``enc_embeds`` 2 steps, float32
+   moments): finite losses and gradients every step, the INT2 stash
+   launched once a Mamba-2 layer and step each way, mamba2's loss
+   falling, then mamba2 at LM_LAYERS_SHORT layers under none / remat /
+   act with the loss graph's residual bytes act < remat < none.  The
+   phase stays under PHASE14_LIMIT_S;
+15. a JSON line of per-kernel numbers (phase 13's shapes under
+   ``moe_shapes``, phase 14's under ``family_shapes``), then ``{"ok":
+   true, "device": ...}``.
 
 It imports nothing of JAX; without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -1369,14 +1402,20 @@ SERVE_ARGV = ["--arch", "qwen1.5-4b", "--requests", "8", "--max-batch", "4",
               "continuous", "--kv-policy", "device", "--device", "cuda"]
 #: A slot's page table: ceil((1000 + 32 - 1) / 16) pages.
 SERVE_PAGES_PER_SLOT = 65
-#: Launches over one serving run: 2 prefill groups x 40 layers of flash;
-#: quant_pack once per layer and stream for each group's prompt and each of
-#: the 62 decode steps (2 groups x 31); dequant_unpack once per layer and
-#: page of the table (K and V together: the page-by-page read) each step.
-SERVE_LAUNCHES = {"flash_attention": 80, "quant_pack": 2 * 80 + 62 * 80,
-                  "dequant_unpack": 62 * 40 * SERVE_PAGES_PER_SLOT}
-#: 40 layers x 260 pages x 51,200 bytes (4-bit words + zero/range, K and V)
-SERVE_POOL_BYTES = 532_480_000
+#: Phase 8's depth: qwen1.5-4b's 40 layers cut to 20, to keep the whole
+#: script within 900 s beside phase 14.
+SERVE_LAYERS = 20
+#: Launches over one serving run: 2 prefill groups x SERVE_LAYERS layers
+#: of flash; quant_pack once per layer and stream for each group's prompt
+#: and each of the 62 decode steps (2 groups x 31); dequant_unpack once per
+#: layer and page of the table (K and V together: the page-by-page read)
+#: each step.
+SERVE_LAUNCHES = {"flash_attention": 2 * SERVE_LAYERS,
+                  "quant_pack": (2 + 62) * 2 * SERVE_LAYERS,
+                  "dequant_unpack": 62 * SERVE_LAYERS * SERVE_PAGES_PER_SLOT}
+#: SERVE_LAYERS x 260 pages x 51,200 bytes (4-bit words + zero/range, K
+#: and V): 266,240,000 at 20 layers (532,480,000 at 40)
+SERVE_POOL_BYTES = SERVE_LAYERS * 260 * 51_200
 
 
 @contextlib.contextmanager
@@ -1512,7 +1551,8 @@ def profile_serve(torch, engine, requests, qk, ref) -> dict:
     err, scale, same = paged_against_window(torch, engine, page_table, state,
                                             ref)
     engine.sched.tick()
-    log(f"[serve] 40 layers: a decode step's logits through the paged read "
+    log(f"[serve] {SERVE_LAYERS} layers: a decode step's logits through the "
+        f"paged read "
         f"against decode_attend over the plain-dequantized window: max abs "
         f"err {err} (logits up to {scale}); argmax equal {same}")
     profiled(torch, lambda: engine._step(page_table, state), "decode step")
@@ -1540,11 +1580,13 @@ def slice_serve(torch, wrappers, fa, qk, ref) -> dict:
 
     args = serve.parser().parse_args(SERVE_ARGV)
     t0 = time.perf_counter()
-    model = serve.build_model(args)
+    model = Model(dataclasses.replace(get("qwen1.5-4b"), act_mode="none",
+                                      n_layers=SERVE_LAYERS))
     torch.cuda.synchronize()
-    log(f"[serve] qwen1.5-4b: {model.cfg.param_count()} parameters "
-        f"(ArchConfig.param_count), {sum(p.numel() for p in model.parameters())} "
-        f"in the model, built in {time.perf_counter() - t0:.1f} s")
+    log(f"[serve] qwen1.5-4b at {SERVE_LAYERS} of its 40 layers: "
+        f"{model.cfg.param_count()} parameters (ArchConfig.param_count), "
+        f"{sum(p.numel() for p in model.parameters())} in the model, built "
+        f"in {time.perf_counter() - t0:.1f} s")
 
     # the counted and timed run is the launcher's: no logits collected;
     # plain attention must not run on the card during it
@@ -2735,19 +2777,21 @@ def lm_residual(torch, model, tokens, vocab_chunk: int) -> int:
     return with_graph - torch.cuda.memory_allocated()
 
 
-def lm_short(torch, train, mode: str, offload: str = "none") -> dict:
-    """2 steps of the launcher's LM at full width and LM_LAYERS_SHORT
-    layers (seed-0 weights, the same for every mode), with the peak, step
-    times and the loss graph's residual bytes."""
+def lm_short(torch, train, mode: str, offload: str = "none",
+             argv: list = LM_ARGV) -> dict:
+    """2 steps of the launcher's LM (``argv``'s model) at full width and
+    LM_LAYERS_SHORT layers (seed-0 weights, the same for every mode) on
+    B 2 x 1024 tokens, with the peak, step times and the loss graph's
+    residual bytes."""
     from repro_torch.data import batch_for_step
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import Model
     from repro_torch.optim import AdamWConfig, adamw_init
 
     args = train.parser().parse_args(
-        LM_ARGV[:LM_ARGV.index("--act-mode")] + ["--act-mode", mode,
-                                                 "--offload", offload,
-                                                 "--device", "cuda"])
+        argv[:argv.index("--act-mode")] + ["--act-mode", mode,
+                                           "--offload", offload,
+                                           "--device", "cuda"])
     cfg = dataclasses.replace(train.lm_config(args),
                               n_layers=LM_LAYERS_SHORT)
     model = Model(cfg, generator=torch.Generator("cuda").manual_seed(0))
@@ -2766,7 +2810,8 @@ def lm_short(torch, train, mode: str, offload: str = "none") -> dict:
         ms.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated()
     residual = lm_residual(torch, model, tokens[0], cfg.vocab_chunk)
-    log(f"[lm {LM_LAYERS_SHORT} layers {mode} offload={offload}] losses "
+    log(f"[lm {cfg.name} {LM_LAYERS_SHORT} layers {mode} offload="
+        f"{offload}] losses "
         f"{losses} step ms {ms} max_memory_allocated {peak} ({peak - base} "
         f"above the {base} of weights and moments); loss graph residual "
         f"{residual} bytes")
@@ -3352,6 +3397,512 @@ def slice_moe_train(torch, wrappers) -> dict:
     return counts
 
 
+# ------------------------------- phase 14: the SSM, hybrid and enc-dec families
+#: Seconds phase 14 may take in all.
+PHASE14_LIMIT_S = 120.0
+MAMBA, ZAMBA, SEAMLESS = "mamba2-780m", "zamba2-1.2b", "seamless-m4t-large-v2"
+#: Phase 8's traffic through the legacy loop: 8 requests, 4 a batch, a
+#: prompt of 1024 tokens (a multiple of ssm_chunk 128) and 32 generated.
+LEGACY_ARGV = ["--requests", "8", "--max-batch", "4", "--prompt-len", "1024",
+               "--gen-len", "32", "--device", "cuda"]
+LEGACY_BATCHES, LEGACY_STEPS = 2, 31
+#: Flash launches of each family's run: none for the attention-free
+#: mamba2; the hybrid's shared block at its 6 sites a prefill batch; the
+#: enc-dec's 24 encoder layers a batch (non-causal) and its 24
+#: cross-attentions a decode step (Sq 1 over the 1024 encoder rows).
+LEGACY_FLASH = {MAMBA: 0, ZAMBA: LEGACY_BATCHES * 6,
+                SEAMLESS: LEGACY_BATCHES * 24
+                + LEGACY_BATCHES * LEGACY_STEPS * 24}
+#: The flash calls this slice adds, (BH, Sq, Skv, Dh, causal): the
+#: encoder's (4 prompts x 16 heads), a decode step's cross-attention, the
+#: hybrid's shared block (4 prompts x 32 heads of 128).
+FAMILY_FLASH = (("encoder", 64, 1024, 1024, 64, False),
+                ("cross decode", 64, 1, 1024, 64, False),
+                ("shared block", 128, 1024, 1024, 128, True))
+#: The INT2 layer stash of act-mode training: B x S x d_model / 256 blocks
+#: (mamba2 B 4 x 2048 x 1536, zamba2 B 2 x 2048 x 2048).
+FAMILY_STASH = (("mamba2 stash", 4 * 2048 * 1536 // 256),
+                ("zamba2 stash", 2 * 2048 * 2048 // 256))
+#: The SSD scan against a float64 recurrence: max abs error within this
+#: share of the largest |y| (and of the largest |state|).
+SSD_BAND = 1e-3
+#: Prefill against prefill + teacher-forced decode (bf16 activations):
+#: logits within phase 8's 0.1; conv cache and SSD state within this share
+#: of their largest magnitude.
+STATE_BAND = 2.0 ** -5
+PREFIX_TOKENS = 896
+FAMILY_LM = {
+    MAMBA: ["--arch", MAMBA, "--batch", "4", "--seq", "2048", "--lr",
+            str(LM_LR), "--act-mode", "act", "--steps", "5", "--device",
+            "cuda"],
+    ZAMBA: ["--arch", ZAMBA, "--batch", "2", "--seq", "2048", "--lr",
+            str(LM_LR), "--act-mode", "act", "--steps", "2", "--device",
+            "cuda"],
+    SEAMLESS: ["--arch", SEAMLESS, "--batch", "2", "--seq", "1024", "--lr",
+               str(LM_LR), "--act-mode", "remat", "--steps", "2",
+               "--device", "cuda"]}
+
+
+def check_flash_case(torch, fa, ref, flush, gen, bh, sq, skv, dh,
+                     causal) -> dict:
+    """One bf16 flash call of the families' path against its plain
+    version (within one bf16 ulp, 1e-3 absolute near zero), timed beside
+    it, float32 SDPA (library_ms), bf16 SDPA (context) and the bound: 4 *
+    Dh flops a kept pair at the bf16 tensor-core peak, or the bytes."""
+    import torch.nn.functional as F
+
+    q = torch.randn((bh, sq, dh), device="cuda", generator=gen).bfloat16()
+    k = torch.randn((bh, skv, dh), device="cuda", generator=gen).bfloat16()
+    v = torch.randn((bh, skv, dh), device="cuda", generator=gen).bfloat16()
+    kw = dict(causal=causal, scale_q=True)
+    got = fa.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-3,
+                               rtol=2.0 ** -7)
+    pairs = sq * (sq + 1) // 2 if causal else sq * skv
+    nbytes = 2 * bh * (2 * sq + 2 * skv) * dh
+    bnd = bound(nbytes, 4 * bh * dh * pairs, PEAK_BF16_OPS_PER_S)
+    q4, k4, v4 = (t.float()[None] for t in (q, k, v))
+    row = dict(
+        ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), flush),
+        plain_ms=time_ms(torch, lambda: ref.flash_attention(q, k, v, **kw),
+                         flush),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal), flush),
+        sdpa_bf16_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=causal), flush),
+        bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=err,
+        mismatch_share=float((got != want).float().mean()),
+        flops=4 * bh * dh * pairs, bytes=nbytes)
+    return row
+
+
+def check_family_shapes(torch, fa, qk, ref) -> dict:
+    """Phase 14's kernels at the families' shapes against their plain
+    versions, timed: FAMILY_FLASH's three bf16 flash calls and the INT2
+    stash at FAMILY_STASH's block counts."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    rows = {}
+    for tag, bh, sq, skv, dh, causal in FAMILY_FLASH:
+        row = check_flash_case(torch, fa, ref, flush, gen, bh, sq, skv, dh,
+                               causal)
+        tag = f"{tag} ({bh}, {sq}, {skv}, {dh}) causal={causal}"
+        log(f"flash_attention {tag} bf16: {row}")
+        rows[("flash_attention", tag)] = row
+    for tag, n_blocks in FAMILY_STASH:
+        shape, q, d = quant_case(torch, qk, ref, n_blocks, 256, 2, None,
+                                 flush, gen)
+        rows[("quant_pack", f"{tag} {shape}")] = q
+        rows[("dequant_unpack", f"{tag} {shape}")] = d
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def naive_ssd64(xh, dt, a_neg, bmat, cmat):
+    """The token-by-token SSD recurrence (the reference test's
+    ``naive_ssd``) in float64 numpy on the host, the state updated in
+    place: (y (B,S,H,P), final state (B,H,P,N))."""
+    x, dt, a, bm, cm = (t.detach().double().cpu().numpy()
+                        for t in (xh, dt, a_neg, bmat, cmat))
+    b, s, h, p = x.shape
+    decay = np.exp(dt * a)                                  # (B,S,H)
+    dx = dt[..., None] * x                                  # (B,S,H,P)
+    st = np.zeros((b, h, p, bm.shape[-1]))
+    upd = np.empty_like(st)
+    ys = np.empty((b, s, h, p))
+    for t in range(s):
+        st *= decay[:, t, :, None, None]
+        np.multiply(dx[:, t, :, :, None], bm[:, t, None, None, :], out=upd)
+        st += upd
+        ys[:, t] = (st @ cm[:, t, None, :, None])[..., 0]
+    return ys, st
+
+
+def check_ssd(torch, model, prompt) -> dict:
+    """Phase 14 (a): one layer's real SSD inputs (layer 0 of ``model`` on
+    ``prompt``, (1, 1024, H, P), N) through ``ssd_chunked`` on the card
+    against the float64 recurrence on the host, within SSD_BAND."""
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import rmsnorm
+
+    cfg, lp = model.cfg, model.layers[0]
+    with torch.no_grad():
+        x = rmsnorm(model.embed[prompt], lp.ln)
+        _, xi, bmat, cmat, dt = ssm._project(x, lp.mixer, cfg)
+        xh = xi.reshape(*xi.shape[:2], -1, cfg.ssm_headdim)
+        a_neg = -torch.exp(lp.mixer.a_log.float())
+        y, st = ssm.ssd_chunked(xh, dt, a_neg, bmat, cmat,
+                                chunk=cfg.ssm_chunk, return_state=True)
+    t0 = time.perf_counter()
+    y64, st64 = naive_ssd64(xh, dt, a_neg, bmat, cmat)
+    host_s = time.perf_counter() - t0
+    out = {}
+    for what, got, want in (("y", y, y64), ("state", st, st64)):
+        err = float(np.abs(got.double().cpu().numpy() - want).max())
+        scale = float(np.abs(want).max())
+        out[what] = (err, scale)
+        if not err <= SSD_BAND * scale:
+            raise AssertionError(f"[ssd] {what}: max abs err {err} over "
+                                 f"{SSD_BAND} x {scale}")
+    log(f"[ssd] layer 0's inputs {tuple(xh.shape)} N {bmat.shape[-1]} "
+        f"chunk {cfg.ssm_chunk}: y max abs err {out['y'][0]} (|y| up to "
+        f"{out['y'][1]}), final state {out['state'][0]} (up to "
+        f"{out['state'][1]}) against the float64 recurrence ({host_s:.1f} s "
+        f"on the host); band {SSD_BAND} of the largest")
+    return out
+
+
+def sub_model(torch, model, **cut):
+    """The model's first layers (and encoder layers) at full width, sharing
+    its weights: ``cut`` replaces config fields (``n_layers``, ...)."""
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(model.cfg, **cut)
+    tree = dict(embed=model.embed.data, final_norm=model.final_norm.data,
+                lm_head=model.lm_head.data,
+                layers=[layer_tree(lp)
+                        for lp in model.layers[:cfg.n_layers]])
+    if cfg.family == "hybrid":
+        tree["shared_attn"] = layer_tree(model.shared_attn)
+    if cfg.family == "encdec":
+        tree["enc_layers"] = [layer_tree(lp) for lp in
+                              model.enc_layers[:cfg.encoder_layers]]
+        tree["enc_norm"] = model.enc_norm.data
+    return Model(cfg, tree)
+
+
+def check_prefill_decode(torch, model, prompts) -> dict:
+    """Phase 14 (a): on the first 2 layers, ``prefill`` of the whole
+    prompts against ``prefill`` of their first PREFIX_TOKENS and one
+    teacher-forced ``decode_step`` a token after: the last logits within
+    0.1, the conv cache and the SSD state within STATE_BAND of their
+    largest magnitude."""
+    two = sub_model(torch, model, n_layers=2)
+    whole, cw = two.prefill(prompts)
+    part, cp = two.prefill(prompts[:, :PREFIX_TOKENS])
+    for t in range(PREFIX_TOKENS, prompts.shape[1]):
+        logits, cp = two.decode_step(cp, prompts[:, t:t + 1])
+    errs = {"logits": (float((logits[:, 0] - whole).abs().max()),
+                       float(whole.abs().max()))}
+    for key in ("conv", "ssd"):
+        errs[key] = (float((cp[key].float() - cw[key].float()).abs().max()),
+                     float(cw[key].float().abs().max()))
+    log(f"[{model.cfg.name} 2 layers] prefill({prompts.shape[1]}) against "
+        f"prefill({PREFIX_TOKENS}) + {prompts.shape[1] - PREFIX_TOKENS} "
+        f"decode steps: max abs err (largest |value|) {errs}; argmax equal "
+        f"{torch.equal(logits[:, 0].argmax(-1), whole.argmax(-1))}")
+    if errs["logits"][0] > 0.1 or any(
+            errs[k][0] > STATE_BAND * errs[k][1] for k in ("conv", "ssd")):
+        raise AssertionError(f"[{model.cfg.name}] prefill and decode "
+                             f"disagree: {errs}")
+    return errs
+
+
+def legacy_serve(torch, wrappers, model, name: str,
+                 repeat: bool = False) -> dict:
+    """A family served through the launcher's legacy loop on LEGACY_ARGV's
+    traffic, with its launches as planned and no plain attention on the
+    card; with ``repeat`` a second run must give the same tokens.  Logs
+    TTFT (a batch's prefill span), decode tokens/s and the peak; returns
+    them and the launch counts."""
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.obs.trace import Tracer, set_tracer
+
+    args = serve.parser().parse_args(["--arch", name] + LEGACY_ARGV)
+    want = dict(planned(0, 0, 0), flash_attention=LEGACY_FLASH[name])
+    tracer, calls = Tracer(), [0]
+    prev = set_tracer(tracer)
+    try:
+        with plain_attention_on_card(ref, calls):
+            rows, launches, peak = counted_run(
+                torch, wrappers, want, f"{name} serve",
+                lambda: serve._legacy_loop(model, args))
+    finally:
+        set_tracer(prev)
+    if calls[0]:
+        raise AssertionError(f"[{name} serve] plain attention ran on the "
+                             "card")
+    if len(rows) != 8 or any(r.shape != (32,) for r in rows):
+        raise AssertionError(f"[{name} serve] {len(rows)}/8 requests served")
+    spans = collections.defaultdict(list)
+    for sp in tracer.spans:
+        spans[sp.name].append(sp.dur)
+    out = {"ttft_ms": [d * 1e3 for d in spans["serve/prefill"]],
+           "decode_s": spans["serve/decode"],
+           "tokens_per_s": 8 * LEGACY_STEPS / sum(spans["serve/decode"]),
+           "peak": peak, "launches": launches}
+    log(f"[{name} serve] 8 requests of 1024 + 32 tokens: TTFT (a batch's "
+        f"prefill) {out['ttft_ms']} ms, decode {out['decode_s']} s a batch, "
+        f"{out['tokens_per_s']!r} tokens/s, max_memory_allocated {peak}; "
+        f"first tokens {rows[0].tolist()}")
+    if repeat:
+        again = serve._legacy_loop(model, args)
+        if not all(np.array_equal(a, b) for a, b in zip(rows, again)):
+            raise AssertionError(f"[{name} serve] a second run gives other "
+                                 "tokens")
+        log(f"[{name} serve] a second run: the same tokens")
+    return out
+
+
+def profile_decode(torch, model, name: str) -> tuple:
+    """One decode step of a 4-request batch after a 1024-token prefill,
+    profiled (device time by op, idle share); returns (wall ms, busy ms,
+    the cache)."""
+    from repro_torch.data import batch_for_step
+
+    prompts = torch.as_tensor(batch_for_step(model.cfg.vocab, 4, 1024,
+                                             step=0, seed=11), device="cuda")
+    kw = {}
+    if model.cfg.family == "encdec":
+        kw["enc_embeds"] = torch.randn(
+            (4, 1024, model.cfg.d_model), generator=torch.Generator(
+            ).manual_seed(0)).to("cuda", torch.bfloat16)
+    logits, cache = model.prefill(prompts, max_seq=1056, **kw)
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    model.decode_step(cache, tok)
+    _, wall, busy = profiled(torch, lambda: model.decode_step(cache, tok),
+                             f"{name} decode step (4 slots)")
+    return wall, busy, cache, tok
+
+
+def slice_family_serve(torch, wrappers) -> collections.Counter:
+    """Phase 14 (a)-(c): mamba2-780m, zamba2-1.2b and seamless-m4t-large-
+    v2 at full width and depth served through the legacy loop, with each
+    family's checks (see the module docstring)."""
+    from repro_torch.configs import get
+    from repro_torch.data import batch_for_step
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import rmsnorm
+
+    total = collections.Counter()
+    for name in (MAMBA, ZAMBA, SEAMLESS):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get(name), act_mode="none")
+        model = Model(cfg)
+        torch.cuda.synchronize()
+        log(f"[{name}] {cfg.n_layers} layers"
+            + (f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers
+               else "") + f" at d_model {cfg.d_model}: "
+            f"{cfg.param_count()} parameters (param_count), the model holds "
+            f"{model_bytes(model)} bytes, built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        served = legacy_serve(torch, wrappers, model, name,
+                              repeat=name == MAMBA)
+        total.update(served["launches"])
+        prompts = torch.as_tensor(batch_for_step(cfg.vocab, 2, 1024, step=0,
+                                                 seed=11), device="cuda")
+        if name == MAMBA:
+            check_ssd(torch, model, prompts[:1])
+            check_prefill_decode(torch, model, prompts)
+        elif name == ZAMBA:
+            three = sub_model(torch, model, n_layers=3)
+            if three.cfg.shared_attn_sites() != [1]:
+                raise AssertionError("3-layer hybrid sites")
+            with_kernel, _ = three.prefill(prompts)
+            three.impl = "torch"
+            with_plain, _ = three.prefill(prompts)
+            err = float((with_kernel - with_plain).abs().max())
+            log(f"[{name} 3 layers, shared block at [1]] prefill logits "
+                f"kernel vs plain attention: max abs err {err} (logits up "
+                f"to {float(with_plain.abs().max())})")
+            if err > 0.1:
+                raise AssertionError(f"[{name}] 3-layer logits differ by "
+                                     f"{err}")
+            del three
+        else:
+            two = sub_model(torch, model, n_layers=2, encoder_layers=2)
+            enc = torch.randn((2, 1024, cfg.d_model), generator=torch
+                              .Generator().manual_seed(0)).to("cuda",
+                                                              torch.bfloat16)
+            first = prompts[:, -1:]
+            res = {}
+            for impl in ("auto", "torch"):
+                two.impl = impl
+                _, cache = two.prefill(prompts, enc_embeds=enc)
+                logits, _ = two.decode_step(cache, first)
+                res[impl] = (cache["enc"].float(), logits)
+            errs = [float((a - b).abs().max())
+                    for a, b in zip(res["auto"], res["torch"])]
+            scale = float(res["torch"][0].abs().max())
+            log(f"[{name} 2 + 2 layers] kernel vs plain attention: encoder "
+                f"output max abs err {errs[0]} (up to {scale}), a decode "
+                f"step's logits {errs[1]}")
+            if errs[0] > 2.0 ** -6 * scale or errs[1] > 0.1:
+                raise AssertionError(f"[{name}] 2 + 2 layers differ: {errs}")
+            del two, res
+        wall, busy, cache, tok = profile_decode(torch, model, name)
+        if name == SEAMLESS:
+            # the step's cross-attentions alone, timed with CUDA events
+            flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32,
+                                device="cuda")
+            lp = model.layers[0]
+            h = model.embed[tok]
+
+            def xattn():
+                with torch.no_grad():
+                    for _ in range(cfg.n_layers):
+                        attn.cross_attention_block(
+                            rmsnorm(h, lp.ln_x), lp.xattn, cfg, cache["enc"],
+                            online=True)
+
+            ms = time_ms(torch, xattn, flush, 5)
+            log(f"[{name}] a decode step's {cfg.n_layers} cross-attentions "
+                f"(K/V projected anew, flash at Sq 1 over 1024 keys): "
+                f"{ms:.3f} ms of the profiled step's {wall:.3f} ms wall "
+                f"({ms / wall:.3f}; device busy {busy:.3f} ms)")
+            del flush
+        del model, cache
+        torch.cuda.empty_cache()
+        log(f"[{name}] phase 14 serving part: "
+            f"{time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def time_ssd(torch, cfg, batch: int, seq: int) -> dict:
+    """``ssd_chunked`` at one Mamba-2 layer's training shape, forward alone
+    and forward + backward, from random inputs (CUDA events, cold L2)."""
+    from repro_torch.models import ssm
+
+    _, n_heads = ssm.ssm_dims(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(141)
+    mk = lambda *shape: torch.randn(shape, device="cuda", generator=gen)
+    xh = mk(batch, seq, n_heads, cfg.ssm_headdim).requires_grad_()
+    dt = torch.nn.functional.softplus(mk(batch, seq, n_heads)).requires_grad_()
+    bm = mk(batch, seq, cfg.ssm_state).requires_grad_()
+    cm = mk(batch, seq, cfg.ssm_state).requires_grad_()
+    a_neg = -torch.ones(n_heads, device="cuda")
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
+
+    def fwd():
+        with torch.no_grad():
+            ssm.ssd_chunked(xh, dt, a_neg, bm, cm, chunk=cfg.ssm_chunk)
+
+    def fwd_bwd():
+        y, _ = ssm.ssd_chunked(xh, dt, a_neg, bm, cm, chunk=cfg.ssm_chunk)
+        torch.autograd.grad(y.sum(), (xh, dt, bm, cm))
+
+    out = {"fwd_ms": time_ms(torch, fwd, flush, 5),
+           "fwd_bwd_ms": time_ms(torch, fwd_bwd, flush, 5)}
+    del flush, xh, dt, bm, cm
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def grad_taps(steps, out: list):
+    """Inside: each AdamW update of ``launch.steps`` appends whether every
+    gradient it was handed is finite (a device bool, read later)."""
+    whole = steps.adamw_update
+
+    def update(grads, *a, **kw):
+        import torch
+
+        out.append(torch.stack([torch.isfinite(g).all() for g in grads])
+                   .all())
+        return whole(grads, *a, **kw)
+
+    steps.adamw_update = update
+    try:
+        yield
+    finally:
+        steps.adamw_update = whole
+
+
+def slice_family_train(torch, wrappers) -> collections.Counter:
+    """Phase 14 (d): the three families trained through the launcher at
+    full width and depth (FAMILY_LM), float32 moments: finite losses and
+    gradients every step, the INT2 stash's launches a Mamba-2 layer and
+    step under ``act``, mamba2's loss falling; then mamba2 at
+    LM_LAYERS_SHORT layers under none / remat / act (residual bytes act <
+    remat < none)."""
+    from repro_torch.configs import get
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.launch import train
+
+    total = collections.Counter()
+    for name, argv in FAMILY_LM.items():
+        t0 = time.perf_counter()
+        cfg = get(name)
+        args = train.parser().parse_args(argv)
+        n = cfg.param_count()
+        toks = args.batch * args.seq
+        logits = 2 * args.batch * min(cfg.vocab_chunk, args.seq) \
+            * cfg.vocab * 4
+        stash = cfg.n_layers * (toks * cfg.d_model // 4
+                                + toks * cfg.d_model // 256 * 8)
+        log(f"[{name} lm] reckoning: {n} parameters, bf16 weights and "
+            f"grads {2 * n} + {2 * n} bytes, float32 AdamW moments {8 * n}; "
+            f"largest transient a loss chunk's float32 logits and their "
+            f"gradient {logits}" + (f"; INT2 stashes {stash}"
+                                    if args.act_mode == "act" else ""))
+        n_stash = cfg.n_layers if args.act_mode == "act" else 0
+        want = dict(planned(0, 0, 0), quant_pack=n_stash * args.steps,
+                    dequant_unpack=n_stash * args.steps)
+        finite = []
+        with grad_taps(lsteps, finite):
+            (res, _), counts, peak = counted_run(
+                torch, wrappers, want, f"{name} lm",
+                lambda: launcher(train, argv, train.lm_main))
+        total.update(counts)
+        hist = res["history"]
+        losses = [h["loss"] for h in hist]
+        grads_ok = [bool(f) for f in finite]
+        log(f"[{name} lm] {args.act_mode} B {args.batch} x {args.seq}: "
+            f"losses {losses}; gradients finite {grads_ok}; step s "
+            f"{[h['dt'] for h in hist]}; max_memory_allocated {peak}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not (all(map(math.isfinite, losses)) and all(grads_ok)
+                and len(grads_ok) == args.steps):
+            raise AssertionError(f"[{name} lm] losses {losses}, gradients "
+                                 f"finite {grads_ok}")
+        if name == MAMBA:
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"[{name} lm] loss does not fall: "
+                                     f"{losses}")
+            batch = res["make_batch"](args.steps)
+            profile_call(torch, lambda: float(res["step_fn"](
+                (res["model"], res["opt_state"]), batch)[1]["loss"]),
+                f"lm step ({name}, 48 layers, act, B 4 x 2048)", top=20)
+            log(f"[{name} lm] with the profiled step: "
+                f"{time.perf_counter() - t0:.1f} s")
+            ssd = time_ssd(torch, cfg, args.batch, args.seq)
+            share = cfg.n_layers * (ssd["fwd_ms"] + ssd["fwd_bwd_ms"]) \
+                / (1e3 * statistics.median(h["dt"] for h in hist[1:]))
+            log(f"[{name} lm] the SSD scan of a layer at B {args.batch} x "
+                f"{args.seq} (CUDA events): forward {ssd['fwd_ms']:.3f} ms, "
+                f"forward + backward {ssd['fwd_bwd_ms']:.3f} ms; a step "
+                f"runs each once a layer (act: the forward, then its "
+                f"recomputation and backward): {share:.3f} of the median "
+                f"step")
+        del res
+        torch.cuda.empty_cache()
+        log(f"[{name} lm] phase 14 training part: "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    runs = {}
+    for mode in ("none", "remat", "act"):
+        runs[mode] = lm_short(torch, train, mode, argv=FAMILY_LM[MAMBA])
+        del runs[mode]["model"]
+        torch.cuda.empty_cache()
+    order = [runs[m]["residual"] for m in ("act", "remat", "none")]
+    log(f"[{MAMBA} {LM_LAYERS_SHORT} layers] peak / residual bytes / step "
+        "ms: " + "; ".join(f"{m} {r['peak']} / {r['residual']} / {r['ms']}"
+                           for m, r in runs.items()))
+    if not order[0] < order[1] < order[2]:
+        raise AssertionError(f"[{MAMBA} {LM_LAYERS_SHORT} layers] residual "
+                             f"bytes act < remat < none fails: {order}")
+    log(f"[{MAMBA} {LM_LAYERS_SHORT} layers] phase 14 part: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return total
+
+
 T_START = time.perf_counter()
 
 
@@ -3556,7 +4107,23 @@ def main() -> int:
         raise AssertionError(f"phase 13 took {moe_s:.1f} s, over "
                              f"{PHASE13_LIMIT_S} s")
 
-    # 14. results
+    # 14. slice 16: the SSM, hybrid and enc-dec families
+    t0 = time.perf_counter()
+    family_rows = check_family_shapes(torch, fa, qk, ref)
+    log(f"phase 14 kernels: {time.perf_counter() - t0:.1f} s")
+    launches14 = slice_family_serve(torch, wrappers)
+    served14 = dict(launches14)
+    log(f"phase 14 (a)-(c): {time.perf_counter() - t0:.1f} s")
+    launches14.update(slice_family_train(torch, wrappers))
+    family_s = time.perf_counter() - t0
+    log(f"phase 14: {family_s:.1f} s; launches {dict(launches14)}")
+    for name, n in launches14.items():
+        launches[name] += n
+    if not family_s < PHASE14_LIMIT_S:
+        raise AssertionError(f"phase 14 took {family_s:.1f} s, over "
+                             f"{PHASE14_LIMIT_S} s")
+
+    # 15. results
     sources = {"quant_pack": ("src/repro_torch/csrc/quant_blockwise.cu",
                               "src/repro/kernels/quant_blockwise.py:62"),
                "dequant_unpack": ("src/repro_torch/csrc/quant_blockwise.cu",
@@ -3585,6 +4152,11 @@ def main() -> int:
     moe_shapes = collections.defaultdict(dict)
     for (name, tag), row in moe_rows.items():
         moe_shapes[name][tag] = {k: row[k] for k in moe_keys if k in row}
+    # and phase 14's
+    rows.update(family_rows)
+    family_shapes = collections.defaultdict(dict)
+    for (name, tag), row in family_rows.items():
+        family_shapes[name][tag] = {k: row[k] for k in moe_keys if k in row}
     kernels = []
     for name, (source, replaces) in sources.items():
         row = rows[(name, main_tag[name])]
@@ -3603,7 +4175,10 @@ def main() -> int:
             **({"serving_launches": served[name]}
                if name in ("quant_pack", "dequant_unpack") else {}),
             **({"moe_shapes": moe_shapes[name], "moe_serving_launches":
-                served13[name]} if name in moe_shapes else {})})
+                served13[name]} if name in moe_shapes else {}),
+            **({"family_shapes": family_shapes[name],
+                "family_serving_launches": served14[name]}
+               if name in family_shapes else {})})
     log(f"[moe] decode experts {moe_layer}")
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

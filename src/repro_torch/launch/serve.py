@@ -26,19 +26,28 @@ summary.
 
 The MoE family (``--arch qwen3-moe-235b-a22b``, ``--arch arctic-480b``)
 serves through the same engine: the experts replace the dense MLP in
-prefill and decode.  Not ported yet: the legacy loop of the SSM / hybrid /
-enc-dec families (ROADMAP A.11); each raises.
+prefill and decode.
+
+The SSM / hybrid state caches and the enc-dec's encoder cache are not
+paged-KV shaped (``--arch mamba2-780m``, ``zamba2-1.2b``,
+``seamless-m4t-large-v2``): they decode through the legacy fixed-batch
+loop (:func:`_legacy_loop`), greedily, ``--max-batch`` requests a batch,
+tokens gathered in a device buffer and copied to the host once a batch.
+The KV flags do not apply there.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 
+import torch
+
 from repro_torch.configs import get, reduce_for_smoke
 from repro_torch.core.device import resolve_device
 from repro_torch.data import batch_for_step
+from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import Model
-from repro_torch.obs import ObsPolicy
+from repro_torch.obs import ObsPolicy, stopwatch
 from repro_torch.serving import (KV_FAMILIES, KVCacheConfig, Request,
                                  ServeEngine)
 
@@ -91,11 +100,59 @@ def build_model(args) -> Model:
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
     cfg = dataclasses.replace(cfg, act_mode="none")
-    if cfg.family not in KV_FAMILIES:
-        raise NotImplementedError(
-            f"serving the {cfg.family!r} family (the reference's legacy "
-            "loop) is not ported yet (ROADMAP A.11)")
     return Model(cfg, device=device)
+
+
+def _legacy_loop(model: Model, args) -> list:
+    """Fixed-batch greedy decode for the families outside ``KV_FAMILIES``:
+    batches of ``--max-batch`` requests, each prefilled (``serve/prefill``
+    span) and decoded ``--gen-len - 1`` steps (``serve/decode`` span),
+    the tokens written into a device buffer and copied to the host once a
+    batch (no read-back a token).  An enc-dec batch's ``enc_embeds`` are
+    (n, prompt_len, d_model) bf16, drawn on the host from a generator
+    seeded with the batch's first request index (so the card and the CPU
+    serve the same inputs).  Returns one (gen_len,) array a request."""
+    cfg, device = model.cfg, model.device
+    serve = make_serve_step(model)
+    max_seq = args.prompt_len + args.gen_len
+    done, t_prefill, t_decode, n_decoded = 0, 0.0, 0.0, 0
+    outputs = []
+    while done < args.requests:
+        n = min(args.max_batch, args.requests - done)
+        prompts = torch.as_tensor(batch_for_step(
+            cfg.vocab, n, args.prompt_len, step=done, seed=11), device=device)
+        kwargs = {}
+        if cfg.family == "encdec":
+            gen = torch.Generator().manual_seed(done)
+            kwargs["enc_embeds"] = torch.randn(
+                (n, args.prompt_len, cfg.d_model), generator=gen
+            ).to(device=device, dtype=torch.bfloat16)
+        with stopwatch("serve/prefill", batch=n) as sw:
+            logits, cache = model.prefill(prompts, max_seq=max_seq, **kwargs)
+            _sync(device)
+        t_prefill += sw.elapsed_s
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        buf = torch.zeros((n, args.gen_len), dtype=torch.int32,
+                          device=device)
+        buf[:, 0] = tok[:, 0]
+        with stopwatch("serve/decode", batch=n, gen_len=args.gen_len) as sw:
+            for i in range(1, args.gen_len):
+                tok, _, cache = serve(cache, tok)
+                buf[:, i] = tok[:, 0]
+            _sync(device)
+        t_decode += sw.elapsed_s
+        n_decoded += (args.gen_len - 1) * n
+        outputs.append(buf.cpu().numpy())          # one copy a batch
+        done += n
+    print(f"served {done} requests (legacy {cfg.family} loop, {device}): "
+          f"prefill {t_prefill:.2f}s total, decode "
+          f"{n_decoded / max(t_decode, 1e-9):.1f} tok/s")
+    return [row for batch in outputs for row in batch]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def build_engine(args, model: Model | None = None, *,
@@ -145,7 +202,10 @@ def report(args, engine, out) -> None:
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    engine, requests = build_engine(args)
+    model = build_model(args)
+    if model.cfg.family not in KV_FAMILIES:
+        return _legacy_loop(model, args)
+    engine, requests = build_engine(args, model)
     out = engine.run(requests)
     report(args, engine, out)
     return [r.tokens for r in out["results"] if r.status == "done"]

@@ -14,7 +14,8 @@ from repro_torch.optim import AdamWConfig, adamw_update
 def make_train_step(model, opt: AdamWConfig, accum_dtype=torch.float32,
                     act_impl: str | None = None):
     """``train_step(opt_state, batch) -> {"loss": ...}``: the loss of
-    ``batch`` (``tokens`` (B, S), optional ``prefix_embeds``) at the
+    ``batch`` (``tokens`` (B, S), optional ``prefix_embeds`` / the enc-dec's
+    ``enc_embeds``) at the
     activation seed ``step_seed(opt_state["step"])``, its gradients, and
     one AdamW update of ``model``'s parameters in place.
 
@@ -34,6 +35,7 @@ def make_train_step(model, opt: AdamWConfig, accum_dtype=torch.float32,
         with backend.use_impl(act_impl):
             return model.loss(mb["tokens"],
                               prefix_embeds=mb.get("prefix_embeds"),
+                              enc_embeds=mb.get("enc_embeds"),
                               act_seed=step_seed(step),
                               vocab_chunk=cfg.vocab_chunk)
 
@@ -69,13 +71,16 @@ def make_prefill_step(model, max_seq: int | None = None):
     def prefill_step(batch):
         return model.prefill(batch["tokens"],
                              prefix_embeds=batch.get("prefix_embeds"),
+                             enc_embeds=batch.get("enc_embeds"),
                              max_seq=max_seq)
 
     return prefill_step
 
 
 def make_serve_step(model):
-    """One decode step: greedy next token + updated cache (in place)."""
+    """One decode step: greedy next token + updated cache (in place): the
+    KV cache of the attention families, the conv and SSD state caches of
+    ``ssm`` / ``hybrid`` (and the hybrid's shared-block KV)."""
 
     def serve_step(cache, tokens):
         logits, cache = model.decode_step(cache, tokens)

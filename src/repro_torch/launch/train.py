@@ -10,8 +10,12 @@
 Runs on the card (``--device cuda``, the default) unless the CPU is asked
 for; without a card the default raises.  Two halves:
 
-* **LM** (``--arch``): the dense family (``dense``, ``vlm``) and the MoE
-  family (``qwen3-moe-235b-a22b``, ``arctic-480b``) trained with
+* **LM** (``--arch``): every family: dense (``dense``, ``vlm``), MoE
+  (``qwen3-moe-235b-a22b``, ``arctic-480b``), SSM (``mamba2-780m``),
+  hybrid (``zamba2-1.2b``) and enc-dec (``seamless-m4t-large-v2``, its
+  audio frontend's stub output ``enc_embeds`` drawn a step from a
+  generator seeded with the step, as the vlm's ``prefix_embeds``) trained
+  with
   ``--act-mode none|remat|act`` (``act``: each layer's input stored
   block-quantized, ``--act-bits`` / ``--act-group``, and the layer
   recomputed from it in the backward), ``--offload host|pinned-paged``
@@ -24,10 +28,12 @@ for; without a card the default raises.  Two halves:
   micro-batches (qwen3-moe 8, arctic 4; ``--smoke`` configs 1), so the
   batch must divide by it.  An MoE layer runs under ``act`` as under
   ``none`` (the reference stashes no MoE layer compressed) and
-  ``remat`` checkpoints it.  Prints ``steps=N loss a -> b``; ``main``
-  returns one ``{"step", "loss", "dt"}`` a step.  The SSM, hybrid and
-  enc-dec families raise (ROADMAP A.11), and so does ``--production-mesh``:
-  LM sharding is not ported (A.12b).
+  ``remat`` checkpoints it; the enc-dec checkpoints every layer under
+  both ``remat`` and ``act``.  A Mamba-2 layer is stashed under ``act``
+  as a dense one is; its ``--seq`` must be a multiple of the config's
+  ``ssm_chunk`` (128, 16 for ``--smoke``).  Prints ``steps=N loss a ->
+  b``; ``main`` returns one ``{"step", "loss", "dt"}`` a step.
+  ``--production-mesh`` raises: LM sharding is not ported (A.12b).
 * **Graph** (``--graph-batches N`` or ``--mesh-parts N``): the GNN
   engines on an arxiv/flickr/papers100m-like graph.  The flags lower onto
   one :class:`~repro_torch.engine.plan.ExecutionPlan`; ``engine.runner.run``
@@ -293,6 +299,11 @@ def lm_main(args) -> dict:
             gen = torch.Generator(device).manual_seed(step)
             b["prefix_embeds"] = torch.randn(
                 (args.batch, cfg.frontend_len, cfg.d_model), generator=gen,
+                device=device).to(torch.bfloat16)
+        if cfg.family == "encdec":
+            gen = torch.Generator(device).manual_seed(step)
+            b["enc_embeds"] = torch.randn(
+                (args.batch, args.seq, cfg.d_model), generator=gen,
                 device=device).to(torch.bfloat16)
         return b
 

@@ -135,6 +135,28 @@ def attention_block(x, p, cfg, *, causal=True, k_chunk: int = 1024):
     return mm(out.reshape(b, s, cfg.n_heads * cfg.d_head), p.wo)
 
 
+def cross_attention_block(x, p, cfg, enc_out, *, online: bool = False,
+                          impl: str = "auto"):
+    """Decoder-to-encoder attention: queries from x (B,S,D), keys and
+    values projected from ``enc_out`` (B,Se,D), no rope on either, no
+    mask.  Training attends through :func:`chunked_attention`
+    (differentiable); ``online=True`` (decode, under ``no_grad``) through
+    :func:`online_attention`, the kernel on the card (non-causal, Sq !=
+    Skv: a decode step's Sq is 1), routed by ``impl``."""
+    b, s, _ = x.shape
+    se = enc_out.shape[1]
+    q = mm(x, p.wq).reshape(b, s, cfg.n_heads, cfg.d_head)
+    k = mm(enc_out, p.wk).reshape(b, se, cfg.n_kv_heads, cfg.d_head)
+    v = mm(enc_out, p.wv).reshape(b, se, cfg.n_kv_heads, cfg.d_head)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    if online:
+        out = online_attention(q, k, v, causal=False, impl=impl)
+    else:
+        out = chunked_attention(q, k, v, causal=False, k_chunk=1024)
+    return mm(out.reshape(b, s, cfg.n_heads * cfg.d_head), p.wo)
+
+
 def _grouped_q(q: torch.Tensor, hkv: int) -> torch.Tensor:
     """q (B,1,Hq,Dh) -> float32 (B,Hkv,G,Dh), scaled as the reference
     scales it (float32 q times the float32 scale)."""

@@ -30,20 +30,38 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _unstack(stacked: dict, device) -> list:
+    """A tree of layer-stacked arrays as one tree a layer."""
+    n = np.asarray(next(iter(_leaves(stacked)))).shape[0]
+    return [_map(stacked, lambda a, li=li: to_tensor(np.asarray(a)[li],
+                                                       device))
+            for li in range(n)]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def params_from_jax(params_np: dict, cfg, device="cuda", *,
                     impl: str = "auto") -> Model:
     """The reference's parameter pytree (numpy leaves, layer weights
     stacked on a leading layer axis; a MoE layer's ``moe`` stacks are
     (L, E, D, F)) as the port's :class:`Model` on ``device`` (the card
-    unless the CPU is asked for); the layer axis is unstacked into one
-    module per layer, every leaf keeping its dtype and bits (the router
-    float32, the experts bf16)."""
+    unless the CPU is asked for).  The ``layers`` and ``enc_layers`` axes
+    are unstacked into one module per layer, and the hybrid's
+    ``shared_attn`` and the enc-dec's ``enc_norm`` carry over as they
+    are, every leaf keeping its dtype and bits (the router float32, the
+    experts and convs bf16)."""
     check_family(cfg)
     device = resolve_device(device)
-    layers = params_np["layers"]
-    n_layers = np.asarray(layers["ln1"]).shape[0]
-    tree = {name: to_tensor(params_np[name], device)
-            for name in ("embed", "final_norm", "lm_head")}
-    tree["layers"] = [_map(layers, lambda a, li=li: to_tensor(
-        np.asarray(a)[li], device)) for li in range(n_layers)]
+    tree = {name: _map(params_np[name], lambda a: to_tensor(a, device))
+            for name in ("embed", "final_norm", "lm_head", "shared_attn",
+                         "enc_norm") if name in params_np}
+    tree["layers"] = _unstack(params_np["layers"], device)
+    if "enc_layers" in params_np:
+        tree["enc_layers"] = _unstack(params_np["enc_layers"], device)
     return Model(cfg, tree, device=device, impl=impl)

@@ -1,12 +1,23 @@
-"""The LM (the reference's ``repro.models.transformer``): the dense family
-(``dense``, and ``vlm`` without its frontend) and the MoE family
-(:mod:`repro_torch.models.moe`'s experts in place of the dense MLP, with
-arctic's dense FFN residual under ``ln3`` where the config has one).
+"""The LM (the reference's ``repro.models.transformer``): every family of
+the reference.
+
+* ``dense`` (and ``vlm``, whose vision frontend is a stub: the caller
+  hands over ``prefix_embeds``);
+* ``moe``: :mod:`repro_torch.models.moe`'s experts in place of the dense
+  MLP, with arctic's dense FFN residual under ``ln3`` where the config has
+  one;
+* ``ssm``: Mamba-2 layers (:mod:`repro_torch.models.ssm`), attention-free;
+* ``hybrid``: Mamba-2 layers with one shared attention + MLP block at
+  twice the width, fed ``[h, h0]`` (h0 the embeddings) at
+  ``cfg.shared_attn_sites()``;
+* ``encdec``: a non-causal encoder over ``enc_embeds`` (the audio
+  frontend's stub output) and a decoder whose layers cross-attend to it.
 
 Parameters are an ``nn.Module`` tree with the reference's names and
 layouts (``wq`` is (d_model, H*Dh) and multiplies from the right), one
-module per layer in ``layers`` instead of the reference's stacked layer
-axis, and a Python loop over the layers instead of its ``lax.scan``.
+module per layer in ``layers`` (and ``enc_layers``) instead of the
+reference's stacked layer axis, and a Python loop over the layers instead
+of its ``lax.scan``.
 
 Training (``hidden_states`` / ``loss``) wraps each layer by ``act_mode``,
 the paper's technique applied to the residual stream:
@@ -17,21 +28,25 @@ the paper's technique applied to the residual stream:
   layer input stored block-quantized (INT2, G = 256 by default) and the
   layer recomputed from the reconstruction in the backward.
 
-An MoE layer returns its balance loss beside the residual stream, and the
-reference wraps it apart from the others: ``"remat"`` checkpoints the
-whole layer, and ``"act"`` stashes nothing compressed (the layer runs as
-under ``"none"``), as in the reference.
+Dense and Mamba-2 layers are wrapped so, with the global layer index as
+the stash seed; the hybrid's shared block is never wrapped.  Two families
+wrap apart, as the reference does: an MoE layer returns its balance loss
+beside the residual stream, so ``"remat"`` checkpoints the whole layer and
+``"act"`` stashes nothing compressed (the layer runs as under ``"none"``);
+the enc-dec checkpoints every encoder and decoder layer under both
+``"remat"`` and ``"act"``, so ``"act"`` stashes nothing compressed there
+either.
 
 Training attention is the reference's chunked scan in differentiable ops
 (:func:`repro_torch.models.attention.chunked_attention`); ``prefill`` and
 ``decode_step`` run under ``no_grad`` through the flash kernel and the
-cache, as serving does.
-
-Not ported yet, each raising with its ROADMAP item: the SSM, hybrid and
-enc-dec families and the vlm frontend (A.11).
+cache, as serving does: every attention of a prefill (the encoder's
+non-causal one and the hybrid's shared block included) and the decoder's
+cross-attention at every decode step.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -46,22 +61,30 @@ from repro_torch.core.prng import MASK32
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (dense_init, embed_init, mm, rmsnorm,
                                        swiglu)
+from repro_torch.models import ssm as ssmmod
 from repro_torch.models.moe import moe_ffn
 
-#: Families this port's Model runs.
-FAMILIES = ("dense", "vlm", "moe")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP A.11)")
+#: The families Model runs (all of the reference's).
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+#: The stub frontend each family takes: the caller hands over its output
+#: (``prefix_embeds`` / ``enc_embeds``).
+FRONTENDS = {"vlm": "vision", "encdec": "audio"}
 
 
 def check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
-        raise _not_ported(f"the {cfg.family!r} family")
-    if cfg.frontend is not None and cfg.family != "vlm":
-        raise _not_ported(f"the {cfg.frontend!r} frontend")
+        raise ValueError(f"unknown family {cfg.family!r}; have {FAMILIES}")
+    if cfg.frontend is not None and FRONTENDS.get(cfg.family) \
+            != cfg.frontend:
+        raise ValueError(f"the {cfg.frontend!r} frontend belongs to no "
+                         f"{cfg.family!r} model")
+
+
+def shared_cfg(cfg):
+    """The hybrid's shared block: attention at twice the width, d_head
+    ``2 * d_model / n_heads``."""
+    return dataclasses.replace(cfg, d_model=2 * cfg.d_model,
+                               d_head=2 * cfg.d_model // cfg.n_heads)
 
 
 # ============================================================ param init
@@ -125,17 +148,79 @@ def _moe_layer_params(cfg, gen: torch.Generator) -> dict:
     return p
 
 
+def _ssm_layer_params(cfg, gen: torch.Generator) -> dict:
+    """A Mamba-2 layer: its norm and the mixer's unfused projections, the
+    convs N(0, 1) * 0.2 in bf16, ``a_log`` 0, ``d_skip`` 1, ``dt_bias``
+    and the conv biases 0."""
+    dev = gen.device
+    d_inner, n_heads = ssmmod.ssm_dims(cfg)
+    d, n = cfg.d_model, cfg.ssm_state
+
+    def conv(c):
+        return (torch.randn((cfg.ssm_conv, c), generator=gen, device=dev)
+                * 0.2).to(torch.bfloat16)
+
+    zeros = functools.partial(torch.zeros, device=dev)
+    return {"ln": torch.ones(d, device=dev),
+            "mixer": {"w_z": dense_init(d, d_inner, gen),
+                      "w_x": dense_init(d, d_inner, gen),
+                      "w_B": dense_init(d, n, gen),
+                      "w_C": dense_init(d, n, gen),
+                      "w_dt": dense_init(d, n_heads, gen),
+                      "conv_x": conv(d_inner), "conv_B": conv(n),
+                      "conv_C": conv(n),
+                      "conv_bx": zeros(d_inner), "conv_bB": zeros(n),
+                      "conv_bC": zeros(n), "dt_bias": zeros(n_heads),
+                      "a_log": zeros(n_heads),
+                      "d_skip": torch.ones(n_heads, device=dev),
+                      "norm_w": torch.ones(d_inner, device=dev),
+                      "out_proj": dense_init(d_inner, d, gen)}}
+
+
+def _shared_attn_params(cfg, gen: torch.Generator) -> dict:
+    """The hybrid's shared block at width 2 * d_model, and its ``down``
+    projection back to d_model."""
+    dev, d2 = gen.device, 2 * cfg.d_model
+    return {"ln": torch.ones(d2, device=dev),
+            "attn": _attn_params(shared_cfg(cfg), gen),
+            "ln2": torch.ones(d2, device=dev),
+            "mlp": _mlp_params(d2, cfg.d_ff, gen),
+            "down": dense_init(d2, cfg.d_model, gen)}
+
+
+def _dec_layer_params(cfg, gen: torch.Generator) -> dict:
+    """An enc-dec decoder layer: a dense layer with cross-attention under
+    ``ln_x``."""
+    p = _dense_layer_params(cfg, gen)
+    p["ln_x"] = torch.ones(cfg.d_model, device=gen.device)
+    p["xattn"] = _attn_params(cfg, gen)
+    return p
+
+
 def init_params(cfg, gen: torch.Generator) -> dict:
     """Random weights drawn from ``gen`` (on its device), with the
     reference's shapes, dtypes and scales: the embedding in ``act_dtype``,
-    dense and expert weights bf16, the router, norms and biases float32."""
+    dense, expert and conv weights bf16, the router, norms, biases and
+    the SSM's scalars float32."""
     check_family(cfg)
     act_dtype = getattr(torch, getattr(cfg, "act_dtype", "bfloat16"))
-    layer = _moe_layer_params if cfg.family == "moe" else _dense_layer_params
-    return {"embed": embed_init(cfg.vocab, cfg.d_model, gen, dtype=act_dtype),
-            "final_norm": torch.ones(cfg.d_model, device=gen.device),
-            "lm_head": dense_init(cfg.d_model, cfg.vocab, gen),
-            "layers": [layer(cfg, gen) for _ in range(max(cfg.n_layers, 1))]}
+    layer = {"moe": _moe_layer_params, "ssm": _ssm_layer_params,
+             "hybrid": _ssm_layer_params,
+             "encdec": _dec_layer_params}.get(cfg.family,
+                                              _dense_layer_params)
+    params = {"embed": embed_init(cfg.vocab, cfg.d_model, gen,
+                                  dtype=act_dtype),
+              "final_norm": torch.ones(cfg.d_model, device=gen.device),
+              "lm_head": dense_init(cfg.d_model, cfg.vocab, gen),
+              "layers": [layer(cfg, gen)
+                         for _ in range(max(cfg.n_layers, 1))]}
+    if cfg.family == "hybrid":
+        params["shared_attn"] = _shared_attn_params(cfg, gen)
+    elif cfg.family == "encdec":
+        params["enc_layers"] = [_dense_layer_params(cfg, gen)
+                                for _ in range(cfg.encoder_layers)]
+        params["enc_norm"] = torch.ones(cfg.d_model, device=gen.device)
+    return params
 
 
 def _module(tree: dict) -> nn.Module:
@@ -150,17 +235,19 @@ def _module(tree: dict) -> nn.Module:
 
 
 class Model(nn.Module):
-    """A decoder-only LM, dense or MoE: ``prefill`` a prompt into a KV
-    cache, then ``decode_step`` one token at a time.
+    """An LM of any of the reference's families: ``hidden_states`` /
+    ``loss`` for training, ``prefill`` a prompt into a cache, then
+    ``decode_step`` one token at a time.
 
     ``params`` is the reference's parameter tree with one dict per layer in
-    ``layers`` (see :func:`repro_torch.models.convert.params_from_jax`);
-    without it the weights are drawn from ``generator`` (default: seed 0 on
-    ``device``).  The model lives on ``device``: the card unless the caller
-    asks for the CPU, and a CUDA device without a card raises.  ``impl``
-    routes prefill attention (:func:`repro_torch.kernels.ops.flash_attention`):
-    ``"auto"`` is the kernel for CUDA tensors and the plain version for CPU
-    tensors.
+    ``layers`` (and ``enc_layers``) (see
+    :func:`repro_torch.models.convert.params_from_jax`); without it the
+    weights are drawn from ``generator`` (default: seed 0 on ``device``).
+    The model lives on ``device``: the card unless the caller asks for the
+    CPU, and a CUDA device without a card raises.  ``impl`` routes the
+    attention of prefill and of decode's cross-attention
+    (:func:`repro_torch.kernels.ops.flash_attention`): ``"auto"`` is the
+    kernel for CUDA tensors and the plain version for CPU tensors.
     """
 
     def __init__(self, cfg, params: dict | None = None, *,
@@ -170,6 +257,7 @@ class Model(nn.Module):
         check_family(cfg)
         device = resolve_device(device)
         self.cfg, self.impl = cfg, impl
+        self.shared_cfg = shared_cfg(cfg) if cfg.family == "hybrid" else None
         if params is None:
             params = init_params(cfg, generator
                                  or torch.Generator(device).manual_seed(0))
@@ -177,6 +265,12 @@ class Model(nn.Module):
         self.final_norm = nn.Parameter(params["final_norm"])
         self.lm_head = nn.Parameter(params["lm_head"])
         self.layers = nn.ModuleList(_module(lp) for lp in params["layers"])
+        if cfg.family == "hybrid":
+            self.shared_attn = _module(params["shared_attn"])
+        elif cfg.family == "encdec":
+            self.enc_layers = nn.ModuleList(_module(lp)
+                                            for lp in params["enc_layers"])
+            self.enc_norm = nn.Parameter(params["enc_norm"])
         self.to(device)
 
     @property
@@ -200,10 +294,10 @@ class Model(nn.Module):
                                                   use_reentrant=False)
         return lambda x, lp, seed: layer_fn(x, lp)
 
-    def _attend(self, h, lp):
+    def _attend(self, h, lp, causal: bool = True):
         cfg = self.cfg
         return h + attn.attention_block(rmsnorm(h, lp.ln1), lp.attn, cfg,
-                                        causal=True, k_chunk=cfg.k_chunk)
+                                        causal=causal, k_chunk=cfg.k_chunk)
 
     def _dense_layer(self, h, lp):
         return self._ffn(self._attend(h, lp), lp)[0]
@@ -211,34 +305,81 @@ class Model(nn.Module):
     def _moe_layer(self, h, lp):
         return self._ffn(self._attend(h, lp), lp)
 
+    def _enc_layer(self, h, lp):
+        return self._ffn(self._attend(h, lp, causal=False), lp)[0]
+
+    def _dec_layer(self, h, lp, enc):
+        h = self._attend(h, lp)
+        h = h + attn.cross_attention_block(rmsnorm(h, lp.ln_x), lp.xattn,
+                                           self.cfg, enc)
+        return self._ffn(h, lp)[0]
+
+    def _ssm_layer(self, h, lp):
+        cfg = self.cfg
+        return h + ssmmod.mamba2_block(rmsnorm(h, lp.ln), lp.mixer, cfg,
+                                       chunk=cfg.ssm_chunk)
+
+    def _shared_block(self, h, h0):
+        """The hybrid's shared attention + MLP on ``[h, h0]``, projected
+        back down and added to h."""
+        sp = self.shared_attn
+        x = torch.cat([h, h0], dim=-1)
+        x = x + attn.attention_block(rmsnorm(x, sp.ln), sp.attn,
+                                     self.shared_cfg, causal=True,
+                                     k_chunk=self.cfg.k_chunk)
+        x, _ = self._ffn(x, sp)
+        return h + mm(x, sp.down)
+
     # ------------------------------------------------------------ training
     def hidden_states(self, tokens: torch.Tensor, *, prefix_embeds=None,
-                      act_seed: int = 0):
+                      enc_embeds=None, act_seed: int = 0):
         """Token ids (B, S) (after an optional (B, P, D) prefix) -> (final
         hidden (B, P+S, D), aux loss).  Layer ``li`` stashes with the seed
-        ``act_seed + li`` mod 2**32 (the reference's uint32 add)."""
+        ``act_seed + li`` mod 2**32 (the reference's uint32 add).  For
+        ``encdec``, ``enc_embeds`` (B, Se, D) is the audio frontend's stub
+        output and the tokens are the decoder's."""
+        cfg = self.cfg
         h = self.embed[tokens]
         if prefix_embeds is not None:
             h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        if self.cfg.family == "moe":
+        if cfg.family == "moe":
             # the reference's MoE branch: remat checkpoints the layer,
             # and no mode stashes it compressed
             layer = self._moe_layer
-            if self.cfg.act_mode == "remat":
+            if cfg.act_mode == "remat":
                 layer = functools.partial(checkpoint, self._moe_layer,
                                           use_reentrant=False)
             for lp in self.layers:
                 h, a = layer(h, lp)
                 aux = aux + a
+        elif cfg.family == "encdec":
+            # the reference's enc-dec branch: remat and act checkpoint
+            # every layer, and no mode stashes one compressed
+            enc_layer, dec_layer = self._enc_layer, self._dec_layer
+            if cfg.act_mode in ("remat", "act"):
+                enc_layer = functools.partial(checkpoint, enc_layer,
+                                              use_reentrant=False)
+                dec_layer = functools.partial(checkpoint, dec_layer,
+                                              use_reentrant=False)
+            enc = enc_embeds.to(h.dtype)
+            for lp in self.enc_layers:
+                enc = enc_layer(enc, lp)
+            enc = rmsnorm(enc, self.enc_norm)
+            for lp in self.layers:
+                h = dec_layer(h, lp, enc)
         else:
-            step = self._wrap(self._dense_layer)
+            ssm = cfg.family in ("ssm", "hybrid")
+            step = self._wrap(self._ssm_layer if ssm else self._dense_layer)
+            sites, h0 = cfg.shared_attn_sites(), h
             for li, lp in enumerate(self.layers):
+                if li in sites:
+                    h = self._shared_block(h, h0)
                 h = step(h, lp, (int(act_seed) + li) & MASK32)
         return rmsnorm(h, self.final_norm), aux
 
     def loss(self, tokens: torch.Tensor, *, prefix_embeds=None,
-             act_seed: int = 0, vocab_chunk: int = 4096):
+             enc_embeds=None, act_seed: int = 0, vocab_chunk: int = 4096):
         """Next-token cross-entropy, the vocabulary projection chunked over
         the sequence so the (B, S, V) float32 logits never exist at once:
         each chunk of ``vocab_chunk`` positions is checkpointed (its logits
@@ -247,6 +388,7 @@ class Model(nn.Module):
         count times B, as the reference does."""
         cfg = self.cfg
         h, aux = self.hidden_states(tokens, prefix_embeds=prefix_embeds,
+                                    enc_embeds=enc_embeds,
                                     act_seed=act_seed)
         npfx = 0 if prefix_embeds is None else prefix_embeds.shape[1]
         h_pred = h[:, npfx:npfx + tokens.shape[1] - 1]
@@ -297,55 +439,147 @@ class Model(nn.Module):
         return mm(rmsnorm(h, self.final_norm), self.lm_head).to(torch.float32)
 
     # ------------------------------------------------------------ decode
-    def init_cache(self, batch: int, max_seq: int,
+    def init_cache(self, batch: int, max_seq: int, enc_len: int = 0,
                    dtype=torch.bfloat16) -> dict:
-        cfg = self.cfg
-        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
-        return {"pos": torch.zeros(batch, dtype=torch.int32,
-                                   device=self.device),
-                "k": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+        """Zeros of the family's cache: k/v (L, B, max_seq, Hkv, Dh) for
+        the attention families (and the encoder's output ``enc`` (B,
+        enc_len, D) for ``encdec``); for ``ssm`` / ``hybrid`` the conv
+        cache (L, B, K-1, d_inner + 2N) and the float32 SSD state (L, B,
+        H, P, N), and the hybrid's shared-block k/v, one per site."""
+        cfg, dev = self.cfg, self.device
+        cache = {"pos": torch.zeros(batch, dtype=torch.int32, device=dev)}
+
+        def kv(n, d_head):
+            return torch.zeros((n, batch, max_seq, cfg.n_kv_heads, d_head),
+                               dtype=dtype, device=dev)
+
+        if cfg.family in ("ssm", "hybrid"):
+            d_inner, n_heads = ssmmod.ssm_dims(cfg)
+            cache["conv"] = torch.zeros(
+                (cfg.n_layers, batch, cfg.ssm_conv - 1,
+                 d_inner + 2 * cfg.ssm_state), dtype=dtype, device=dev)
+            cache["ssd"] = torch.zeros(
+                (cfg.n_layers, batch, n_heads, cfg.ssm_headdim,
+                 cfg.ssm_state), dtype=torch.float32, device=dev)
+            if cfg.family == "hybrid":
+                ns = len(cfg.shared_attn_sites())
+                cache["shared_k"] = kv(ns, self.shared_cfg.d_head)
+                cache["shared_v"] = kv(ns, self.shared_cfg.d_head)
+        else:
+            cache["k"], cache["v"] = kv(cfg.n_layers, cfg.d_head), \
+                kv(cfg.n_layers, cfg.d_head)
+            if cfg.family == "encdec":
+                cache["enc"] = torch.zeros((batch, enc_len, cfg.d_model),
+                                           dtype=dtype, device=dev)
+        return cache
+
+    def _prefill_attn(self, x, p, acfg, causal: bool):
+        """A prompt's attention through :func:`attn.online_attention` (the
+        kernel on the card): (output after ``wo``, k, v)."""
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        q, k, v = attn.qkv_project(x, p, acfg, positions)
+        n_rep = acfg.n_heads // acfg.n_kv_heads
+        out = attn.online_attention(
+            q, attn._repeat_kv(k, n_rep), attn._repeat_kv(v, n_rep),
+            causal=causal, impl=self.impl)
+        return mm(out.reshape(b, s, acfg.n_heads * acfg.d_head), p.wo), k, v
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, *, prefix_embeds=None,
-                max_seq: int | None = None):
+                enc_embeds=None, max_seq: int | None = None):
         """Process a prompt, returning (last_logits (B,V) float32, cache).
-        ``max_seq`` sizes the cache (>= prompt length); the cache's k/v are
-        (L, B, max_seq, Hkv, Dh), zero past the prompt."""
+        ``max_seq`` sizes the cache's k/v (>= prompt length); they are
+        zero past the prompt.
+
+        ``ssm`` / ``hybrid``: the conv cache holds each layer's last K-1
+        raw projections (before the conv), the SSD state the scan's final
+        one, and the hybrid's shared block its own dense K/V at each site
+        (``h0`` the whole embedding sequence).
+
+        ``encdec``, as the reference: the encoder runs over
+        ``enc_embeds`` into ``cache["enc"]``, decoding starts at position
+        0, and the logits come from the *embedding* of the prompt's last
+        token: the decoder never reads the prompt."""
         cfg = self.cfg
         h = self.embed[tokens]
         if prefix_embeds is not None:
             h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
         b, s, _ = h.shape
-        positions = torch.arange(s, device=h.device).expand(b, s)
-        n_rep = cfg.n_heads // cfg.n_kv_heads
         # written layer by layer: stacking a list would hold every layer's
-        # K and V twice at the end
+        # cache twice at the end
         cache = self.init_cache(b, max_seq or s, dtype=h.dtype)
+        if cfg.family == "encdec":
+            enc = enc_embeds.to(h.dtype)
+            for lp in self.enc_layers:
+                a, _, _ = self._prefill_attn(rmsnorm(enc, lp.ln1), lp.attn,
+                                             cfg, causal=False)
+                enc, _ = self._ffn(enc + a, lp)
+            cache["enc"] = rmsnorm(enc, self.enc_norm)
+            return self._logits(h[:, -1]), cache
         cache["pos"].fill_(s)
-        for li, lp in enumerate(self.layers):
-            x = rmsnorm(h, lp.ln1)
-            q, k, v = attn.qkv_project(x, lp.attn, cfg, positions)
-            out = attn.online_attention(
-                q, attn._repeat_kv(k, n_rep), attn._repeat_kv(v, n_rep),
-                causal=True, impl=self.impl)
-            h = h + mm(out.reshape(b, s, cfg.n_heads * cfg.d_head),
-                       lp.attn.wo)
-            h, _ = self._ffn(h, lp)
-            cache["k"][li, :, :s] = k
-            cache["v"][li, :, :s] = v
+        if cfg.family in ("ssm", "hybrid"):
+            sites, h0, kw = cfg.shared_attn_sites(), h, cfg.ssm_conv - 1
+            for li, lp in enumerate(self.layers):
+                if li in sites:
+                    si = sites.index(li)
+                    x = torch.cat([h, h0], dim=-1)
+                    a, k, v = self._prefill_attn(
+                        rmsnorm(x, self.shared_attn.ln),
+                        self.shared_attn.attn, self.shared_cfg, causal=True)
+                    cache["shared_k"][si, :, :s] = k
+                    cache["shared_v"][si, :, :s] = v
+                    x, _ = self._ffn(x + a, self.shared_attn)
+                    h = h + mm(x, self.shared_attn.down)
+                x = rmsnorm(h, lp.ln)
+                y, cache["ssd"][li] = ssmmod.mamba2_block(
+                    x, lp.mixer, cfg, chunk=cfg.ssm_chunk, return_state=True)
+                cache["conv"][li] = ssmmod.conv_inputs(x, lp.mixer)[:, s - kw:]
+                h = h + y
+        else:
+            for li, lp in enumerate(self.layers):
+                a, k, v = self._prefill_attn(rmsnorm(h, lp.ln1), lp.attn,
+                                             cfg, causal=True)
+                h, _ = self._ffn(h + a, lp)
+                cache["k"][li, :, :s] = k
+                cache["v"][li, :, :s] = v
         return self._logits(h[:, -1]), cache
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor):
-        """tokens (B, 1) -> (logits (B, 1, V) float32, cache).  The cache's
-        k/v are updated in place."""
+        """tokens (B, 1) -> (logits (B, 1, V) float32, cache).  The cache
+        is updated in place.  The hybrid's shared block reads ``[h, h0]``
+        with h0 the current token's embedding; the enc-dec decoder
+        cross-attends to ``cache["enc"]`` every step, projecting its K/V
+        anew as the reference does."""
+        cfg = self.cfg
         h = self.embed[tokens]
         pos = cache["pos"]
-        for li, lp in enumerate(self.layers):
-            a, _, _ = attn.attention_decode(rmsnorm(h, lp.ln1), lp.attn,
-                                            self.cfg, cache["k"][li],
-                                            cache["v"][li], pos)
-            h, _ = self._ffn(h + a, lp)
+        if cfg.family in ("ssm", "hybrid"):
+            sites, h0 = cfg.shared_attn_sites(), h
+            for li, lp in enumerate(self.layers):
+                if li in sites:
+                    si, sp = sites.index(li), self.shared_attn
+                    x = torch.cat([h, h0], dim=-1)
+                    a, _, _ = attn.attention_decode(
+                        rmsnorm(x, sp.ln), sp.attn, self.shared_cfg,
+                        cache["shared_k"][si], cache["shared_v"][si], pos)
+                    x, _ = self._ffn(x + a, sp)
+                    h = h + mm(x, sp.down)
+                y, cache["conv"][li], cache["ssd"][li] = ssmmod.mamba2_decode(
+                    rmsnorm(h, lp.ln), lp.mixer, cfg, cache["conv"][li],
+                    cache["ssd"][li])
+                h = h + y
+        else:
+            for li, lp in enumerate(self.layers):
+                a, _, _ = attn.attention_decode(rmsnorm(h, lp.ln1), lp.attn,
+                                                cfg, cache["k"][li],
+                                                cache["v"][li], pos)
+                h = h + a
+                if cfg.family == "encdec":
+                    h = h + attn.cross_attention_block(
+                        rmsnorm(h, lp.ln_x), lp.xattn, cfg, cache["enc"],
+                        online=True, impl=self.impl)
+                h, _ = self._ffn(h, lp)
         cache["pos"] = pos + 1
         return self._logits(h), cache

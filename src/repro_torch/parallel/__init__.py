@@ -4,8 +4,7 @@ program, the differentiable halo exchange and the byte counts
 (:mod:`~repro_torch.parallel.halo`), and :func:`run_ranks`, which runs a
 function on every rank of a group of spawned processes
 (:mod:`~repro_torch.parallel.spawn`).  The LM sharding rules
-(``sharding.py``, ``annotate.py``) come with the LM's training (ROADMAP
-A.11)."""
+(``sharding.py``, ``annotate.py``) are not ported (ROADMAP A.12b)."""
 from repro_torch.parallel.halo import (HaloProgram, HaloRound,
                                        build_halo_program, dp_size,
                                        exchange_widths, graph_mesh,

@@ -51,9 +51,9 @@ from repro_torch.serving import kvcache
 from repro_torch.serving.kvcache import KVCacheConfig, plan_kv_layout
 from repro_torch.serving.scheduler import MODES, Scheduler
 
-#: Families the paged KV cache serves (attention KV caches); SSM / hybrid
-#: state caches decode through the legacy loop, not ported yet (ROADMAP
-#: A.11).
+#: Families the paged KV cache serves (attention KV caches); the SSM /
+#: hybrid state caches and the enc-dec's encoder cache decode through
+#: ``repro_torch.launch.serve``'s legacy fixed-batch loop.
 KV_FAMILIES = ("dense", "vlm", "moe")
 
 
@@ -179,8 +179,8 @@ class ServeEngine:
         if cfg.family not in KV_FAMILIES:
             raise ValueError(
                 f"paged-KV serving covers the attention-cache families "
-                f"{KV_FAMILIES}; family={cfg.family!r} decodes through the "
-                "legacy loop, which the port has not yet (ROADMAP A.11)")
+                f"{KV_FAMILIES}; family={cfg.family!r} decodes through "
+                "repro_torch.launch.serve's legacy fixed-batch loop")
         if mode not in MODES:
             raise ValueError(f"mode={mode!r} not in {MODES}")
         self.model, self.mode = model, mode

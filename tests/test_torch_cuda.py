@@ -1487,3 +1487,114 @@ def test_cuda_lm_resume_bit_identical(cuda, tmp_path):
         [h["loss"] for h in whole["history"][4:]]
     assert all(torch.equal(p, q) for p, q in zip(
         resumed["model"].parameters(), whole["model"].parameters()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_and_mamba2_decode_match_cpu(cuda, dtype):
+    """``ssd_chunked`` (chunk 16, from an initial state) and three
+    ``mamba2_decode`` steps of the smoke mamba2 layer on the card against
+    the CPU from the same inputs: y and the state within 1e-4 (float32
+    products summed in other orders); decode in bf16 within 2**-5 + 2**-6
+    relative (each device rounds the bf16 conv and products its own
+    way)."""
+    import types
+
+    from repro_torch.configs import ARCHS, reduce_for_smoke
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import init_params
+
+    rng = np.random.default_rng(14)
+    b, s, h, p, n = 2, 64, 4, 16, 16
+    ins = [rng.normal(size=(b, s, h, p)),
+           np.log1p(np.exp(rng.normal(size=(b, s, h)))),
+           -np.exp(rng.normal(size=h) * 0.5), rng.normal(size=(b, s, n)),
+           rng.normal(size=(b, s, n)), rng.normal(size=(b, h, p, n))]
+    ins = [torch.from_numpy(a.astype(np.float32)) for a in ins]
+    out = {dev: ssm.ssd_chunked(*(t.to(dev) for t in ins[:5]), chunk=16,
+                                initial_state=ins[5].to(dev),
+                                return_state=True) for dev in ("cpu", "cuda")}
+    for a, c in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a.cpu(), c, atol=1e-4, rtol=1e-4)
+
+    cfg = reduce_for_smoke(ARCHS["mamba2-780m"])
+    mixer = init_params(cfg, torch.Generator().manual_seed(3))["layers"][0][
+        "mixer"]
+    d_inner, n_heads = ssm.ssm_dims(cfg)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.normal(size=(2, 3, cfg.d_model)).astype(
+        np.float32)).to(dt)
+    conv = torch.from_numpy(rng.normal(size=(
+        2, cfg.ssm_conv - 1, d_inner + 2 * cfg.ssm_state)).astype(
+            np.float32)).to(dt)
+    state = torch.from_numpy(rng.normal(size=(
+        2, n_heads, cfg.ssm_headdim, cfg.ssm_state)).astype(np.float32))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        pm = types.SimpleNamespace(**{k: v.to(dev) for k, v in mixer.items()})
+        c, st, ys = conv.to(dev), state.to(dev), []
+        for t in range(3):
+            y, c, st = ssm.mamba2_decode(x[:, t:t + 1].to(dev), pm, cfg, c,
+                                         st)
+            ys.append(y)
+        res[dev] = [torch.cat(ys, 1).float().cpu(), c.float().cpu(),
+                    st.cpu()]
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == "float32" else dict(
+        atol=2.0 ** -5, rtol=2.0 ** -6)
+    for a, c in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(a, c, **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (3e-5, 3e-5)),
+                                       (torch.bfloat16, (1e-3, 2.0 ** -7))])
+def test_cuda_flash_noncausal_and_single_query(cuda, dtype, tol):
+    """The enc-dec's flash calls against the plain version: the encoder's
+    non-causal self-attention, and a decode step's cross-attention (Sq =
+    1 over Skv keys, non-causal), each one launch."""
+    from repro_torch.kernels import flash_attention as t_fa
+
+    for bh, sq, skv, dh in ((16, 256, 256, 64), (16, 1, 300, 64),
+                            (8, 1, 1024, 64), (4, 3, 77, 128)):
+        q, k, v = _qkv(bh, sq, skv, dh, dtype, seed=sq + skv)
+        before = t_fa.flash_attention.launches
+        got = t_fa.flash_attention(q, k, v, causal=False, scale_q=True)
+        assert t_fa.flash_attention.launches == before + 1
+        want = t_ref.flash_attention(q, k, v, causal=False, scale_q=True)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol[0],
+                                   rtol=tol[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["zamba2-1.2b", "seamless-m4t-large-v2"])
+def test_cuda_legacy_loop_matches_cpu(cuda, name):
+    """The serve launcher's legacy loop on the smoke hybrid and enc-dec
+    (float32 activations, the same weights) on the card against the CPU:
+    the same tokens, with the flash kernel launched on the card only (the
+    hybrid's shared block once a batch; the enc-dec's encoder layers a
+    batch and its cross-attention a layer and decode step)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduce_for_smoke
+    from repro_torch.kernels import flash_attention as t_fa
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(reduce_for_smoke(ARCHS[name]),
+                              act_mode="none", act_dtype="float32")
+    model = Model(cfg, device="cpu",
+                  generator=torch.Generator().manual_seed(0))
+    argv = ["--arch", name, "--smoke", "--requests", "3", "--max-batch",
+            "2", "--prompt-len", "32", "--gen-len", "6"]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        args = serve.parser().parse_args(argv + ["--device", dev])
+        before = t_fa.flash_attention.launches
+        outs[dev] = serve._legacy_loop(copy.deepcopy(model).to(dev), args)
+        launched = t_fa.flash_attention.launches - before
+        want = (2 if name == "zamba2-1.2b"
+                else 2 * cfg.encoder_layers + 2 * 5 * cfg.n_layers)
+        assert launched == (want if dev == "cuda" else 0)
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        np.testing.assert_array_equal(a, b)

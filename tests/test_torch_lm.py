@@ -196,14 +196,6 @@ def test_random_init_has_reference_shapes_and_dtypes(name):
     assert abs(float(w.std()) * cfg.d_model ** 0.5 - 1) < 0.05
 
 
-@pytest.mark.parametrize("name", ["mamba2-780m", "zamba2-1.2b",
-                                  "seamless-m4t-large-v2"])
-def test_unported_families_name_their_roadmap_item(name):
-    cfg = t_reduce(T_ARCHS[name])
-    with pytest.raises(NotImplementedError, match="A.11"):
-        Model(cfg, device="cpu")
-
-
 def test_model_lives_on_the_card_unless_the_cpu_is_asked_for():
     """``Model`` and ``params_from_jax`` default to the card; without one
     they raise instead of serving on the CPU unasked."""
@@ -312,16 +304,6 @@ def test_serve_launcher_obs(capsys):
     assert set(printed) == set(t_serve.OBS_KEYS) - {"serve/rejected"}
     assert printed["serve/admitted"] == printed["serve/completed"] == "3"
     assert int(printed["serve/decode_steps"]) > 0
-
-
-@pytest.mark.parametrize("argv,error,match", [
-    (["--arch", "mamba2-780m"], NotImplementedError, "A.11"),
-])
-def test_serve_launcher_refuses_what_is_not_ported(argv, error, match):
-    base = ["--arch", "qwen1.5-4b", "--smoke", "--device", "cpu",
-            "--requests", "1", "--prompt-len", "4", "--gen-len", "2"]
-    with pytest.raises(error, match=match):
-        t_serve.main(base + argv)
 
 
 def test_serve_launcher_defaults_to_the_card():

@@ -428,7 +428,6 @@ def test_lm_launcher_resume_bit_identical(tmp_path, offload):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--arch", "mamba2-780m", "--smoke"], NotImplementedError, "A.11"),
     (["--arch", "qwen1.5-4b", "--smoke", "--production-mesh"],
      NotImplementedError, "A.12b"),
 ])
