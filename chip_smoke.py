@@ -222,9 +222,28 @@ Phases, in order; any failure raises and exits non-zero:
    falling, then mamba2 at LM_LAYERS_SHORT layers under none / remat /
    act with the loss graph's residual bytes act < remat < none.  The
    phase stays under PHASE14_LIMIT_S;
-15. a JSON line of per-kernel numbers (phase 13's shapes under
-   ``moe_shapes``, phase 14's under ``family_shapes``), then ``{"ok":
-   true, "device": ...}``.
+15. slice 17, the static checker and the examples, after phase 14: (a)
+   ``python -m repro_torch.staticcheck --ci --no-cache --device cuda`` in
+   a subprocess exits 0 with no finding over the 34-case plan matrix,
+   then the same saved-tensor audit in this process with its launches as
+   planned (``matrix_planned``), and the kernel contracts over every
+   launch shape of this script (``smoke_launches``); (b) the audit at
+   phase 4's config on the full graph under AUDIT_PLACEMENTS and the
+   mesh's per-op forward on one rank over the whole graph as one
+   partition: the ledger equal to ``graph.analysis.live_stash_bytes``,
+   the allocator's growth in requested bytes over a forward, less the
+   logits, within ALLOC_SLACK a stash tensor of the saved tensors' device
+   bytes (none for the host placements), the host store drained by the
+   backward; (c) the four ``examples/torch_*.py`` through their ``main``
+   (the GNN driver at EXAMPLE_GNN_ARGV, both serving archs of
+   EXAMPLE_SERVE_ARCHS, the LM at EXAMPLE_LM_ARGV), counted: finite
+   losses, the GNN rows' M column equal to ``activation_memory_report``;
+   then the quant kernels at the GNN driver's G = 32 and G = 2048 shapes
+   (EXAMPLE_QUANT), bit-equal to the plain version and timed.  The phase
+   stays under PHASE15_LIMIT_S;
+16. a JSON line of per-kernel numbers (phase 13's shapes under
+   ``moe_shapes``, phase 14's under ``family_shapes``, phase 15's under
+   ``example_shapes``), then ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX; without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -3903,6 +3922,351 @@ def slice_family_train(torch, wrappers) -> collections.Counter:
     return total
 
 
+# ------------------------------- phase 15: the static checker and the examples
+#: Seconds phase 15 may take in all.
+PHASE15_LIMIT_S = 120.0
+#: The stash placements phase 15 (b) audits on phase 4's graph (None: the
+#: per-tensor stash).
+AUDIT_PLACEMENTS = (None, "device", "pinned-paged")
+#: Bytes the caching allocator may add to one saved tensor (its rounding).
+ALLOC_SLACK = 512
+#: The quant kernels at the GNN example's G = 32 (EXACT's per-row blocks)
+#: and G = 2048 (G/R 64) rows at ``--scale 1.0``: the RP-8 stashes of layer
+#: 0 (169,343 x 32) and layers 1-2 (169,343 x 64), INT2 uniform; a block of
+#: 2048 spans 64 rows of layer 0's stash and the last one is ragged.
+EXAMPLE_QUANT = ((N_NODES, 32), (2 * N_NODES, 32),
+                 (-(-N_NODES * 32 // 2048), 2048),
+                 (-(-N_NODES * 64 // 2048), 2048))
+EXAMPLE_GNN_ARGV = ["--scale", "1.0", "--epochs", "5", "--batches", "4",
+                    "--device", "cuda"]
+EXAMPLE_SERVE_ARCHS = ("zamba2-1.2b", "seamless-m4t-large-v2")
+EXAMPLE_LM_ARGV = ["--steps", "10", "--device", "cuda"]
+ROOT = Path(__file__).resolve().parent
+
+
+def smoke_launches() -> list:
+    """Every quant, RP and fused shape this script launches on the card, as
+    :class:`repro_torch.staticcheck.kernel_contracts.Launch` rows (phase 15
+    and the CPU tests hold them to the kernel contracts)."""
+    from repro_torch.core.variance import optimize_levels
+    from repro_torch.staticcheck.kernel_contracts import Launch
+
+    vm32, vm256 = optimize_levels(32, 2), optimize_levels(256, 2)
+    tables = {"flickr": optimize_levels(125 // 8, 2),
+              "vm8": optimize_levels(256 // 8, 8)}
+    quant = [(n, 256, 2, lv) for n in (21_168, 42_336) for lv in (None, vm32)]
+    quant += [(n, 256, 2, vm32) for n in BATCH_QUANT_BLOCKS]
+    quant += [(n, G, bits, tables[what] if vm else None)
+              for what, n, G, bits, vm in EXTRA_QUANT]
+    for nbt in (KV_NBT, MOE_KV_NBT):
+        quant += [(n_tok * nbt, KV_G, KV_BITS, None)
+                  for n_tok in (KV_PREFILL_TOKENS, 4, KV_PAGE_TOKENS)]
+    quant += [(n_tok * KV_NBT, KV_G, KV_BITS, None)
+              for n_tok in (2 * 1008, 2, 2 * 2 * 16)]
+    quant += [(n, 256, 8, None) for n in (MOE_MOMENT_PLAIN_BLOCKS,
+                                          MOE_MOMENT_BLOCKS)]
+    quant += [(n, 256, 2, None) for _, n in FAMILY_STASH]
+    quant += [(n, G, 2, None) for n, G in EXAMPLE_QUANT]
+    out = [Launch("quant", n, G, G, bits, G, lv) for n, G, bits, lv in quant]
+    out += [Launch("fused", rows, d, n, 2, 256, vm256)
+            for rows in (N_NODES, BATCH_NODES) for d, n in FUSED_LAYERS]
+    out += [Launch("rp", rows, d, d // 8, 2, 256, vm32, 8)
+            for rows in RP_ROWS for d in (256, 512)]
+    return out
+
+
+def matrix_planned() -> dict:
+    """Launches of the checker's plan matrix on the card, one forward and
+    one backward a case: the quant pair (and RP / IRP) of each unfused
+    compressed layer, the fused pair of each fused one."""
+    from repro_torch.staticcheck.kernel_contracts import matrix_launches
+
+    want = dict(planned(0, 0, 0))
+    names = {"quant": ("quant_pack", "dequant_unpack"),
+             "rp": ("rp_project", "irp_project"),
+             "fused": ("matmul_quant", "dequant_matmul")}
+    for launch in matrix_launches():
+        for name in names[launch.kind]:
+            want[name] += 1
+    return want
+
+
+def slice_check_matrix(torch, wrappers) -> collections.Counter:
+    """Phase 15 (a): ``python -m repro_torch.staticcheck --ci --no-cache
+    --device cuda`` in a subprocess must exit 0 with no finding over the
+    34 cases (the host placements on page-locked memory); then the same
+    audit in this process, counted: launches as planned, every case clean
+    and its ledger equal to the memory report."""
+    import os
+
+    from repro_torch.staticcheck import kernel_contracts, saved_audit
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.staticcheck", "--ci",
+         "--no-cache", "--device", "cuda"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300)
+    log(proc.stdout.strip())
+    if proc.stderr.strip():
+        log(proc.stderr.strip())
+    log(f"[check] staticcheck --ci --device cuda: exit {proc.returncode} "
+        f"in {time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0 or "OK: no new findings (0 baselined)" \
+            not in proc.stdout or proc.stdout.count(": ledger ") != 34:
+        raise AssertionError("[check] the static checker did not pass on "
+                             "the card")
+    results, counts, _ = counted_run(
+        torch, wrappers, matrix_planned(), "check matrix",
+        lambda: saved_audit.run(device="cuda"))
+    for r in results:
+        if r.findings or r.ledger_bytes != r.report_bytes:
+            raise AssertionError(f"[check] {r.key}: {r.to_json()}")
+    log(f"[check] {len(results)} cases audited on the card in this process: "
+        "no finding, every ledger equal to activation_memory_report")
+    bad = kernel_contracts.check_launches(smoke_launches())
+    log(f"[check] kernel contracts over this script's "
+        f"{len(smoke_launches())} launch shapes: {len(bad)} finding(s)")
+    if bad:
+        raise AssertionError(f"[check] {[f.render() for f in bad]}")
+    return collections.Counter(counts)
+
+
+def requested_bytes(torch) -> int:
+    """Bytes the caching allocator holds for live tensors, as requested
+    (``memory_allocated`` also counts each block's rounding, and a large
+    block's unsplit tail of up to 1 MB)."""
+    return int(torch.cuda.memory_stats()["requested_bytes.all.current"])
+
+
+def settle(torch) -> None:
+    """The card idle and the allocator's deferred frees done: a tensor
+    freed while a side stream still used it (``record_stream``, the host
+    placements' copies) leaves ``memory_allocated`` at once but
+    ``requested_bytes`` only when the allocator processes its events,
+    which ``empty_cache`` does."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def audited_forward(torch, setup, what: str, ledger: int, params) -> dict:
+    """Phase 15 (b)'s measure of one forward: the saved-tensor audit with
+    no finding, its ledger equal to ``ledger``, the allocator's growth in
+    requested bytes over the forward, less the logits, within ALLOC_SLACK
+    a stash tensor of the saved tensors' device bytes (none for the host
+    placements), then one backward draining the host store.  The growth
+    of ``memory_allocated`` is logged beside it: it counts whole blocks.
+    An unmeasured forward and backward run first."""
+    from repro_torch.offload.engine import host_store_bytes
+    from repro_torch.staticcheck import saved_audit
+
+    import gc
+
+    forward, inputs, splan, mechanism = setup
+    # one unmeasured step first: a library's workspace (cuBLAS keeps 32 MiB
+    # a stream) is allocated on its first use and kept
+    out = forward()
+    torch.autograd.grad(out, list(params), torch.ones_like(out))
+    del out
+    # earlier garbage freed first, and no collection inside the measure
+    gc.collect()
+    gc.disable()
+    settle(torch)
+    host0 = host_store_bytes()
+    alloc0, req0 = torch.cuda.memory_allocated(), requested_bytes(torch)
+    fwd = saved_audit.audit_forward(forward, inputs, splan, mechanism, what)
+    settle(torch)
+    logits = fwd.out.numel() * fwd.out.element_size()
+    grown = requested_bytes(torch) - req0 - logits
+    grown_alloc = torch.cuda.memory_allocated() - alloc0 - logits
+    gc.enable()
+    slack = ALLOC_SLACK * len(saved_audit.expected_residuals(splan,
+                                                             "tensor"))
+    row = {"ledger": fwd.ledger_bytes, "want": ledger,
+           "saved_tensors": fwd.n_saved, "device_bytes": fwd.device_bytes,
+           "requested_growth": grown, "allocated_growth": grown_alloc,
+           "slack": slack, "host_store": host_store_bytes() - host0,
+           "findings": [f.render() for f in fwd.findings]}
+    findings = fwd.findings + saved_audit.drain(fwd, params, what, host0)
+    row["host_store_after_backward"] = host_store_bytes() - host0
+    log(f"[check {what}] {row}")
+    host = mechanism in ("pageable", "pinned")
+    if (findings or fwd.ledger_bytes != ledger
+            or abs(grown - fwd.device_bytes) > slack
+            or (host and (fwd.device_bytes or grown > slack))):
+        raise AssertionError(f"[check {what}] the audit does not hold: {row}")
+    return row
+
+
+def slice_check_full(torch, g, cfg, model) -> None:
+    """Phase 15 (b): the saved-tensor audit at phase 4's geometry (the
+    full arxiv-like graph, SAGE (256, 256), INT2 G = 256, RP 8, VM) under
+    AUDIT_PLACEMENTS, and the mesh's per-op forward on one rank over the
+    whole graph as one partition."""
+    from repro_torch.engine.plan import StashPolicy
+    from repro_torch.engine.seeds import sr_seed
+    from repro_torch.graph.analysis import live_stash_bytes
+    from repro_torch.graph.models import device_graph
+    from repro_torch.parallel.halo import build_halo_program, rank_round
+    from repro_torch.staticcheck import saved_audit
+
+    dg = device_graph(g, cfg.arch, "cuda")
+    for policy in AUDIT_PLACEMENTS:
+        stash = (StashPolicy() if policy is None
+                 else StashPolicy(kind="arena", placement=policy))
+        audited_forward(torch, saved_audit.gnn_setup(
+            model, dg, cfg, stash, "auto", sr_seed(0)),
+            f"full offload={policy}",
+            sum(live_stash_bytes(cfg, g.n_feats, g.n_nodes)),
+            model.flat_params())
+    del dg
+    prog = build_halo_program(g, 1, 1)
+    tables = rank_round(prog, 0, 0, cfg.arch, "cuda")
+    feats = torch.from_numpy(prog.features[0, 0]).to("cuda")
+    audited_forward(torch, saved_audit.mesh_setup(
+        model, feats, tables, cfg, sr_seed(0)),
+        f"mesh one rank, {prog.n_pad} rows",
+        sum(live_stash_bytes(cfg, g.n_feats, prog.n_pad)),
+        model.flat_params())
+    torch.cuda.empty_cache()
+
+
+def example(name: str):
+    """``examples/torch_<name>.py`` as a module (its ``main(argv)``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_example_shapes(torch, qk, ref) -> dict:
+    """The quant kernels at EXAMPLE_QUANT's shapes: codes bit-equal to the
+    plain version, dequantized within its band, timed beside it and the
+    bound."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    rows = {}
+    for n_blocks, G in EXAMPLE_QUANT:
+        tag, q, d = quant_case(torch, qk, ref, n_blocks, G, 2, None, flush,
+                               gen, plain_iters=5)
+        rows[("quant_pack", f"example {tag}")] = q
+        rows[("dequant_unpack", f"example {tag}")] = d
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def slice_examples(torch, wrappers, g) -> collections.Counter:
+    """Phase 15 (c): the four examples through their ``main`` on the card,
+    each counted: finite losses, the GNN rows' M column equal to
+    ``activation_memory_report`` (and to the live stash of every
+    compressed row and of the mini-batch peak)."""
+    from repro_torch.configs import ARCHS, reduce_for_smoke
+    from repro_torch.graph.analysis import live_stash_bytes
+    from repro_torch.graph.train import activation_memory_report
+
+    total = collections.Counter()
+    # quickstart: 3 RP-8 configs, 21 compressions and reconstructions each
+    res, counts, _ = counted_run(
+        torch, wrappers, planned(3 * 21, 3 * 21, 1), "example quickstart",
+        lambda: example("quickstart").main(["--device", "cuda"]))
+    total.update(counts)
+    if not all(math.isfinite(r["err_mean"]) and r["err_mean"]
+               < r["err_one_seed"] for r in res["rows"]):
+        raise AssertionError("[example quickstart] the mean over seeds is "
+                             "not closer than one seed")
+
+    # train_gnn_iexact: four RP-8 rows of 5 epochs, a mini-batch row of 4
+    # batches x 5 epochs, 3 layers each
+    want = planned(3, 3, 4 * 5 + 4 * 5)
+    res, counts, _ = counted_run(
+        torch, wrappers, want, "example train_gnn_iexact",
+        lambda: example("train_gnn_iexact").main(EXAMPLE_GNN_ARGV))
+    total.update(counts)
+    for row in res["rows"]:
+        rep = activation_memory_report(g, row["cfg"])
+        m = rep.get("compressed_bytes", rep["fp32_bytes"])
+        live = live_stash_bytes(row["cfg"], g.n_feats, g.n_nodes)
+        ok = (row["m_bytes"] == m and row["stash_bytes"] == live
+              and all(math.isfinite(x) for x in row["losses"]))
+        if row["cfg"].compression is not None:
+            ok &= sum(live) == m
+        log(f"[example train_gnn_iexact] {row['name']}: M {row['m_bytes']} "
+            f"(report {m}), stash {row['stash_bytes']}, losses "
+            f"{row['losses']}, acc {row['test_acc']}")
+        if not ok:
+            raise AssertionError(f"[example] {row['name']}: M or losses")
+    b = res["batched"]
+    rep = activation_memory_report(g, b["cfg"], n_parts=4,
+                                   batch_nodes=b["batch_nodes"])
+    peak = rep["batched"]["peak_saved_bytes"]
+    log(f"[example train_gnn_iexact] mini-batch: peak M {b['peak_bytes']} "
+        f"(report {peak}), stash {b['stash_bytes']}, losses {b['losses']}")
+    if not (b["peak_bytes"] == peak == sum(b["stash_bytes"])
+            and all(math.isfinite(x) for x in b["losses"])):
+        raise AssertionError("[example] mini-batch row: M or losses")
+
+    # serve_decode: flash at every prefill attention, and at the enc-dec's
+    # cross-attention each decode step
+    for arch in EXAMPLE_SERVE_ARCHS:
+        cfg = reduce_for_smoke(ARCHS[arch])
+        flash = (len(cfg.shared_attn_sites()) if cfg.family == "hybrid"
+                 else cfg.encoder_layers + cfg.n_layers * 31)
+        want = dict(planned(0, 0, 0), flash_attention=flash)
+        res, counts, _ = counted_run(
+            torch, wrappers, want, f"example serve_decode {arch}",
+            lambda: example("serve_decode").main(
+                ["--arch", arch, "--device", "cuda"]))
+        total.update(counts)
+        log(f"[example serve_decode {arch}] tokens {res['tokens'][0, :8]}")
+        if not res["logits_finite"] or res["tokens"].shape != (4, 32):
+            raise AssertionError(f"[example serve_decode {arch}]")
+
+    # train_lm_compressed: the act stash and the 8-bit moments run the
+    # quant kernels
+    for w in wrappers:
+        w.launches = 0
+    res = example("train_lm_compressed").main(EXAMPLE_LM_ARGV)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in wrappers}
+    log(f"[example train_lm_compressed] launches {counts}; losses "
+        f"{ {m: r['losses'] for m, r in res.items()} }")
+    if not (counts["quant_pack"] and counts["dequant_unpack"]
+            and all(math.isfinite(x) for r in res.values()
+                    for x in r["losses"])):
+        raise AssertionError("[example train_lm_compressed]")
+    total.update(counts)
+    return total
+
+
+def slice_check(torch, wrappers, qk, ref) -> tuple:
+    """Phase 15 in order; returns its launch counts and kernel rows."""
+    from repro_torch.graph.data import arxiv_like
+    from repro_torch.graph.models import GNN, GNNConfig
+    from repro_torch.core.compressor import CompressionConfig
+
+    t0 = time.perf_counter()
+    launches = slice_check_matrix(torch, wrappers)
+    log(f"phase 15 (a): {time.perf_counter() - t0:.1f} s")
+    g = arxiv_like(scale=1.0)
+    cfg = GNNConfig(arch="sage", hidden=(256, 256), n_classes=40,
+                    compression=CompressionConfig(2, 256, rp_ratio=8,
+                                                  vm=True))
+    model = GNN(cfg, g.n_feats,
+                generator=torch.Generator().manual_seed(0)).to("cuda")
+    slice_check_full(torch, g, cfg, model)
+    log(f"phase 15 (b): {time.perf_counter() - t0:.1f} s")
+    launches.update(slice_examples(torch, wrappers, g))
+    log(f"phase 15 (c): {time.perf_counter() - t0:.1f} s")
+    rows = check_example_shapes(torch, qk, ref)
+    del g, model
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
 T_START = time.perf_counter()
 
 
@@ -4123,7 +4487,18 @@ def main() -> int:
         raise AssertionError(f"phase 14 took {family_s:.1f} s, over "
                              f"{PHASE14_LIMIT_S} s")
 
-    # 15. results
+    # 15. the static checker and the examples
+    t0 = time.perf_counter()
+    launches15, example_rows = slice_check(torch, wrappers, qk, ref)
+    check_s = time.perf_counter() - t0
+    log(f"phase 15: {check_s:.1f} s; launches {dict(launches15)}")
+    for name, n in launches15.items():
+        launches[name] += n
+    if not check_s < PHASE15_LIMIT_S:
+        raise AssertionError(f"phase 15 took {check_s:.1f} s, over "
+                             f"{PHASE15_LIMIT_S} s")
+
+    # 16. results
     sources = {"quant_pack": ("src/repro_torch/csrc/quant_blockwise.cu",
                               "src/repro/kernels/quant_blockwise.py:62"),
                "dequant_unpack": ("src/repro_torch/csrc/quant_blockwise.cu",
@@ -4152,11 +4527,15 @@ def main() -> int:
     moe_shapes = collections.defaultdict(dict)
     for (name, tag), row in moe_rows.items():
         moe_shapes[name][tag] = {k: row[k] for k in moe_keys if k in row}
-    # and phase 14's
+    # and phase 14's, and phase 15's (the GNN example's G = 32 and 2048)
     rows.update(family_rows)
     family_shapes = collections.defaultdict(dict)
     for (name, tag), row in family_rows.items():
         family_shapes[name][tag] = {k: row[k] for k in moe_keys if k in row}
+    rows.update(example_rows)
+    example_shapes = collections.defaultdict(dict)
+    for (name, tag), row in example_rows.items():
+        example_shapes[name][tag] = {k: row[k] for k in moe_keys if k in row}
     kernels = []
     for name, (source, replaces) in sources.items():
         row = rows[(name, main_tag[name])]
@@ -4178,7 +4557,10 @@ def main() -> int:
                 served13[name]} if name in moe_shapes else {}),
             **({"family_shapes": family_shapes[name],
                 "family_serving_launches": served14[name]}
-               if name in family_shapes else {})})
+               if name in family_shapes else {}),
+            **({"example_shapes": example_shapes[name],
+                "phase15_launches": launches15[name]}
+               if name in example_shapes else {})})
     log(f"[moe] decode experts {moe_layer}")
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -542,20 +542,35 @@ dequant_matmul_kernel(const Params p, const Levels lv) {
     }
 }
 
+// The ring path needs a row's columns of the tile in one block, whole
+// 32-byte runs of words and at most maxw words a block (shared memory).
+inline int ring_path(const Params& p, int bd, int maxw) {
+  return p.d % p.G == 0 && p.G % bd == 0 && p.W % kRun == 0 && p.W <= maxw &&
+         reinterpret_cast<uintptr_t>(p.packed) % 16 == 0;
+}
+
+// Floats a ring slot: g, then on the ring path the words and block stats.
+__host__ __device__ constexpr int slot_floats(int ks, int bn, int ring,
+                                              int w) {
+  return ks * bn + (ring ? ks * w + 2 * ks : 0);
+}
+
+// Dynamic shared memory of a launch: kNB stage buffers, then r ring slots.
+__host__ __device__ constexpr size_t smem_bytes(int ks, int bd, int bn,
+                                                int r, int slot) {
+  return sizeof(uint16_t) * kNB * buffer_elems(ks, bd, bn) +
+         sizeof(float) * r * static_cast<size_t>(slot);
+}
+
 template <int BD, int BN, int KS, int WD, int MT, int NT, int PW, int R,
           int MAXW>
 int launch(Params p, const Levels& lv, int splits, cudaStream_t stream) {
   const auto kern = dequant_matmul_kernel<BD, BN, KS, WD, MT, NT, PW, R, MAXW>;
-  // the ring path needs a row's columns of the tile in one block, whole
-  // 32-byte runs of words and at most MAXW words a block (shared memory)
-  p.ring = p.d % p.G == 0 && p.G % BD == 0 && p.W % kRun == 0 &&
-           p.W <= MAXW && reinterpret_cast<uintptr_t>(p.packed) % 16 == 0;
-  p.slot = KS * BN + (p.ring ? KS * p.W + 2 * KS : 0);
-  const size_t smem = sizeof(uint16_t) * kNB * buffer_elems(KS, BD, BN) +
-                      sizeof(float) * R * static_cast<size_t>(p.slot);
+  p.ring = ring_path(p, BD, MAXW);
+  p.slot = slot_floats(KS, BN, p.ring, p.W);
+  const size_t smem = smem_bytes(KS, BD, BN, R, p.slot);
   constexpr size_t max_smem =
-      sizeof(uint16_t) * kNB * buffer_elems(KS, BD, BN) +
-      sizeof(float) * R * (KS * BN + KS * MAXW + 2 * KS);
+      smem_bytes(KS, BD, BN, R, slot_floats(KS, BN, 1, MAXW));
   static const cudaError_t attr = [&] {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -927,11 +942,22 @@ matmul_quant_kernel(const Params p, const Levels lv) {
   }
 }
 
-template <int NT, int WN, int MT, int KW, int S, int MINB>
-int launch(Params p, const Levels& lv, cudaStream_t stream) {
-  constexpr int BN = 8 * NT * WN;
+// Chunking of x: a chunk holds whole blocks of whole rows when D % G == 0
+// and G fits (in chunk mode at most kQB / kBM blocks a row, so a chunk's
+// blocks fit the stats).
+inline void chunking(Params& p) {
+  p.chunk_mode = p.d > 0 && p.d % p.G == 0 && p.G <= kChunkMax;
+  p.cw = p.chunk_mode
+             ? std::min({p.d, p.G * (kChunkMax / p.G), p.G * (kQB / kBM)})
+             : std::min(p.d, kChunkMax);
+  if (p.cw < 1) p.cw = 1;
+}
+
+// The shared memory layout of a CTA of BN columns (p.xs, p.area, p.batch,
+// p.slabs) and its dynamic shared memory in bytes.
+template <int BN, int KW, int S>
+size_t layout(Params& p) {
   constexpr int WS = BN % 16 == 0 ? BN + 8 : BN;
-  const auto kern = matmul_quant_kernel<NT, WN, MT, KW, S, MINB>;
   p.xs = (p.cw + KW - 1) / KW * KW + 4;
   // the product's chunk buffer and w ring; the stash path off the chunk
   // stages whole blocks in the same floats, one block at least
@@ -942,8 +968,15 @@ int launch(Params p, const Levels& lv, cudaStream_t stream) {
     p.batch = p.area / p.G < kQB ? p.area / p.G : kQB;
   }
   p.slabs = (p.n + BN - 1) / BN;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(p.area) +
-                                       2 * static_cast<size_t>(p.batch));
+  return sizeof(float) * (static_cast<size_t>(p.area) +
+                          2 * static_cast<size_t>(p.batch));
+}
+
+template <int NT, int WN, int MT, int KW, int S, int MINB>
+int launch(Params p, const Levels& lv, cudaStream_t stream) {
+  constexpr int BN = 8 * NT * WN;
+  const auto kern = matmul_quant_kernel<NT, WN, MT, KW, S, MINB>;
+  const size_t smem = layout<BN, KW, S>(p);
   static const cudaError_t carveout = cudaFuncSetAttribute(
       kern, cudaFuncAttributePreferredSharedMemoryCarveout,
       cudaSharedmemCarveoutMaxShared);
@@ -963,6 +996,12 @@ int launch(Params p, const Levels& lv, cudaStream_t stream) {
 }  // namespace fwd
 
 }  // namespace
+
+// The forward's CTA configurations by the width n of y, <NT, WN, MT, KW, S,
+// MINB> of fwd::launch: n <= 40, n <= 64, wider.
+constexpr int kFwd[3][6] = {
+    {5, 1, 1, 16, 2, 3}, {8, 1, 1, 16, 4, 2}, {8, 4, 2, 16, 2, 2}};
+static int fwd_index(int n) { return n <= 40 ? 0 : n <= 64 ? 1 : 2; }
 
 // y (m, n) = x (m, d) @ w (d, n); packed (m*d/G, G*bits/32), zero and rng
 // (m*d/G,) the stash of x, bit-equal to quant_pack on x.reshape(-1, G).
@@ -984,23 +1023,46 @@ extern "C" int matmul_quant(const float* x, const float* w, float* y,
   p.G = group_size;
   p.bits = bits;
   p.seed_hash = quant::fmix32(seed);
-  // a chunk holds whole blocks of whole rows when D % G == 0 and G fits
-  p.chunk_mode = d > 0 && d % group_size == 0 && group_size <= fwd::kChunkMax;
-  // (in chunk mode at most kQB / kBM blocks a row, so a chunk's blocks fit
-  // the stats)
-  p.cw = p.chunk_mode
-             ? std::min({d, group_size * (fwd::kChunkMax / group_size),
-                         group_size * (fwd::kQB / fwd::kBM)})
-             : std::min(d, fwd::kChunkMax);
-  if (p.cw < 1) p.cw = 1;
+  fwd::chunking(p);
   p.vec_x = d % 4 == 0 && p.cw % 4 == 0 &&
             reinterpret_cast<uintptr_t>(x) % 16 == 0;
   p.vec_w = n % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const Levels lv = quant::make_levels(levels, n_levels);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 40) return fwd::launch<5, 1, 1, 16, 2, 3>(p, lv, s);
-  if (n <= 64) return fwd::launch<8, 1, 1, 16, 4, 2>(p, lv, s);
-  return fwd::launch<8, 4, 2, 16, 2, 2>(p, lv, s);
+  constexpr auto& f = kFwd;
+  switch (fwd_index(n)) {
+    case 0:
+      return fwd::launch<f[0][0], f[0][1], f[0][2], f[0][3], f[0][4],
+                         f[0][5]>(p, lv, s);
+    case 1:
+      return fwd::launch<f[1][0], f[1][1], f[1][2], f[1][3], f[1][4],
+                         f[1][5]>(p, lv, s);
+    default:
+      return fwd::launch<f[2][0], f[2][1], f[2][2], f[2][3], f[2][4],
+                         f[2][5]>(p, lv, s);
+  }
+}
+
+// The dynamic shared memory matmul_quant launches with for x (m, d) in
+// G-blocks and y of n columns (kernel_contracts states the same sum).
+extern "C" long long matmul_quant_smem(int d, int n, int group_size) {
+  fwd::Params p{};
+  p.d = d;
+  p.n = n;
+  p.G = group_size;
+  fwd::chunking(p);
+  constexpr auto& f = kFwd;
+  switch (fwd_index(n)) {
+    case 0:
+      return static_cast<long long>(
+          fwd::layout<8 * f[0][0] * f[0][1], f[0][3], f[0][4]>(p));
+    case 1:
+      return static_cast<long long>(
+          fwd::layout<8 * f[1][0] * f[1][1], f[1][3], f[1][4]>(p));
+    default:
+      return static_cast<long long>(
+          fwd::layout<8 * f[2][0] * f[2][1], f[2][3], f[2][4]>(p));
+  }
 }
 
 // The backward's tiles, {rows of dw, columns, stash rows a stage}, and the
@@ -1008,12 +1070,38 @@ extern "C" int matmul_quant(const float* x, const float* w, float* y,
 // tile() sizes the row ranges and the scratch from the same table without
 // the library (on the CPU too); a gpu test holds the two equal.
 constexpr int kTiles[3][3] = {{128, 40, 64}, {128, 64, 64}, {64, 256, 32}};
+// Each tile's ring: {slots R, words a block at most MAXW on the ring path}.
+constexpr int kRing[3][2] = {{4, 64}, {3, 64}, {4, 16}};
 static int tile_index(int n) {
   return n <= kTiles[0][1] ? 0 : n <= kTiles[1][1] ? 1 : 2;
 }
 
 extern "C" void dequant_matmul_tile(int n, int* tile) {
   for (int i = 0; i < 3; ++i) tile[i] = kTiles[tile_index(n)][i];
+}
+
+// The dynamic shared memory dequant_matmul launches with for a stash of
+// d-wide rows in G-blocks of `bits`, packed words 16-byte aligned or not,
+// and an n-column gradient (out[0]), and the most its kernel is set up for
+// (out[1]); kernel_contracts states the same sums.
+extern "C" void dequant_matmul_smem(int d, int n, int group_size, int bits,
+                                    int aligned, long long* out) {
+  bwd::Params p{};
+  p.d = d;
+  p.n = n;
+  p.G = group_size;
+  p.bits = bits;
+  p.W = group_size / (32 / bits);
+  p.packed = reinterpret_cast<const uint32_t*>(
+      static_cast<uintptr_t>(aligned ? 0 : 4));
+  const int i = tile_index(n);
+  const int bd = kTiles[i][0], bn = kTiles[i][1], ks = kTiles[i][2];
+  const int r = kRing[i][0], maxw = kRing[i][1];
+  out[0] = static_cast<long long>(bwd::smem_bytes(
+      ks, bd, bn, r, bwd::slot_floats(ks, bn, bwd::ring_path(p, bd, maxw),
+                                      p.W)));
+  out[1] = static_cast<long long>(
+      bwd::smem_bytes(ks, bd, bn, r, bwd::slot_floats(ks, bn, 1, maxw)));
 }
 
 // dw (d, n) = dequant(packed)^T (d, m) @ g (m, n) over `splits` row ranges
@@ -1045,19 +1133,20 @@ extern "C" int dequant_matmul(const uint32_t* packed, const float* zero,
   // n-tiles a consumer warp, producer warps, ring slots, words a block at
   // most on the ring path>
   constexpr auto& t = kTiles;
+  constexpr auto& r = kRing;
   int err;
   switch (tile_index(n)) {
     case 0:
-      err = bwd::launch<t[0][0], t[0][1], t[0][2], 8, 1, 5, 8, 4, 64>(
-          p, lv, splits, s);
+      err = bwd::launch<t[0][0], t[0][1], t[0][2], 8, 1, 5, 8, r[0][0],
+                        r[0][1]>(p, lv, splits, s);
       break;
     case 1:
-      err = bwd::launch<t[1][0], t[1][1], t[1][2], 4, 2, 4, 8, 3, 64>(
-          p, lv, splits, s);
+      err = bwd::launch<t[1][0], t[1][1], t[1][2], 4, 2, 4, 8, r[1][0],
+                        r[1][1]>(p, lv, splits, s);
       break;
     default:
-      err = bwd::launch<t[2][0], t[2][1], t[2][2], 2, 2, 8, 8, 4, 16>(
-          p, lv, splits, s);
+      err = bwd::launch<t[2][0], t[2][1], t[2][2], 2, 2, 8, 8, r[2][0],
+                        r[2][1]>(p, lv, splits, s);
   }
   if (err != cudaSuccess || splits == 1) return err;
   const long long count = static_cast<long long>(d) * n;

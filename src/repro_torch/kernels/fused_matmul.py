@@ -64,6 +64,11 @@ def _lib(defines: tuple = ()) -> ctypes.CDLL:
     lib.matmul_quant.restype = lib.dequant_matmul.restype = ctypes.c_int
     lib.dequant_matmul_tile.argtypes = [ctypes.c_int, _P]
     lib.dequant_matmul_tile.restype = None
+    # the launches' dynamic shared memory (held to the kernel contracts)
+    lib.matmul_quant_smem.argtypes = [ctypes.c_int] * 3
+    lib.matmul_quant_smem.restype = ctypes.c_longlong
+    lib.dequant_matmul_smem.argtypes = [ctypes.c_int] * 5 + [_P]
+    lib.dequant_matmul_smem.restype = None
     return lib
 
 

@@ -1598,3 +1598,46 @@ def test_cuda_legacy_loop_matches_cpu(cuda, name):
         assert launched == (want if dev == "cuda" else 0)
     for a, b in zip(outs["cuda"], outs["cpu"]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_saved_audit_matches_cpu(cuda):
+    """The saved-tensor audit of the plan matrix on the card (the kernels,
+    page-locked host arenas) gives the CPU's ledgers and findings: none."""
+    from repro_torch.staticcheck import saved_audit
+
+    on_card = saved_audit.run(device="cuda")
+    on_cpu = saved_audit.run(device="cpu")
+    assert len(on_card) == 34
+    for a, b in zip(on_card, on_cpu):
+        assert a.key == b.key
+        assert a.findings == b.findings == []
+        assert (a.ledger_bytes, a.n_saved) == (b.ledger_bytes, b.n_saved)
+        assert a.ledger_bytes == a.report_bytes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,n,g,bits", [(256, 256, 256, 2), (512, 256, 256, 2),
+                                        (512, 40, 256, 2), (64, 64, 64, 2),
+                                        (128, 8, 64, 4), (128, 8, 64, 1),
+                                        (96, 48, 32, 2), (512, 520, 256, 2)])
+def test_cuda_contract_smem_is_the_kernels(cuda, d, n, g, bits):
+    """The kernel contracts' shared memory for the fused pair is what the
+    kernel library computes for its launches (matmul_quant_smem, and
+    dequant_matmul_smem beside dequant_matmul_tile's tile), packed words
+    aligned or not."""
+    import ctypes
+
+    from repro_torch.kernels import fused_matmul as t_fk
+    from repro_torch.staticcheck import kernel_contracts as kc
+
+    lib = t_fk._lib()
+    assert lib.matmul_quant_smem(d, n, g) == kc.fwd_launch(d, n, g).smem
+    tile = (ctypes.c_int * 3)()
+    lib.dequant_matmul_tile(n, tile)
+    got = (ctypes.c_longlong * 2)()
+    for aligned in (True, False):
+        lib.dequant_matmul_smem(d, n, g, bits, int(aligned), got)
+        b = kc.bwd_launch(4096, d, n, g, bits, aligned)
+        assert tuple(tile) == b.tile
+        assert (got[0], got[1]) == (b.smem, b.max_smem)
