@@ -241,7 +241,31 @@ Phases, in order; any failure raises and exits non-zero:
    then the quant kernels at the GNN driver's G = 32 and G = 2048 shapes
    (EXAMPLE_QUANT), bit-equal to the plain version and timed.  The phase
    stays under PHASE15_LIMIT_S;
-16. a JSON line of per-kernel numbers (phase 13's shapes under
+16. slice 18, tile selection and LM sharding, after phase 15: (a) the
+   fused pair's candidates (``kernels/autotune.autotune``) timed at phase
+   5's three rp_ratio-0 layer shapes at 169,343 and 21,184 rows into a
+   cache in a temporary directory, each beside the roofline's time, the
+   winners marked, the kernel contracts clean over the cache; then phase
+   5's recipe for 2 epochs without the cache (phase 5's losses bit for
+   bit) and with it: ``autotune/cache_hit`` = the resolutions (6 a
+   compiled step), no miss, the stash bit-equal, the losses bit-equal
+   where the defaults won (rtol 1e-3 where another split won); (b) which
+   collectives gloo takes on CUDA tensors (a mesh whose collectives it
+   refuses waits for NCCL on two cards), then, under ``act`` and under
+   ``remat`` (SHARD_MODES), qwen1.5-4b at full width and SHARD_LAYERS
+   layers in float32 for SHARD_STEPS[mode] steps of B 2 x 1024 on one
+   rank, then on two gloo ranks sharing the card on each (data, model)
+   mesh of SHARD_MESHES that gloo takes: each parameter's local shape as
+   ``param_pspecs`` says, the losses within rtol 2e-4 / atol 2e-5 of the
+   one-rank run, every parameter after each step within that band under
+   ``remat`` (logged against it under ``act``, see SHARD_MODES), layer
+   0's step-0 stash bit-equal to its rows, the stash launches as
+   planned, each rank's peak and step times, and one profiled ``act``
+   step of rank 0 (time in collectives, CommDebugMode counts);
+   (c) ``launch.train --production-mesh`` on one rank raises, naming the
+   256 ranks (phase 12 (b) holds the local mesh's losses to
+   PHASE12_LOSSES).  The phase stays under PHASE16_LIMIT_S;
+17. a JSON line of per-kernel numbers (phase 13's shapes under
    ``moe_shapes``, phase 14's under ``family_shapes``, phase 15's under
    ``example_shapes``), then ``{"ok": true, "device": ...}``.
 
@@ -768,6 +792,7 @@ def slice_rp0(torch, g, cfg, model0, wrappers, saved_bytes_per_layer) -> dict:
     losses = [h[1] for h in res["history"]]
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
         raise AssertionError(f"[rp0] losses not finite and falling: {losses}")
+    RESULTS["rp0_losses"] = losses
     same = (rep_a["history"][0][1] == rep_b["history"][0][1]
             == res["history"][0][1]
             and all(torch.equal(p, q) for p, q in
@@ -2869,6 +2894,11 @@ def slice_launcher_lm(torch, wrappers) -> collections.Counter:
         f"{[h['dt'] for h in hist]}; max_memory_allocated {peak} bytes")
     if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
         raise AssertionError(f"[launcher lm] losses {losses}")
+    if losses != PHASE12_LOSSES:
+        raise AssertionError(f"[launcher lm] the local mesh moved the losses "
+                             f"from {PHASE12_LOSSES}")
+    log("[launcher lm] through the (1, 1) local mesh: PHASE12_LOSSES bit "
+        "for bit")
     batch = res["make_batch"](steps)
     profile_call(torch, lambda: float(res["step_fn"](
         (res["model"], res["opt_state"]), batch)[1]["loss"]),
@@ -4267,6 +4297,558 @@ def slice_check(torch, wrappers, qk, ref) -> tuple:
     return launches, rows
 
 
+# ------------------------- phase 16: tile selection and LM sharding
+#: Seconds phase 16 may take in all.
+PHASE16_LIMIT_S = 150.0
+#: Phase 12 (b)'s losses before the launcher trained on a mesh (qwen1.5-4b
+#: at 40 layers under ``act``, the same in four calls on an H100 80GB HBM3
+#: at 700 W): through a (1, 1) local mesh it must keep them bit for bit.
+PHASE12_LOSSES = [12.398728370666504, 11.805458068847656, 11.252832412719727,
+                  11.005108833312988, 10.718749046325684]
+#: Phase 16 (b): qwen1.5-4b at full width cut to SHARD_LAYERS of its 40
+#: layers (a one-rank run and then two ranks share the card's memory and
+#: the phase's time), SHARD_STEPS[mode] steps of SHARD_BATCH x SHARD_SEQ
+#: tokens on each two-rank (data, model) mesh of SHARD_MESHES.
+SHARD_LAYERS, SHARD_BATCH, SHARD_SEQ = 8, 2, 1024
+SHARD_STEPS = {"act": 3, "remat": 2}
+SHARD_MESHES = ((1, 2), (2, 1))
+#: The sharded run's band against the one-rank run (the reference's mesh
+#: gate) for losses and every parameter after each step.
+SHARD_RTOL, SHARD_ATOL = 2e-4, 2e-5
+#: The recipes phase 16 (b) trains: ``act`` (INT2 stash, the paper's) and
+#: ``remat`` (no stash).  Under ``act`` the parameters are logged against
+#: the band, not held to it: the sharded products round apart from the
+#: unsharded ones by float32 steps, stochastic rounding turns some of
+#: those into whole-level flips of a later layer's stash, each flip moves
+#: every weight's gradient by ~1/2048 of a token's share, and AdamW's
+#: first steps move a weight by +-lr whatever its gradient's size, so a
+#: weight whose gradient is near 0 lands 2 lr (6e-5) apart.  ``remat``
+#: draws no noise and is held to the band elementwise (SHARD_STRICT).
+SHARD_MODES = ("act", "remat")
+SHARD_STRICT = ("remat",)
+#: The collectives a sharded dense step issues on each mesh (CommDebugMode
+#: on the CPU, tests/torch_sharding_ranks.py's config: (1, 2) 46
+#: functional all-reduces and 6 blocking all-gathers a step, the bias
+#: gradients in ``optim.adamw.placed``; (2, 1) also 53 functional
+#: all-gathers, FSDP's, and 19 reduce-scatters), named as GLOO_PROBES
+#: names them.
+SHARD_COLLECTIVES = {
+    (1, 2): ("funcol.all_reduce", "dist.all_gather_into_tensor"),
+    (2, 1): ("funcol.all_reduce", "funcol.reduce_scatter_tensor",
+             "funcol.all_gather_tensor", "dist.all_gather_into_tensor")}
+#: The collectives gloo_probe_rank tries on CUDA tensors, in order: the
+#: functional ones DTensor issues, then the blocking ``torch.distributed``
+#: ones; the functional all-gather last (it may take the rank down).
+GLOO_PROBES = ("funcol.all_reduce", "funcol.reduce_scatter_tensor",
+               "dist.all_reduce", "dist.all_gather_into_tensor",
+               "dist.reduce_scatter_tensor", "dist.all_to_all_single",
+               "funcol.all_gather_tensor")
+#: Numbers an earlier phase leaves for a later one.
+RESULTS: dict = {}
+
+
+def autotune_cases() -> list:
+    """Phase 16 (a)'s shapes: phase 5's three rp_ratio-0 layers at the
+    full graph's rows and at phase 7's halo-0 batch's (INT2, G 256)."""
+    return [(rows, d, n, 2, 256) for rows in (N_NODES, BATCH_NODES)
+            for d, n in FUSED_LAYERS]
+
+
+@contextlib.contextmanager
+def stash_tap():
+    """Record the stash (words, zero, range) every compressed layer of the
+    engine's forward writes, in call order."""
+    from repro_torch.engine import forward as fwd
+
+    real, taps = fwd.compress_matmul, []
+
+    def tap(x, w, comp, seed, fused="auto"):
+        y, ct = real(x, w, comp, seed, fused=fused)
+        taps.append((ct.packed.clone(), ct.zero.clone(), ct.rng.clone()))
+        return y, ct
+
+    fwd.compress_matmul = tap
+    try:
+        yield taps
+    finally:
+        fwd.compress_matmul = real
+
+
+def slice_autotune(torch, wrappers) -> collections.Counter:
+    """Phase 16 (a): the fused pair's candidates timed at autotune_cases()
+    into a cache in a temporary directory, its contracts clean, then phase
+    5's recipe for 2 epochs without a cache and with it."""
+    import os
+    import tempfile
+
+    from repro_torch.core.compressor import CompressionConfig
+    from repro_torch.graph.data import arxiv_like
+    from repro_torch.graph.models import GNN, GNNConfig
+    from repro_torch.graph.train import train_gnn
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import fused_matmul as fk
+    from repro_torch.obs.metrics import MetricsRegistry, set_metrics
+    from repro_torch.staticcheck import kernel_contracts
+
+    total = collections.Counter()
+    smi = card()
+    tmp = tempfile.TemporaryDirectory()
+    path = Path(tmp.name) / "fused_tiles_cuda.json"
+    prev_env = os.environ.get("REPRO_TORCH_AUTOTUNE_CACHE")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(path)
+    autotune.invalidate_cache()
+    try:
+        t0 = time.perf_counter()
+        rows: list = []
+        cache = autotune.autotune(autotune_cases(), log=rows)
+        for r in rows:
+            m, d, n, bits, g = r["shape"]
+            log(f"[autotune] {r['kind']} {m}x{d}@{d}x{n} {r['choice']}: "
+                f"{r['ms']:.4f} ms, roofline {r['bound_ms']:.4f} ms, "
+                f"output bit-equal to the default's {r['bit_equal']}"
+                f"{' <- won' if r['won'] else ''} ({smi})")
+        log(f"[autotune] {len(rows)} candidates timed in "
+            f"{time.perf_counter() - t0:.1f} s; cache {cache}")
+        fwd = [r for r in rows if r["kind"] == "fwd"]
+        same = sorted({r["choice"][0] for r in fwd}
+                      - {r["choice"][0] for r in fwd if not r["bit_equal"]})
+        log(f"[autotune] forward configurations whose y is the default's "
+            f"bit for bit at every shape they ran: {same}")
+        findings = kernel_contracts.check_autotune_cache(path)
+        if findings:
+            raise AssertionError(f"[autotune] contracts over the cache: "
+                                 f"{findings}")
+        log(f"[autotune] kernel contracts clean over the {len(cache)} "
+            "entries written")
+        defaults = all(
+            tuple(cache[autotune.cache_key(kind, *case, autotune.backend_name())])
+            == autotune.roofline_pick(kind, *case)
+            for case in autotune_cases() if case[0] == N_NODES
+            for kind in ("fwd", "bwd"))
+
+        g = arxiv_like(scale=1.0)
+        cfg = GNNConfig(arch="sage", hidden=(256, 256), n_classes=40,
+                        compression=CompressionConfig(2, 256, rp_ratio=0,
+                                                      vm=True))
+        model0 = GNN(cfg, g.n_feats, generator=torch.Generator().manual_seed(0))
+        runs = {}
+        for name, cached in (("no cache", False), ("cache", True)):
+            os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(
+                path if cached else Path(tmp.name) / "absent.json")
+            autotune.invalidate_cache()
+            reg = MetricsRegistry()
+            prev = set_metrics(reg)
+            try:
+                with stash_tap() as taps:
+                    res, counts, _ = counted_run(
+                        torch, wrappers, dict(planned(0, 0, 0),
+                                              matmul_quant=6,
+                                              dequant_matmul=6),
+                        f"autotune rp0 {name}",
+                        lambda: train_gnn(g, cfg, n_epochs=2, seed=0,
+                                          params=model0, fused="auto"))
+            finally:
+                set_metrics(prev)
+            total.update(counts)
+            snap = reg.snapshot()
+            runs[name] = ([h[1] for h in res["history"]], taps, snap)
+            log(f"[autotune rp0 {name}] losses {runs[name][0]}; counters "
+                f"{ {k: v for k, v in snap.items() if k.startswith(('autotune', 'engine/forward'))} }")
+        builds = runs["cache"][2]["engine/forward_builds"]
+        hits = runs["cache"][2].get("autotune/cache_hit", 0)
+        if not (hits == 6 * builds and
+                runs["cache"][2].get("autotune/cache_miss", 0) == 0
+                and runs["no cache"][2].get("autotune/cache_miss", 0)
+                == 6 * builds):
+            raise AssertionError(f"[autotune] counters: cached {runs['cache'][2]}, "
+                                 f"without {runs['no cache'][2]}")
+        a, b = runs["no cache"][1], runs["cache"][1]
+        if not (len(a) == len(b) == 6 and all(
+                torch.equal(x, y) for s, t in zip(a, b)
+                for x, y in zip(s, t))):
+            raise AssertionError("[autotune] the stash differs with the cache")
+        phase5 = RESULTS.get("rp0_losses")
+        if phase5 is not None and runs["no cache"][0] != phase5[:2]:
+            raise AssertionError(f"[autotune] no-cache losses "
+                                 f"{runs['no cache'][0]} are not phase 5's "
+                                 f"{phase5[:2]}")
+        la, lb = runs["no cache"][0], runs["cache"][0]
+        if defaults and la != lb:
+            raise AssertionError(f"[autotune] the defaults won, yet the "
+                                 f"losses differ: {la} vs {lb}")
+        if not all(math.isclose(x, y, rel_tol=1e-3) for x, y in zip(la, lb)):
+            raise AssertionError(f"[autotune] losses {la} vs {lb}")
+        log(f"[autotune] {hits} cache hits = the {6 * builds} resolutions, 0 "
+            f"misses; stash bit-equal to phase 5's recipe without a cache; "
+            f"losses {'bit-equal' if la == lb else 'within rtol 1e-3'} "
+            f"(defaults won everywhere at {N_NODES} rows: {defaults})")
+        del g, model0, runs, a, b
+    finally:
+        if prev_env is None:
+            os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = prev_env
+        autotune.invalidate_cache()
+        tmp.cleanup()
+    torch.cuda.empty_cache()
+    return total
+
+
+def gloo_probe_rank(rank: int, world: int, path: str) -> None:
+    """Which collectives gloo takes on CUDA tensors: each of GLOO_PROBES
+    tried once on a small tensor of the card, its answer ("ok" or the
+    error) appended to ``path``.<rank> before the next is tried, so what
+    a rank finished survives a collective that takes the process down."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    g = dist.group.WORLD
+    x = torch.arange(8, dtype=torch.float32, device="cuda") + rank
+    tries = {
+        "funcol.all_reduce": lambda: funcol.all_reduce(x, "sum", g) + 0,
+        "funcol.reduce_scatter_tensor": lambda: funcol.reduce_scatter_tensor(
+            x, "sum", 0, g) + 0,
+        "dist.all_reduce": lambda: dist.all_reduce(x.clone()),
+        "dist.all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(8 * world, device="cuda"), x),
+        "dist.reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(8 // world, device="cuda"), x.clone()),
+        "dist.all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x),
+        "funcol.all_gather_tensor": lambda: funcol.all_gather_tensor(
+            x, 0, g) + 0,
+    }
+    with open(f"{path}.{rank}", "a") as f:
+        for name in GLOO_PROBES:
+            try:
+                tries[name]()
+                torch.cuda.synchronize()
+                answer = "ok"
+            except Exception as exc:      # the answer is what it refuses
+                answer = f"{type(exc).__name__}: {exc}"[:300]
+            f.write(f"{name}\t{answer}\n")
+            f.flush()
+            os.fsync(f.fileno())
+
+
+def gloo_probe(torch) -> dict:
+    """{collective: answer} for rank 0 of two gloo ranks on the card; a
+    collective the rank did not come back from answers with how the ranks
+    ended."""
+    import tempfile
+
+    from repro_torch.parallel import run_ranks
+
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "probe")
+        try:
+            run_ranks(gloo_probe_rank, 2, (path,), timeout=120)
+            ended = None
+        except RuntimeError as exc:
+            ended = " ".join(str(exc).split())[:200]
+        answers = dict(line.rstrip("\n").split("\t", 1)
+                       for line in open(f"{path}.0"))
+    for name in GLOO_PROBES:
+        answers.setdefault(name, f"the rank did not return: {ended}")
+    return answers
+
+
+def shard_cfg(mode: str):
+    """qwen1.5-4b at full width, SHARD_LAYERS layers, under ``mode``
+    (``act``: INT2, G 256) with its residual stream in float32 (phase 16
+    (b))."""
+    from repro_torch.configs import get
+    from repro_torch.core.compressor import CompressionConfig
+
+    return dataclasses.replace(
+        get("qwen1.5-4b"), n_layers=SHARD_LAYERS, act_mode=mode,
+        act_dtype="float32",
+        act_compression=CompressionConfig(bits=2, group_size=256))
+
+
+def shard_model(torch, mode: str):
+    """The seed-0 weights of shard_cfg(mode) on the card, in float32 (a
+    bf16 weight's gradient rounds apart by a bf16 step once the sharded
+    partial sums are added)."""
+    from repro_torch.models import Model
+
+    return Model(shard_cfg(mode),
+                 generator=torch.Generator("cuda").manual_seed(0)).float()
+
+
+def shard_tokens(torch, step: int):
+    from repro_torch.data import batch_for_step
+
+    return torch.as_tensor(batch_for_step(shard_cfg("act").vocab,
+                                          SHARD_BATCH, SHARD_SEQ, step),
+                           device="cuda")
+
+
+def local_shape_ok(p, spec, sizes) -> bool:
+    """A parameter's local shape is its full shape divided along each dim
+    by the mesh axes its spec names."""
+    local = tuple(p.to_local().shape) if hasattr(p, "to_local") \
+        else tuple(p.shape)
+    return local == tuple(
+        dim // math.prod(sizes[a] for a in ((e,) if isinstance(e, str)
+                                            else (e or ())))
+        for dim, e in zip(p.shape, spec))
+
+
+def off_band(torch, model, mesh, want: dict) -> list:
+    """(name, elements outside rtol SHARD_RTOL / atol SHARD_ATOL of the
+    one-rank parameters ``want``, the largest difference) for every
+    parameter of ``model`` with any, each rank on its own shard."""
+    from torch.distributed.tensor import distribute_tensor
+
+    out = []
+    for n, p in model.named_parameters():
+        exp = want[n]
+        if hasattr(p, "to_local"):
+            exp = distribute_tensor(exp, mesh, p.placements,
+                                    src_data_rank=None).to_local()
+            p = p.to_local()
+        off = ~torch.isclose(p, exp, rtol=SHARD_RTOL, atol=SHARD_ATOL)
+        if off.any():
+            out.append((n, int(off.sum()),
+                        float((p.detach() - exp).abs().max())))
+    return out
+
+
+def shard_train(torch, mesh, mode: str, want: dict | None = None,
+                profile: bool | None = None) -> dict:
+    """SHARD_STEPS AdamW steps (float32 moments, lr LM_LR) of
+    shard_model(mode) on ``mesh``, the stash launches counted.  Without
+    ``want`` (the one-rank run): each step's loss, every parameter after
+    it and layer 0's step-0 stash.  With it (a rank of a two-rank mesh):
+    each parameter's local shape against its spec, the losses within the
+    band of ``want``'s, layer 0's step-0 stash rows bit-equal to its (under
+    ``act``), each step's parameters outside the band (SHARD_STRICT modes
+    raise on any), the step times, the peak and, unless ``profile`` is
+    None, one more step (under the profiler and CommDebugMode where it is
+    True: every rank must take the step)."""
+    from repro_torch.core import act_compress
+    from repro_torch.kernels import quant_blockwise as qk
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parallel import annotate, sharding
+
+    cfg = shard_cfg(mode)
+    tag = f"[shard {mode} {tuple(mesh.shape)}]"
+    annotate.set_rules(**annotate.rules_for(cfg, mesh, SHARD_BATCH))
+    model = shard_model(torch, mode)
+    specs = sharding.distribute_model(model, mesh)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    for name, p in model.named_parameters():
+        if not local_shape_ok(p, specs[name], sizes):
+            raise AssertionError(f"{tag} {name}: local shape not as "
+                                 f"param_pspecs says ({specs[name]})")
+    opt = AdamWConfig(lr=LM_LR, weight_decay=0.01, grad_clip=1.0)
+    state = adamw_init(list(model.parameters()), opt)
+    step = make_train_step(model, opt)
+    real, stash = act_compress.compress, []
+
+    def record(x, cfg_, seed, row0=0):
+        ct = real(x, cfg_, seed, row0)
+        if not stash:
+            stash.append((row0, ct.packed.clone()))
+        return ct
+
+    qk.quant_pack.launches = qk.dequant_unpack.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    act_compress.compress = record
+    losses, after, secs, off = [], [], [], []
+    try:
+        for i in range(SHARD_STEPS[mode]):
+            batch = sharding.distribute_batch(
+                cfg, {"tokens": shard_tokens(torch, i)}, mesh)
+            t0 = time.perf_counter()
+            losses.append(float(step(state, batch)["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if want is None:
+                after.append({n: p.detach().clone()
+                              for n, p in model.named_parameters()})
+            else:
+                off.append(off_band(torch, model, mesh, want["params"][i]))
+    finally:
+        act_compress.compress = real
+    torch.cuda.synchronize()
+    n_stash = SHARD_LAYERS * SHARD_STEPS[mode] if mode == "act" else 0
+    counts = (qk.quant_pack.launches, qk.dequant_unpack.launches)
+    if counts != (n_stash, n_stash):
+        raise AssertionError(f"{tag} quant_pack / dequant_unpack launches "
+                             f"{counts}, planned {n_stash} each")
+    out = {"losses": losses, "secs": secs, "counts": counts,
+           "peak": torch.cuda.max_memory_allocated()}
+    if want is None:
+        out.update(params=after, stash=stash[0][1] if stash else None)
+        annotate.set_rules()
+        return out
+    if not all(math.isclose(a, b, rel_tol=SHARD_RTOL, abs_tol=SHARD_ATOL)
+               for a, b in zip(losses, want["losses"])):
+        raise AssertionError(f"{tag} losses {losses} vs one rank's "
+                             f"{want['losses']}")
+    out["off"] = off
+    if mode in SHARD_STRICT and any(off):
+        raise AssertionError(f"{tag} parameters outside the band of the "
+                             f"one-rank run: {off}")
+    if stash:
+        row0, words = stash[0]
+        if not torch.equal(words.cpu(), want["stash"][row0:row0 + len(words)]):
+            raise AssertionError(f"{tag} layer 0's step-0 stash is not the "
+                                 "one-rank stash's rows")
+        out["stash_rows"] = (row0, len(words))
+    if profile is not None:
+        batch = sharding.distribute_batch(
+            cfg, {"tokens": shard_tokens(torch, SHARD_STEPS[mode])}, mesh)
+    if profile is False:
+        step(state, batch)
+    if profile:
+        from torch.distributed.tensor.debug import CommDebugMode
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+        comm = CommDebugMode()
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof, comm:
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        coll = [(e.self_cpu_time_total / 1e3, e.count, e.key) for e in events
+                if any(s in e.key for s in ("gloo", "c10d", "wait_tensor"))]
+        coll.sort(reverse=True)
+        busy = sum(getattr(e, "self_device_time_total", 0.0) for e in events
+                   if getattr(e, "device_type", None)
+                   == torch.autograd.DeviceType.CUDA) / 1e3
+        out["profile"] = {"wall_ms": wall, "busy_ms": busy,
+                          "collective_host_ms": sum(c[0] for c in coll),
+                          "collectives": coll[:8],
+                          "comm_counts": {str(k): v for k, v in
+                                          comm.get_comm_counts().items()}}
+    annotate.set_rules()
+    return out
+
+
+def shard_rank(rank: int, world: int, mode: str, meshes, want: dict) -> dict:
+    """Phase 16 (b) on one of two ranks sharing the card (gloo): each mesh
+    of ``meshes`` in turn under ``mode``, held to the one-rank run
+    ``want`` (its parameters shared from the parent's memory on the
+    card); rank 0 profiles one step under ``act``."""
+    import faulthandler
+
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    out = {}
+    for shape in meshes:
+        t0 = time.perf_counter()
+        out[shape] = shard_train(torch, make_mesh(shape, ("data", "model")),
+                                 mode, want, profile=rank == 0
+                                 if mode == "act" else None)
+        out[shape]["mesh_s"] = time.perf_counter() - t0
+    return out
+
+
+def slice_shard(torch) -> collections.Counter:
+    """Phase 16 (b): for each mode of SHARD_MODES the one-rank run, then
+    every mesh gloo takes (the gloo probe runs beside the first one-rank
+    run) on two ranks sharing the card, held to it."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import run_ranks
+
+    total = collections.Counter()
+    smi = card()
+    n = shard_cfg("act").param_count()
+    log(f"[shard] reckoning: {n} float32 parameters, {4 * n} bytes of "
+        f"weights, {16 * n} with gradients and float32 moments ({smi})")
+    # the probe's two processes run beside the first one-rank run
+    pool = ThreadPoolExecutor(1)
+    prober = pool.submit(gloo_probe, torch)
+    for mode in SHARD_MODES:
+        t0 = time.perf_counter()
+        one = shard_train(torch, make_local_mesh(), mode)
+        if mode == SHARD_MODES[0]:
+            probe = prober.result()
+            pool.shutdown()
+            log(f"[shard] gloo on CUDA tensors, torch {torch.__version__} "
+                f"({time.perf_counter() - t0:.1f} s with the one-rank run "
+                f"beside it): {probe}")
+            meshes = [s for s in SHARD_MESHES if all(
+                probe[c] == "ok" for c in SHARD_COLLECTIVES[s])]
+            for s in SHARD_MESHES:
+                if s not in meshes:
+                    log(f"[shard {s}] waits for NCCL on two cards: gloo "
+                        f"refuses {[c for c in SHARD_COLLECTIVES[s] if probe[c] != 'ok']}")
+            if not meshes:
+                raise AssertionError("[shard] gloo takes no mesh's "
+                                     "collectives on the card")
+        log(f"[shard {mode} one rank] losses {one['losses']}; step s "
+            f"{one['secs']}; max_memory_allocated {one['peak']}; launches "
+            f"{one['counts']} ({time.perf_counter() - t0:.1f} s)")
+        total.update(quant_pack=one["counts"][0],
+                     dequant_unpack=one["counts"][1])
+        want = {"losses": one["losses"], "params": one["params"],
+                "stash": None if one["stash"] is None else one["stash"].cpu()}
+        del one
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_ranks(shard_rank, 2, (mode, tuple(meshes), want),
+                          timeout=300)
+        log(f"[shard {mode}] two ranks: {time.perf_counter() - t0:.1f} s")
+        for rank, res in enumerate(ranks):
+            for shape, r in res.items():
+                total.update(quant_pack=r["counts"][0],
+                             dequant_unpack=r["counts"][1])
+                log(f"[shard {mode} {shape} rank {rank}] losses "
+                    f"{r['losses']} within rtol {SHARD_RTOL} / atol "
+                    f"{SHARD_ATOL} of one rank's; parameters outside that "
+                    f"band after each step (name, elements, largest "
+                    f"difference): {r['off']}; stash rows "
+                    f"{r.get('stash_rows')} bit-equal; step s {r['secs']}; "
+                    f"max_memory_allocated {r['peak']}; launches "
+                    f"{r['counts']}; {r['mesh_s']:.1f} s ({smi})")
+                if "profile" in r:
+                    p = r["profile"]
+                    log(f"[shard {mode} {shape} rank 0] profiled step: wall "
+                        f"{p['wall_ms']:.3f} ms, device busy "
+                        f"{p['busy_ms']:.3f} ms, host time in collectives "
+                        f"{p['collective_host_ms']:.3f} ms; collectives "
+                        f"{p['comm_counts']}")
+                    for ms, count, key in p["collectives"]:
+                        log(f"    {ms:10.3f} ms {count:6d}  {key}")
+        del want, ranks
+        torch.cuda.empty_cache()
+    return total
+
+
+def slice_mesh_launcher(torch) -> None:
+    """Phase 16 (c): ``--production-mesh`` on one rank raises, naming the
+    256 ranks its mesh needs (phase 12 (b) held the local mesh's losses to
+    PHASE12_LOSSES)."""
+    from repro_torch.launch import train
+
+    try:
+        train.main(["--arch", "qwen1.5-4b", "--smoke", "--production-mesh",
+                    "--steps", "1", "--device", "cuda"])
+    except RuntimeError as exc:
+        if "256 ranks" not in str(exc):
+            raise
+        log(f"[launcher --production-mesh] raised: {exc}")
+    else:
+        raise AssertionError("--production-mesh on one rank did not raise")
+
+
 T_START = time.perf_counter()
 
 
@@ -4498,7 +5080,22 @@ def main() -> int:
         raise AssertionError(f"phase 15 took {check_s:.1f} s, over "
                              f"{PHASE15_LIMIT_S} s")
 
-    # 16. results
+    # 16. tile selection and LM sharding
+    t0 = time.perf_counter()
+    launches16 = slice_autotune(torch, wrappers)
+    log(f"phase 16 (a): {time.perf_counter() - t0:.1f} s")
+    launches16.update(slice_shard(torch))
+    log(f"phase 16 (b): {time.perf_counter() - t0:.1f} s")
+    slice_mesh_launcher(torch)
+    shard_s = time.perf_counter() - t0
+    log(f"phase 16: {shard_s:.1f} s; launches {dict(launches16)}")
+    for name, n in launches16.items():
+        launches[name] += n
+    if not shard_s < PHASE16_LIMIT_S:
+        raise AssertionError(f"phase 16 took {shard_s:.1f} s, over "
+                             f"{PHASE16_LIMIT_S} s")
+
+    # 17. results
     sources = {"quant_pack": ("src/repro_torch/csrc/quant_blockwise.cu",
                               "src/repro/kernels/quant_blockwise.py:62"),
                "dequant_unpack": ("src/repro_torch/csrc/quant_blockwise.cu",

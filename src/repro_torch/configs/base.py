@@ -1,9 +1,7 @@
 """ArchConfig + assigned input shapes + smoke reduction (the reference's
-``repro.configs.base``, copied as plain dataclasses).
-
-``input_specs`` (JAX ``ShapeDtypeStruct`` stand-ins for the dry-run
-tooling) is not ported yet: it waits for the launchers and tooling
-(ROADMAP A.12)."""
+``repro.configs.base``, copied as plain dataclasses), and
+:func:`input_specs`: stand-ins for every step input on the ``meta``
+device, in place of the reference's ``ShapeDtypeStruct`` stand-ins."""
 from __future__ import annotations
 
 import dataclasses
@@ -163,3 +161,31 @@ def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:
     if cfg.frontend:
         kw.update(frontend_len=8)
     return dataclasses.replace(cfg, **kw)
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
+    """Stand-ins for every step input on the ``meta`` device (shapes and
+    dtypes, no allocation), under the reference's keys: ``tokens`` (and
+    ``enc_embeds`` / ``prefix_embeds``) for train and prefill, ``tokens``
+    (B, 1) and the decode ``cache`` (:func:`~repro_torch.models.
+    transformer.init_cache` on ``meta``) for decode."""
+    import torch
+
+    b, s = shape.batch, shape.seq
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        spec = {"tokens": meta((b, s), torch.int32)}
+        if cfg.family == "encdec":
+            spec["enc_embeds"] = meta((b, s, cfg.d_model), torch.bfloat16)
+        if cfg.frontend == "vision":
+            spec["prefix_embeds"] = meta((b, cfg.frontend_len, cfg.d_model),
+                                         torch.bfloat16)
+        return spec
+    from repro_torch.models.transformer import init_cache
+
+    enc_len = min(4096, s) if cfg.family == "encdec" else 0
+    return {"tokens": meta((b, 1), torch.int32),
+            "cache": init_cache(cfg, b, s, enc_len=enc_len, device="meta")}

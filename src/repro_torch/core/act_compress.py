@@ -26,6 +26,8 @@ with the same operations in the same order, so both give the same bits.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
@@ -155,19 +157,62 @@ def _leaves(params) -> list[torch.Tensor]:
     return []
 
 
+def shard_rows(x: torch.Tensor, group_size: int) -> tuple[torch.Tensor, int]:
+    """A DTensor's local shard and the global block index of its first
+    element: the shard must be one contiguous range of the flattened
+    tensor (sharded along its first dim, as the batch is), starting and
+    ending on whole blocks of ``group_size``.  A plain tensor is its own
+    shard at block 0."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x, 0
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    if any(p.is_partial() for p in x.placements):
+        raise ValueError(f"a stash of a partial sum {x.placements}: "
+                         "reduce it first")
+    shape = tuple(x.shape)
+    local_shape, offset = compute_local_shape_and_global_offset(
+        shape, x.device_mesh, x.placements)
+    cut = [i for i, (a, b) in enumerate(zip(local_shape, shape)) if a != b]
+    if cut and (any(shape[i] != 1 for i in range(cut[0]))
+                or len(cut) > 1):
+        raise ValueError(f"the local shard of a {shape} DTensor under "
+                         f"{x.placements} is not one contiguous range")
+    start = offset[cut[0]] * math.prod(shape[cut[0] + 1:]) if cut else 0
+    local = x.to_local()
+    if start % group_size or local.numel() % group_size:
+        raise ValueError(f"the local shard (elements {start}.."
+                         f"{start + local.numel()}) does not cover whole "
+                         f"blocks of {group_size}")
+    return local, start // group_size
+
+
 class _CompressedBlock(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, f, params, seed: int, cfg: CompressionConfig,
                 offload: str | None, *leaves):
         ctx.f, ctx.params, ctx.offload = f, params, offload
-        ctx.stash = _maybe_offload(compress(x, cfg, seed), offload)
+        local, row0 = shard_rows(x, cfg.group_size)
+        ctx.layout = None if local is x else (
+            x.device_mesh, x.placements, x.shape, x.stride())
+        ctx.stash = _maybe_offload(compress(local, cfg, seed, row0), offload)
         return f(x, params)
 
     @staticmethod
     def backward(ctx, g):
         stash, ctx.stash = ctx.stash, None
-        x_hat = decompress(_maybe_fetch(stash, ctx.offload)).requires_grad_()
+        x_hat = decompress(_maybe_fetch(stash, ctx.offload))
+        if ctx.layout is not None:
+            from torch.distributed.tensor import DTensor
+
+            mesh, placements, shape, stride = ctx.layout
+            x_hat = DTensor.from_local(x_hat, mesh, placements, shape=shape,
+                                       stride=stride)
+        x_hat = x_hat.requires_grad_()
         leaves = _leaves(ctx.params)
         wanted = [t for t, need in zip(leaves, ctx.needs_input_grad[6:])
                   if need]
@@ -193,7 +238,12 @@ def compressed_block(f, cfg: CompressionConfig, offload: str | None = None):
     applied to the residual stream.  The recomputation draws no noise and
     reads the parameters as they are when the backward runs, so they must
     not change between a forward and its backward.  ``offload`` ("host" |
-    "pinned-paged") parks the stash in host memory in between."""
+    "pinned-paged") parks the stash in host memory in between.
+
+    A DTensor input (a rank's rows of a batch-sharded residual stream) is
+    stored as its local shard, quantized with the shard's global block
+    offset (:func:`shard_rows`), so each rank keeps the unsharded stash's
+    rows bit for bit; the kernels see only local tensors."""
     offload = _check_offload(offload)
 
     def g(x, params, seed):

@@ -154,9 +154,11 @@ def from_blocks(blocks: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
 
 # -------------------------------------------------------------- primitives
 def quantize_blocks(blocks, bits: int, seed: int, levels=None, *,
-                    impl: str = "auto"):
-    """(n_blocks, G) f32 -> (packed int32, zero (n,), rng (n,))."""
-    return ops.quantize_packed(blocks, bits, seed, levels, impl=impl)
+                    impl: str = "auto", row0: int = 0):
+    """(n_blocks, G) f32 -> (packed int32, zero (n,), rng (n,)); ``row0``
+    is the global block index of row 0."""
+    return ops.quantize_packed(blocks, bits, seed, levels, impl=impl,
+                               row0=row0)
 
 
 def dequantize_blocks(packed, zero, rng, bits: int, group_size: int,

@@ -103,9 +103,11 @@ def _seed_tensor(seed: int) -> torch.Tensor:
 
 
 def compress(x: torch.Tensor, cfg: CompressionConfig,
-             seed: int) -> CompressedTensor:
+             seed: int, row0: int = 0) -> CompressedTensor:
     """Forward-pass compression: (optional RP) -> block SR quant+pack, on
-    the backend ``cfg.impl`` names for ``x``'s device."""
+    the backend ``cfg.impl`` names for ``x``'s device.  ``row0`` is the
+    global block index of ``x``'s first block when ``x`` is a shard of a
+    larger tensor (its noise is then the unsharded stash's)."""
     seed = int(seed) & MASK32
     orig_shape, orig_dtype = tuple(x.shape), x.dtype
     rp_seed = seed ^ RP_SEED_SALT
@@ -117,7 +119,8 @@ def compress(x: torch.Tensor, cfg: CompressionConfig,
         x = backend.rp(x, rp_seed, x.shape[-1] // cfg.rp_ratio, impl=cfg.impl)
     blocks, _ = backend.to_blocks(x, cfg.group_size)
     packed, zero, rng = backend.quantize_blocks(blocks, cfg.bits, seed,
-                                                levels, impl=cfg.impl)
+                                                levels, impl=cfg.impl,
+                                                row0=row0)
     return CompressedTensor(packed, zero, rng, _seed_tensor(rp_seed),
                             shape=orig_shape, dtype=orig_dtype, cfg=cfg)
 

@@ -75,8 +75,8 @@ def stochastic_round_per_run(hnorm: torch.Tensor, levels: torch.Tensor,
 
 
 def stochastic_round_to_levels(hnorm: torch.Tensor, levels: torch.Tensor,
-                               seed: int, counter_base: int = 0
-                               ) -> torch.Tensor:
+                               seed: int, counter_base: int = 0, *,
+                               index0: int = 0) -> torch.Tensor:
     """SR of normalized activations in [0, B] onto ``levels`` (paper Eq. 8).
 
     Returns int32 codes (indices into ``levels``).  ``counter_base`` (a
@@ -84,11 +84,15 @@ def stochastic_round_to_levels(hnorm: torch.Tensor, levels: torch.Tensor,
     64-bit counter ``counter_base + index`` is carried as (low word, high
     word), the low word feeding the hash as the counter and the high word
     (with the per-element carry) folded into the seed through the hash.
-    ``hash(0) == 0``, so base 0 is the kernels' plain path.
+    ``hash(0) == 0``, so base 0 is the kernels' plain path.  ``index0``
+    is the global index of element 0 when ``hnorm`` is a shard of a larger
+    tensor: the counter is ``(index0 + index) mod 2**32``, as the
+    unsharded call would draw it.
     """
     base_hi, base_lo = divmod(int(counter_base), 1 << 32)
-    idx = torch.arange(hnorm.numel(), dtype=torch.int64,
-                       device=hnorm.device).reshape(hnorm.shape)
+    idx = (torch.arange(hnorm.numel(), dtype=torch.int64,
+                        device=hnorm.device).reshape(hnorm.shape)
+           + index0) & MASK32
     counter = (idx + base_lo) & MASK32
     carry = (counter < base_lo).to(torch.int64)
     hi_word = ((base_hi & MASK32) + carry) & MASK32
@@ -103,20 +107,26 @@ def _level_table(levels, bits: int, device) -> torch.Tensor:
 
 
 def quantize_grouped(blocks: torch.Tensor, bits: int, seed, levels=None, *,
-                     rows_per_seed: int | None = None
+                     rows_per_seed: int | None = None, row0: int = 0
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Quantize (n_blocks, G) -> (codes int32, zero f32, range f32).
 
     ``seed`` is a python int, or with ``rows_per_seed`` a tensor of one
-    seed per run of rows (:func:`stochastic_round_per_run`)."""
+    seed per run of rows (:func:`stochastic_round_per_run`).  ``row0`` is
+    the global block index of row 0 (a shard's rows draw the noise of the
+    unsharded call's)."""
     lv = _level_table(levels, bits, blocks.device)
     B = float(2**bits - 1)
     zero, rng = block_stats(blocks)
     safe = rng.clamp_min(EPS)
     hnorm = ((blocks - zero[:, None]) / safe[:, None] * B).clamp(0.0, B)
     if rows_per_seed is None:
-        codes = stochastic_round_to_levels(hnorm, lv, seed)
+        codes = stochastic_round_to_levels(hnorm, lv, seed,
+                                           index0=row0 * blocks.shape[1])
     else:
+        if row0:
+            raise ValueError("row0 offsets the one-seed stream; a seed "
+                             "table restarts its counter every run")
         codes = stochastic_round_per_run(hnorm, lv, seed, rows_per_seed)
     return codes, zero, rng
 

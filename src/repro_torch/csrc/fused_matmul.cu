@@ -997,19 +997,24 @@ int launch(Params p, const Levels& lv, cudaStream_t stream) {
 
 }  // namespace
 
-// The forward's CTA configurations by the width n of y, <NT, WN, MT, KW, S,
-// MINB> of fwd::launch: n <= 40, n <= 64, wider.
+// The forward's CTA configurations, <NT, WN, MT, KW, S, MINB> of
+// fwd::launch: 40, 64 and 256 columns of y a CTA (BN = 8 * NT * WN; a
+// wider y takes several column slabs).  The caller picks one by index
+// (kernels/autotune.py: a cached measurement, else the roofline's pick,
+// which is n <= 40, n <= 64, wider).
 constexpr int kFwd[3][6] = {
     {5, 1, 1, 16, 2, 3}, {8, 1, 1, 16, 4, 2}, {8, 4, 2, 16, 2, 2}};
-static int fwd_index(int n) { return n <= 40 ? 0 : n <= 64 ? 1 : 2; }
+constexpr int kConfigs = 3;
 
 // y (m, n) = x (m, d) @ w (d, n); packed (m*d/G, G*bits/32), zero and rng
-// (m*d/G,) the stash of x, bit-equal to quant_pack on x.reshape(-1, G).
+// (m*d/G,) the stash of x, bit-equal to quant_pack on x.reshape(-1, G),
+// with kFwd[config]'s CTA.
 extern "C" int matmul_quant(const float* x, const float* w, float* y,
                             uint32_t* packed, float* zero, float* rng,
                             long long m, int d, int n, int group_size,
                             int bits, unsigned int seed, const float* levels,
-                            int n_levels, void* stream) {
+                            int n_levels, int config, void* stream) {
+  if (config < 0 || config >= kConfigs) return cudaErrorInvalidValue;
   fwd::Params p{};
   p.x = x;
   p.w = w;
@@ -1030,7 +1035,7 @@ extern "C" int matmul_quant(const float* x, const float* w, float* y,
   const Levels lv = quant::make_levels(levels, n_levels);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr auto& f = kFwd;
-  switch (fwd_index(n)) {
+  switch (config) {
     case 0:
       return fwd::launch<f[0][0], f[0][1], f[0][2], f[0][3], f[0][4],
                          f[0][5]>(p, lv, s);
@@ -1044,15 +1049,18 @@ extern "C" int matmul_quant(const float* x, const float* w, float* y,
 }
 
 // The dynamic shared memory matmul_quant launches with for x (m, d) in
-// G-blocks and y of n columns (kernel_contracts states the same sum).
-extern "C" long long matmul_quant_smem(int d, int n, int group_size) {
+// G-blocks, y of n columns and kFwd[config] (kernel_contracts states the
+// same sum); -1 for an unknown config.
+extern "C" long long matmul_quant_smem(int d, int n, int group_size,
+                                       int config) {
+  if (config < 0 || config >= kConfigs) return -1;
   fwd::Params p{};
   p.d = d;
   p.n = n;
   p.G = group_size;
   fwd::chunking(p);
   constexpr auto& f = kFwd;
-  switch (fwd_index(n)) {
+  switch (config) {
     case 0:
       return static_cast<long long>(
           fwd::layout<8 * f[0][0] * f[0][1], f[0][3], f[0][4]>(p));
@@ -1065,27 +1073,31 @@ extern "C" long long matmul_quant_smem(int d, int n, int group_size) {
   }
 }
 
-// The backward's tiles, {rows of dw, columns, stash rows a stage}, and the
-// one dequant_matmul launches for a gradient of n columns.  The wrapper's
-// tile() sizes the row ranges and the scratch from the same table without
-// the library (on the CPU too); a gpu test holds the two equal.
-constexpr int kTiles[3][3] = {{128, 40, 64}, {128, 64, 64}, {64, 256, 32}};
+// The backward's tiles, {rows of dw, columns, stash rows a stage}, one of
+// which dequant_matmul launches, by index.  The wrapper's TILES sizes the
+// row ranges and the scratch from the same table without the library (on
+// the CPU too); a gpu test holds the two equal.
+constexpr int kTiles[kConfigs][3] = {
+    {128, 40, 64}, {128, 64, 64}, {64, 256, 32}};
 // Each tile's ring: {slots R, words a block at most MAXW on the ring path}.
-constexpr int kRing[3][2] = {{4, 64}, {3, 64}, {4, 16}};
-static int tile_index(int n) {
-  return n <= kTiles[0][1] ? 0 : n <= kTiles[1][1] ? 1 : 2;
-}
+constexpr int kRing[kConfigs][2] = {{4, 64}, {3, 64}, {4, 16}};
 
-extern "C" void dequant_matmul_tile(int n, int* tile) {
-  for (int i = 0; i < 3; ++i) tile[i] = kTiles[tile_index(n)][i];
+extern "C" void dequant_matmul_tile(int config, int* tile) {
+  for (int i = 0; i < 3; ++i)
+    tile[i] = config >= 0 && config < kConfigs ? kTiles[config][i] : -1;
 }
 
 // The dynamic shared memory dequant_matmul launches with for a stash of
 // d-wide rows in G-blocks of `bits`, packed words 16-byte aligned or not,
-// and an n-column gradient (out[0]), and the most its kernel is set up for
-// (out[1]); kernel_contracts states the same sums.
+// an n-column gradient and kTiles[config] (out[0]), and the most its kernel
+// is set up for (out[1]); kernel_contracts states the same sums.  -1 for
+// an unknown config.
 extern "C" void dequant_matmul_smem(int d, int n, int group_size, int bits,
-                                    int aligned, long long* out) {
+                                    int aligned, int config, long long* out) {
+  if (config < 0 || config >= kConfigs) {
+    out[0] = out[1] = -1;
+    return;
+  }
   bwd::Params p{};
   p.d = d;
   p.n = n;
@@ -1094,7 +1106,7 @@ extern "C" void dequant_matmul_smem(int d, int n, int group_size, int bits,
   p.W = group_size / (32 / bits);
   p.packed = reinterpret_cast<const uint32_t*>(
       static_cast<uintptr_t>(aligned ? 0 : 4));
-  const int i = tile_index(n);
+  const int i = config;
   const int bd = kTiles[i][0], bn = kTiles[i][1], ks = kTiles[i][2];
   const int r = kRing[i][0], maxw = kRing[i][1];
   out[0] = static_cast<long long>(bwd::smem_bytes(
@@ -1104,15 +1116,16 @@ extern "C" void dequant_matmul_smem(int d, int n, int group_size, int bits,
       bwd::smem_bytes(ks, bd, bn, r, bwd::slot_floats(ks, bn, 1, maxw)));
 }
 
-// dw (d, n) = dequant(packed)^T (d, m) @ g (m, n) over `splits` row ranges
-// of rows_per_split rows; part holds splits * d * n floats of scratch (it
-// may be dw itself when splits == 1).
+// dw (d, n) = dequant(packed)^T (d, m) @ g (m, n) with kTiles[config] over
+// `splits` row ranges of rows_per_split rows; part holds splits * d * n
+// floats of scratch (it may be dw itself when splits == 1).
 extern "C" int dequant_matmul(const uint32_t* packed, const float* zero,
                               const float* rng, const float* g, float* part,
                               float* dw, long long m, int d, int n,
                               int splits, long long rows_per_split,
                               int group_size, int bits, const float* levels,
-                              int n_levels, void* stream) {
+                              int n_levels, int config, void* stream) {
+  if (config < 0 || config >= kConfigs) return cudaErrorInvalidValue;
   bwd::Params p{};
   p.packed = packed;
   p.zero = zero;
@@ -1135,7 +1148,7 @@ extern "C" int dequant_matmul(const uint32_t* packed, const float* zero,
   constexpr auto& t = kTiles;
   constexpr auto& r = kRing;
   int err;
-  switch (tile_index(n)) {
+  switch (config) {
     case 0:
       err = bwd::launch<t[0][0], t[0][1], t[0][2], 8, 1, 5, 8, r[0][0],
                         r[0][1]>(p, lv, splits, s);

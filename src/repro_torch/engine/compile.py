@@ -25,6 +25,7 @@ from repro_torch.engine.forward import (mesh_gnn_forward, stash_gnn_forward,
 from repro_torch.engine.plan import ExecutionPlan, StashPolicy
 from repro_torch.graph.models import GNN, DeviceGraph, GNNConfig, device_graph
 from repro_torch.graph.sampling import make_subgraph_batches
+from repro_torch.kernels.autotune import StepTiles
 from repro_torch.obs.metrics import get_metrics
 from repro_torch.obs.session import NULL_SESSION
 from repro_torch.offload.engine import ArenaStore
@@ -56,9 +57,12 @@ def _sum_over(group, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
             zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
-def _built() -> None:
-    """Count one build of a step for a config (``engine/forward_builds``)."""
+def _built() -> StepTiles:
+    """Count one build of a step for a config (``engine/forward_builds``);
+    returns the build's table of fused-pair tiles (each shape resolved on
+    its first launch, as the reference resolves them at trace time)."""
     get_metrics().counter("engine/forward_builds").inc()
+    return StepTiles()
 
 
 def _arena_store(stash: StashPolicy, cfg: GNNConfig, graph: DeviceGraph):
@@ -88,24 +92,26 @@ class CompiledFull:
         self.store = _arena_store(stash, cfg, graph)
         self.state = adamw_init(model.flat_params(), opt)
         self.stash_bytes: list[int] = []
-        _built()
+        self.tiles = _built()
 
     def recompile(self, cfg: GNNConfig) -> "CompiledFull":
         """The autoprec refresh hook: new widths (and a new stash plan for
         them), the same model, optimizer state and graph."""
         self.cfg = cfg
         self.store = _arena_store(self.stash, cfg, self.graph)
-        _built()
+        self.tiles = _built()
         return self
 
     def step(self, epoch: int) -> torch.Tensor:
         params = self.model.flat_params()
-        logits = stash_gnn_forward(self.model, self.graph, self.cfg,
-                                   seeds.sr_seed(epoch), self.fused,
-                                   self.store)
-        self.stash_bytes = stash_nbytes(logits)
-        loss = masked_nll(logits, self.graph.labels, self.graph.train_mask)
-        grads = torch.autograd.grad(loss, params)
+        with self.tiles:
+            logits = stash_gnn_forward(self.model, self.graph, self.cfg,
+                                       seeds.sr_seed(epoch), self.fused,
+                                       self.store)
+            self.stash_bytes = stash_nbytes(logits)
+            loss = masked_nll(logits, self.graph.labels,
+                              self.graph.train_mask)
+            grads = torch.autograd.grad(loss, params)
         adamw_update(grads, self.state, params, self.opt)
         return loss.detach()
 
@@ -175,14 +181,14 @@ class CompiledPartition:
         self.state = adamw_init(model.flat_params(), opt)
         self._accum = torch.tensor(float(self.per_update), device=device)
         self.stash_bytes: list[int] = []
-        _built()
+        self.tiles = _built()
 
     def recompile(self, cfg: GNNConfig) -> "CompiledPartition":
         """The autoprec refresh hook: new widths (and a new stash plan for
         them), the same batches."""
         self.cfg = cfg
         self.store = _arena_store(self.stash, cfg, self.graphs[0])
-        _built()
+        self.tiles = _built()
         return self
 
     def epoch_data(self, order_rng: np.random.Generator) -> tuple:
@@ -193,11 +199,12 @@ class CompiledPartition:
         return (order_rng.permutation(self.n_batches),)
 
     def _micro(self, graph: DeviceGraph, seed: int):
-        logits = stash_gnn_forward(self.model, graph, self.cfg, seed,
-                                   self.fused, self.store)
-        self.stash_bytes = stash_nbytes(logits)
-        loss = masked_nll(logits, graph.labels, graph.train_mask)
-        return loss, torch.autograd.grad(loss, self.model.flat_params())
+        with self.tiles:
+            logits = stash_gnn_forward(self.model, graph, self.cfg, seed,
+                                       self.fused, self.store)
+            self.stash_bytes = stash_nbytes(logits)
+            loss = masked_nll(logits, graph.labels, graph.train_mask)
+            return loss, torch.autograd.grad(loss, self.model.flat_params())
 
     def step(self, epoch: int, order) -> torch.Tensor:
         params = self.model.flat_params()

@@ -7,10 +7,18 @@ version (:mod:`repro_torch.kernels.ref`), which a wrapper runs only for a
 tensor on the CPU.  For a CUDA tensor a wrapper launches its kernel or
 raises.  Each wrapper counts its launches in ``<wrapper>.launches``.
 
-The backward splits its row contraction into :func:`splits` contiguous
-ranges, each writing a (D, N) partial into scratch, and adds the partials
-in a fixed pairwise order; the split count is a function of the shapes
-alone, so a result is bit-identical from call to call.
+Each kernel has three compiled CTA configurations (``kFwd`` and
+``kTiles`` in the source, :data:`FWD_CONFIGS` and :data:`TILES` here); the
+caller names one by index, and the backward also its split count S.  A
+wrapper called without them takes :func:`repro_torch.kernels.autotune.
+resolve`'s choice: a cached measurement, else the roofline's pick, which
+is the fixed rule :func:`fwd_index` / :func:`tile_index` /
+:func:`splits` at every shape the port launches.
+
+The backward splits its row contraction into S contiguous ranges, each
+writing a (D, N) partial into scratch, and adds the partials in a fixed
+pairwise order; for a given configuration and S a result is bit-identical
+from call to call.
 """
 from __future__ import annotations
 
@@ -34,18 +42,48 @@ MAX_SMEM = 232_448 - 64
 #: The backward's row ranges aim at TARGET_CTAS CTAs over all of them, one
 #: an SM (at most MAX_SPLITS ranges).
 TARGET_CTAS, MAX_SPLITS = 128, 64
+#: Rows of x (and y) a forward CTA takes (``fwd::kBM``).
+FWD_ROWS = 64
+#: The forward's compiled CTA configurations (``kFwd``): (NT, WN, MT, KW,
+#: S, MINB); a CTA takes ``8 * NT * WN`` columns of y (40, 64, 256), a
+#: wider y several column slabs.
+FWD_CONFIGS = ((5, 1, 1, 16, 2, 3), (8, 1, 1, 16, 4, 2), (8, 4, 2, 16, 2, 2))
+#: The backward's compiled tiles (``kTiles``): (rows of dw, columns, stash
+#: rows a stage); a wider dw takes several column tiles.
+TILES = ((128, 40, 64), (128, 64, 64), (64, 256, 32))
 
 
-def tile(n: int) -> tuple[int, int, int]:
+def fwd_columns(config: int) -> int:
+    """Columns of y a forward CTA of ``config`` takes."""
+    nt, wn = FWD_CONFIGS[config][:2]
+    return 8 * nt * wn
+
+
+def covers(columns: int, n: int, widest: int) -> bool:
+    """A configuration of ``columns`` columns a CTA covers an n-column
+    output when one CTA spans it, or when it is the widest (which steps
+    over wider outputs in column slabs)."""
+    return n <= columns or columns == widest
+
+
+def fwd_index(n: int) -> int:
+    """The fixed rule: the narrowest forward configuration covering n."""
+    return next(i for i in range(len(FWD_CONFIGS))
+                if n <= fwd_columns(i) or i == len(FWD_CONFIGS) - 1)
+
+
+def tile_index(n: int) -> int:
+    """The fixed rule: the narrowest backward tile covering n."""
+    return next(i for i, t in enumerate(TILES)
+                if n <= t[1] or i == len(TILES) - 1)
+
+
+def tile(n: int, config: int | None = None) -> tuple[int, int, int]:
     """(rows of dw, columns, stash rows a stage) of the backward's CTA tile
-    for an (M, n) gradient: every column of dw up to 256 in one CTA.  The
+    ``config`` (default: the fixed rule for an (M, n) gradient).  The
     kernel launches the same tile (``dequant_matmul_tile`` in
     ``csrc/fused_matmul.cu``, held equal by a ``gpu`` test)."""
-    if n <= 40:
-        return 128, 40, 64
-    if n <= 64:
-        return 128, 64, 64
-    return 64, 256, 32
+    return TILES[tile_index(n) if config is None else config]
 
 
 @functools.lru_cache(maxsize=None)
@@ -56,37 +94,44 @@ def _lib(defines: tuple = ()) -> ctypes.CDLL:
     lib.matmul_quant.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_uint32, _P,
-                                 ctypes.c_int, _P]
+                                 ctypes.c_int, ctypes.c_int, _P]
     lib.dequant_matmul.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_longlong, ctypes.c_int,
-                                   ctypes.c_int, _P, ctypes.c_int, _P]
+                                   ctypes.c_int, _P, ctypes.c_int,
+                                   ctypes.c_int, _P]
     lib.matmul_quant.restype = lib.dequant_matmul.restype = ctypes.c_int
     lib.dequant_matmul_tile.argtypes = [ctypes.c_int, _P]
     lib.dequant_matmul_tile.restype = None
-    # the launches' dynamic shared memory (held to the kernel contracts)
-    lib.matmul_quant_smem.argtypes = [ctypes.c_int] * 3
+    # the launches' dynamic shared memory by configuration (held to the
+    # kernel contracts)
+    lib.matmul_quant_smem.argtypes = [ctypes.c_int] * 4
     lib.matmul_quant_smem.restype = ctypes.c_longlong
-    lib.dequant_matmul_smem.argtypes = [ctypes.c_int] * 5 + [_P]
+    lib.dequant_matmul_smem.argtypes = [ctypes.c_int] * 6 + [_P]
     lib.dequant_matmul_smem.restype = None
     return lib
 
 
-def splits(m: int, d: int, n: int) -> tuple[int, int]:
+def splits(m: int, d: int, n: int, config: int | None = None,
+           s: int | None = None) -> tuple[int, int]:
     """(S, rows per range) of the backward's row contraction for an (m, d)
-    stash and an (m, n) gradient; the scratch is ``S * d * n`` floats when
-    ``S > 1``.  Ranges are whole stages of the kernel's tile."""
-    bd, bn, ks = tile(n)
-    tiles = math.ceil(d / bd) * math.ceil(n / bn)
+    stash and an (m, n) gradient with tile ``config`` (default: the fixed
+    rule); the scratch is ``S * d * n`` floats when ``S > 1``.  Ranges are
+    whole stages of the tile: ``s`` asks for that many (the count that
+    results may be lower), and by default ranges aim at TARGET_CTAS CTAs."""
+    bd, bn, ks = tile(n) if config is None else TILES[config]
     steps = max(1, math.ceil(m / ks))
-    s = min(MAX_SPLITS, steps, max(1, math.ceil(TARGET_CTAS / tiles)))
+    if s is None:
+        tiles = math.ceil(d / bd) * math.ceil(n / bn)
+        s = min(MAX_SPLITS, steps, max(1, math.ceil(TARGET_CTAS / tiles)))
     rows = math.ceil(steps / s) * ks
     return max(1, math.ceil(m / rows)), rows
 
 
-def scratch_nbytes(m: int, d: int, n: int) -> int:
+def scratch_nbytes(m: int, d: int, n: int, config: int | None = None,
+                   s: int | None = None) -> int:
     """Bytes of the backward's partials (0 when one range covers all rows)."""
-    s, _ = splits(m, d, n)
+    s, _ = splits(m, d, n, config, s)
     return 4 * s * d * n if s > 1 else 0
 
 
@@ -133,10 +178,12 @@ def _aligned(name: str, m: int, d: int, g: int) -> None:
 
 
 def matmul_quant(x2d: torch.Tensor, w: torch.Tensor, bits: int, seed: int,
-                 levels=None, *, group_size: int):
+                 levels=None, *, group_size: int, config: int | None = None):
     """``y = x @ w`` and the stash of ``x``: (y (M, N), packed int32
     (M*D/G, G*bits/32), zero (M*D/G,), rng (M*D/G,)), the stash bit-equal
-    to ``quant_pack(x.reshape(-1, G))``."""
+    to ``quant_pack(x.reshape(-1, G))``.  ``config`` indexes
+    :data:`FWD_CONFIGS` (default: :func:`repro_torch.kernels.autotune.
+    resolve`'s)."""
     if not x2d.is_cuda:
         return ref.matmul_quantize_packed(x2d, w, bits, seed, levels,
                                           group_size=group_size)
@@ -157,6 +204,12 @@ def matmul_quant(x2d: torch.Tensor, w: torch.Tensor, bits: int, seed: int,
     _need(4 * (g + 2) <= MAX_SMEM,
           f"matmul_quant stages one block of G={g} floats in shared memory, "
           f"at most {MAX_SMEM // 4 - 2}")
+    if config is None:
+        from repro_torch.kernels import autotune
+
+        (config,) = autotune.resolve("fwd", m, d, n, bits, g)
+    _need(0 <= config < len(FWD_CONFIGS),
+          f"matmul_quant: no compiled configuration {config}")
     nb = m * d // g
     dev = x2d.device
     y = torch.empty((m, n), dtype=torch.float32, device=dev)
@@ -167,16 +220,20 @@ def matmul_quant(x2d: torch.Tensor, w: torch.Tensor, bits: int, seed: int,
         build.check(_lib().matmul_quant(
             x2d.data_ptr(), w.data_ptr(), y.data_ptr(), packed.data_ptr(),
             zero.data_ptr(), rng.data_ptr(), m, d, n, g, bits,
-            int(seed) & MASK32, lv, n_lv, _stream()), "matmul_quant")
+            int(seed) & MASK32, lv, n_lv, config, _stream()), "matmul_quant")
         matmul_quant.launches += 1
     return y, packed, zero, rng
 
 
 def dequant_matmul(packed: torch.Tensor, zero: torch.Tensor,
                    rng: torch.Tensor, g2d: torch.Tensor, bits: int,
-                   group_size: int, d: int, levels=None) -> torch.Tensor:
+                   group_size: int, d: int, levels=None, *,
+                   config: int | None = None,
+                   n_splits: int | None = None) -> torch.Tensor:
     """``dw = dequant(packed)^T @ g`` (d, N) for the stash of an (M, d)
-    input and its (M, N) output gradient ``g2d``."""
+    input and its (M, N) output gradient ``g2d``, with tile ``config`` of
+    :data:`TILES` over ``n_splits`` row ranges (default:
+    :func:`repro_torch.kernels.autotune.resolve`'s)."""
     if not packed.is_cuda:
         return ref.dequant_matmul_packed(packed, zero, rng, g2d, bits,
                                          group_size, d, levels)
@@ -201,13 +258,19 @@ def dequant_matmul(packed: torch.Tensor, zero: torch.Tensor,
     dw = torch.empty((d, n), dtype=torch.float32, device=g2d.device)
     if m == 0 or d == 0 or n == 0:
         return dw.zero_()
-    s, rows = splits(m, d, n)
+    if config is None:
+        from repro_torch.kernels import autotune
+
+        config, n_splits = autotune.resolve("bwd", m, d, n, bits, group_size)
+    _need(0 <= config < len(TILES),
+          f"dequant_matmul: no compiled tile {config}")
+    s, rows = splits(m, d, n, config, n_splits)
     part = (torch.empty((s, d, n), dtype=torch.float32, device=g2d.device)
             if s > 1 else dw)
     build.check(_lib().dequant_matmul(
         packed.data_ptr(), zero.data_ptr(), rng.data_ptr(), g2d.data_ptr(),
         part.data_ptr(), dw.data_ptr(), m, d, n, s, rows, group_size, bits,
-        lv, n_lv, _stream()), "dequant_matmul")
+        lv, n_lv, config, _stream()), "dequant_matmul")
     dequant_matmul.launches += 1
     return dw
 

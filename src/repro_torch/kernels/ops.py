@@ -69,14 +69,17 @@ def static_levels(levels):
 
 
 def quantize_packed(x2d, bits: int, seed, levels=None, *,
-                    impl: str = "auto", rows_per_seed: int | None = None):
+                    impl: str = "auto", rows_per_seed: int | None = None,
+                    row0: int = 0):
     """(n_blocks, G) f32 -> (packed int32, zero (n,), rng (n,)).  ``seed``
-    is an int, or a tensor of one seed per run of ``rows_per_seed`` rows."""
+    is an int, or a tensor of one seed per run of ``rows_per_seed`` rows;
+    ``row0`` is the global block index of row 0 (a shard's offset)."""
     levels = static_levels(levels)
     if _plain(impl, x2d.device):
         return refmod.quantize_packed(x2d, bits, seed, levels,
-                                      rows_per_seed=rows_per_seed)
-    return qk.quant_pack(x2d, bits, seed, levels, rows_per_seed=rows_per_seed)
+                                      rows_per_seed=rows_per_seed, row0=row0)
+    return qk.quant_pack(x2d, bits, seed, levels, rows_per_seed=rows_per_seed,
+                         row0=row0)
 
 
 def dequantize_packed(packed, zero, rng, bits: int, group_size: int,

@@ -30,7 +30,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("quant_blockwise")
     lib.quant_pack.argtypes = [_P, _P, _P, _P, ctypes.c_longlong,
                                ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
-                               _P, ctypes.c_int, _P, ctypes.c_int, _P]
+                               _P, ctypes.c_int, ctypes.c_uint32, _P,
+                               ctypes.c_int, _P]
     lib.dequant_unpack.argtypes = [_P, _P, _P, _P, ctypes.c_longlong,
                                    ctypes.c_int, ctypes.c_int, _P,
                                    ctypes.c_int, _P]
@@ -101,7 +102,7 @@ def _seed_run_length(seed, n: int, rows_per_seed: int | None) -> int:
 
 
 def quant_pack(x2d: torch.Tensor, bits: int, seed, levels=None, *,
-               rows_per_seed: int | None = None):
+               rows_per_seed: int | None = None, row0: int = 0):
     """(n_blocks, G) f32 -> (packed int32 (n, ceil(G*bits/32)), zero (n,),
     rng (n,)).
 
@@ -110,11 +111,18 @@ def quant_pack(x2d: torch.Tensor, bits: int, seed, levels=None, *,
     ``rows_per_seed`` rows, on the input's device: row r takes
     ``seed[r // rows_per_seed]`` and counter ``(r % rows_per_seed) * G +
     col`` (each run quantized as if alone, as the serving KV cache
-    quantizes each token)."""
+    quantizes each token).
+
+    ``row0`` (one seed only) is the global block index of row 0: a shard
+    of a larger input draws counter ``(row0 + row) * G + col`` (mod
+    2**32), so its words are the unsharded call's rows bit for bit."""
     rps = _seed_run_length(seed, x2d.shape[0], rows_per_seed)
+    if row0 and rps:
+        raise ValueError("row0 offsets the one-seed stream; a seed table "
+                         "restarts its counter every run")
     if not x2d.is_cuda:
         return ref.quantize_packed(x2d, bits, seed, levels,
-                                   rows_per_seed=rows_per_seed)
+                                   rows_per_seed=rows_per_seed, row0=row0)
     if x2d.dtype != torch.float32 or x2d.dim() != 2:
         raise ValueError(f"quant_pack needs a 2-D float32 tensor, got "
                          f"{x2d.dtype} {tuple(x2d.shape)}")
@@ -134,8 +142,8 @@ def quant_pack(x2d: torch.Tensor, bits: int, seed, levels=None, *,
         build.check(_lib().quant_pack(
             x2d.data_ptr(), packed.data_ptr(), zero.data_ptr(),
             rng.data_ptr(), n, g, bits, 0 if rps else int(seed) & MASK32,
-            None if seeds is None else seeds.data_ptr(), rps, lv, n_lv,
-            _stream()), "quant_pack")
+            None if seeds is None else seeds.data_ptr(), rps,
+            int(row0) & MASK32, lv, n_lv, _stream()), "quant_pack")
         quant_pack.launches += 1
     return packed, zero, rng
 

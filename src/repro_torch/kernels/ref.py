@@ -15,13 +15,15 @@ from repro_torch.core import random_projection as rpmod
 
 
 def quantize_packed(x2d: torch.Tensor, bits: int, seed, levels=None, *,
-                    rows_per_seed: int | None = None):
+                    rows_per_seed: int | None = None, row0: int = 0):
     """(n_blocks, G) f32 -> (packed int32 (n_blocks, G*bits/32), zero, rng).
 
     ``seed``: a python int, or a tensor of one seed per run of
-    ``rows_per_seed`` rows (each run's counter restarts at 0)."""
+    ``rows_per_seed`` rows (each run's counter restarts at 0).  ``row0``:
+    the global block index of row 0 (one seed only)."""
     codes, zero, rng = quantmod.quantize_grouped(x2d, bits, seed, levels,
-                                                 rows_per_seed=rows_per_seed)
+                                                 rows_per_seed=rows_per_seed,
+                                                 row0=row0)
     return packmod.pack(codes, bits), zero, rng
 
 

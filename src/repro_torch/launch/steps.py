@@ -1,14 +1,42 @@
 """Step functions the launchers and tests drive (the reference's
 ``repro.launch.steps``): train (with gradient accumulation), prefill and
 decode.  The model's parameters and the optimizer state are updated in
-place, where the reference returns new ones."""
+place, where the reference returns new ones.
+
+A model whose parameters are DTensors (``parallel.sharding.distribute_
+model``) trains sharded through the same step: DTensor's implicit
+replication is on for the step, so the model's plain constants (positions,
+masks, the rotary table) act as replicated tensors, gradients are brought
+to their parameters' placements, and the loss is read with
+``full_tensor()``."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from repro_torch.core import backend
 from repro_torch.engine.seeds import step_seed
 from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.optim.adamw import placed
+
+
+def sharded_ops(params):
+    """DTensor's implicit replication where any of ``params`` is a
+    DTensor, else nothing."""
+    from torch.distributed.tensor import DTensor
+
+    if not any(isinstance(p, DTensor) for p in params):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
+def full_value(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's global value as a plain tensor (a plain tensor as it
+    is)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
 def make_train_step(model, opt: AdamWConfig, accum_dtype=torch.float32,
@@ -41,26 +69,30 @@ def make_train_step(model, opt: AdamWConfig, accum_dtype=torch.float32,
 
     def train_step(opt_state: dict, batch: dict) -> dict:
         step = opt_state["step"]
-        if cfg.grad_accum > 1:
-            a = cfg.grad_accum
-            grads = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
-                     for p in params]
-            losses = []
-            for i in range(a):
-                mb = {k: v.reshape(a, v.shape[0] // a, *v.shape[1:])[i]
-                      for k, v in batch.items()}
-                loss = loss_fn(mb, step)
-                for s, g in zip(grads, torch.autograd.grad(loss, params)):
-                    s.add_(g.to(accum_dtype))
-                losses.append(loss.detach())
-            div = torch.tensor(a, dtype=accum_dtype, device=grads[0].device)
-            grads = [g / div for g in grads]
-            loss = torch.stack(losses).mean()
-        else:
-            loss = loss_fn(batch, step)
-            grads = torch.autograd.grad(loss, params)
-        adamw_update(grads, opt_state, params, opt)
-        return {"loss": loss.detach()}
+        with sharded_ops(params):
+            if cfg.grad_accum > 1:
+                a = cfg.grad_accum
+                grads = [torch.zeros_like(p, dtype=accum_dtype)
+                         for p in params]
+                losses = []
+                for i in range(a):
+                    mb = {k: v.reshape(a, v.shape[0] // a, *v.shape[1:])[i]
+                          for k, v in batch.items()}
+                    loss = loss_fn(mb, step)
+                    for s, g, p in zip(grads,
+                                       torch.autograd.grad(loss, params),
+                                       params):
+                        s.add_(placed(g, p).to(accum_dtype))
+                    losses.append(full_value(loss.detach()))
+                div = torch.tensor(a, dtype=accum_dtype,
+                                   device=losses[0].device)
+                grads = [g / div for g in grads]
+                loss = torch.stack(losses).mean()
+            else:
+                loss = loss_fn(batch, step)
+                grads = torch.autograd.grad(loss, params)
+            adamw_update(grads, opt_state, params, opt)
+        return {"loss": full_value(loss.detach())}
 
     return train_step
 

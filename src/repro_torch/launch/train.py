@@ -33,13 +33,26 @@ for; without a card the default raises.  Two halves:
   as a dense one is; its ``--seq`` must be a multiple of the config's
   ``ssm_chunk`` (128, 16 for ``--smoke``).  Prints ``steps=N loss a ->
   b``; ``main`` returns one ``{"step", "loss", "dt"}`` a step.
-  ``--production-mesh`` raises: LM sharding is not ported (A.12b).
+  The model trains on a (data, model) device mesh, as the reference's
+  does: ``--production-mesh`` builds the reference's (16, 16) mesh over
+  the default process group's ranks (it raises, naming the 256 ranks,
+  on any other world), else a (1, 1) mesh of this rank.  The launcher
+  installs :func:`~repro_torch.parallel.annotate.rules_for`'s rules,
+  lays the parameters out by
+  :func:`~repro_torch.parallel.sharding.param_pspecs` and each batch by
+  ``batch_pspecs`` (as DTensors; nothing changes on one rank) and reads
+  the loss with ``full_tensor()``.  The dense family (``dense``,
+  ``vlm``) runs sharded; the other families raise on a mesh of more than
+  one rank (port slice 19).
 * **Graph** (``--graph-batches N`` or ``--mesh-parts N``): the GNN
   engines on an arxiv/flickr/papers100m-like graph.  The flags lower onto
   one :class:`~repro_torch.engine.plan.ExecutionPlan`; ``engine.runner.run``
   and ``activation_memory_report`` read that same plan.  ``--mesh-parts``
   trains on the ranks of the default ``torch.distributed`` process group
-  when one is initialized, else on one rank.  ``main`` returns the run's
+  when one is initialized, else on one rank.  With ``--production-mesh``
+  the mini-batch engine spreads its batches over the production mesh's
+  data axes (this rank's ("pod", "data") process group, ``dp_size``
+  ranks), as the reference shards them.  ``main`` returns the run's
   history: the port records ``(epoch, loss, ms)`` every epoch (the host
   time through the loss read-back), where the reference prints
   ``(epoch, loss, val_acc)`` every ``eval_every`` epochs.
@@ -55,11 +68,13 @@ from repro_torch.configs import get, reduce_for_smoke
 from repro_torch.core.compressor import CompressionConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.data import batch_for_step
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import Model
 from repro_torch.models.transformer import check_family
 from repro_torch.obs import ObsPolicy, stopwatch
 from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.parallel import annotate, sharding
 from repro_torch.runtime import StragglerMonitor, TrainRunner
 
 
@@ -101,7 +116,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--fail-at", type=int, default=None,
                     help="inject a failure before this step")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the reference's pod mesh; not ported (raises)")
+                    help="the reference's (16, 16) (data, model) mesh over "
+                         "the default process group's 256 ranks")
     ap.add_argument("--graph-batches", type=int, default=0, metavar="N_PARTS",
                     help="train the GNN with the partition-sampled "
                          "mini-batch engine (--steps counts epochs)")
@@ -146,9 +162,6 @@ def graph_plan(args):
         obs_policy = ObsPolicy(enabled=True,
                                quant_stats=args.act_mode == "act",
                                quant_stats_every=args.obs_quant_every)
-    if args.production_mesh:
-        raise NotImplementedError("--production-mesh (the reference's pod "
-                                  "mesh) is not ported (ROADMAP A.12b)")
     if args.mesh_parts:
         # the mesh engine on the default process group (one rank without
         # one); stash and precision knobs belong to the other engines
@@ -183,9 +196,12 @@ def graph_main(args) -> dict:
                     n_classes=g.num_classes, compression=comp)
     lr = args.lr if args.lr is not None else 5e-3   # GNN engines' default
     plan = graph_plan(args)
+    group = None
+    if args.production_mesh and not args.mesh_parts:
+        group = data_group(make_production_mesh(device=device))
     print(f"plan: {plan.describe()}")
     r = engine_run(g, cfg, plan, AdamWConfig(lr=lr, weight_decay=0.0),
-                   n_epochs=args.steps, seed=0, device=device)
+                   n_epochs=args.steps, seed=0, device=device, mesh=group)
     if args.mesh_parts:
         pg = r["pager"]
         print(f"mesh: {r['mesh_devices']} devices x "
@@ -249,11 +265,16 @@ def graph_main(args) -> dict:
 
 
 # --------------------------------------------------------------------- LM
+def data_group(mesh):
+    """This rank's process group over ``mesh``'s data axes (("pod",
+    "data") or ("data",)): the ranks it shares a batch split with."""
+    axes = sharding.dp_axes(mesh)
+    sub = mesh[axes] if len(axes) > 1 else mesh[axes[0]]
+    return (sub._flatten() if len(axes) > 1 else sub).get_group()
+
+
 def lm_config(args):
     """The ArchConfig the LM flags name."""
-    if args.production_mesh:
-        raise NotImplementedError("--production-mesh: LM sharding is not "
-                                  "ported (ROADMAP A.12b)")
     cfg = get(args.arch)
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
@@ -279,8 +300,12 @@ def lm_main(args) -> dict:
     ``make_batch`` (so a caller can run and inspect further steps)."""
     device = resolve_device(args.device)
     cfg = lm_config(args)
+    mesh = (make_production_mesh(device=device) if args.production_mesh
+            else make_local_mesh(device))
+    annotate.set_rules(**annotate.rules_for(cfg, mesh, args.batch))
     model = Model(cfg, device=device,
                   generator=torch.Generator(device).manual_seed(0))
+    sharding.distribute_model(model, mesh)
     lr = args.lr if args.lr is not None else 3e-4
     opt = AdamWConfig(lr=lr, weight_decay=0.01, grad_clip=1.0,
                       warmup_steps=min(20, args.steps // 5),
@@ -305,7 +330,7 @@ def lm_main(args) -> dict:
             b["enc_embeds"] = torch.randn(
                 (args.batch, args.seq, cfg.d_model), generator=gen,
                 device=device).to(torch.bfloat16)
-        return b
+        return sharding.distribute_batch(cfg, b, mesh)
 
     state = (model, opt_state)
     if args.ckpt_dir:
@@ -325,7 +350,7 @@ def lm_main(args) -> dict:
         print(f"steps={len(hist)} loss {hist[0]['loss']:.4f} -> "
               f"{hist[-1]['loss']:.4f}")
     return {"history": hist, "model": state[0], "opt_state": state[1],
-            "step_fn": step_fn, "make_batch": make_batch}
+            "step_fn": step_fn, "make_batch": make_batch, "mesh": mesh}
 
 
 def main(argv=None):

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, mm, rmsnorm
+from repro_torch.parallel.annotate import shard
 
 NEG_INF = -1e30
 
@@ -66,7 +67,11 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     """The reference's ``online_attention`` (its ``k_chunk`` scan) in
     differentiable torch ops: keys and values padded to whole chunks, one
     online-softmax step a chunk with float32 running max, sum and
-    accumulator.  Shapes as :func:`online_attention`'s."""
+    accumulator.  Shapes as :func:`online_attention`'s.  DTensor inputs
+    attend shard by shard (:func:`_attend_shards`)."""
+    if hasattr(q, "to_local"):
+        return _attend_shards(q, k, v, causal=causal, q_offset=q_offset,
+                              kv_len=kv_len, k_chunk=k_chunk)
     b, sq, h, dh = q.shape
     skv = k.shape[1]
     scale = float(1.0 / np.sqrt(dh))
@@ -102,14 +107,56 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     return out.transpose(1, 2).to(q.dtype)                        # B,Sq,H,Dh
 
 
+def _attend_shards(q, k, v, *, causal: bool, q_offset: int, kv_len,
+                   k_chunk: int):
+    """:func:`chunked_attention` of DTensors, each rank over its own shard:
+    q, k and v laid out by the reference's logical axes (batch, heads and,
+    for long queries where the heads do not divide, the query positions;
+    k and v whole along the keys), then the scan on the local tensors
+    with the query shard's global offset.  The scan's operands and its
+    running max, sum and accumulator so keep the layout the reference's
+    ``shard`` sites give them (``src/repro/models/attention.py:44-46,
+    61, 77-85``), and no op of the scan crosses a shard, so none sends
+    anything; torch 2.11's DTensor cannot flatten the batch and a sharded
+    head dim for the scan's batched products, and this keeps the scan out
+    of DTensor.  Raises where k and v are not laid out as q (a layout the
+    rules never give)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    sp = "q_seq" if q.shape[1] >= 2048 else None
+    q = shard(q, "batch", sp, "heads", None)
+    k = shard(k, "batch", None, "heads", None)
+    v = shard(v, "batch", None, "heads", None)
+    want = tuple(p for p in q.placements)
+    for name, t in (("k", k), ("v", v)):
+        ok = all(tp == qp or (qp.is_shard(1) and tp.is_replicate())
+                 for tp, qp in zip(t.placements, want))
+        if not ok or any(p.is_partial() or p.is_shard(3) for p in want):
+            raise ValueError(f"attention shards: q {want}, {name} "
+                             f"{t.placements}")
+    _, offset = compute_local_shape_and_global_offset(
+        tuple(q.shape), q.device_mesh, want)
+    out = chunked_attention(q.to_local(), k.to_local(), v.to_local(),
+                            causal=causal, q_offset=q_offset + offset[1],
+                            kv_len=kv_len, k_chunk=k_chunk).contiguous()
+    return DTensor.from_local(out, q.device_mesh, want, shape=q.shape,
+                              stride=torch.empty(q.shape,
+                                                 device="meta").stride())
+
+
 def qkv_project(x, p, cfg, positions):
     """x (B,S,D) -> q (B,S,H,Dh), k/v (B,S,Hkv,Dh) with rope + qk-norm.
     ``p`` holds the layer's attention weights (``wq``, ``wk``, ``wv``, and
     ``bq``/``bk``/``bv``, ``q_norm``/``k_norm`` where the config has them)."""
     b, s, _ = x.shape
-    q = mm(x, p.wq).reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = mm(x, p.wk).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    v = mm(x, p.wv).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    q = shard(mm(x, p.wq), "batch", None, "attn_out")
+    k = shard(mm(x, p.wk), "batch", None, "kv_out")
+    v = shard(mm(x, p.wv), "batch", None, "kv_out")
+    q = q.reshape(b, s, cfg.n_heads, cfg.d_head)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
     if cfg.qkv_bias:
         q = q + p.bq.reshape(1, 1, cfg.n_heads, cfg.d_head).to(q.dtype)
         k = k + p.bk.reshape(1, 1, cfg.n_kv_heads, cfg.d_head).to(k.dtype)
@@ -119,6 +166,9 @@ def qkv_project(x, p, cfg, positions):
         k = rmsnorm(k, p.k_norm)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard(q, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "kv_heads", None)
+    v = shard(v, "batch", None, "kv_heads", None)
     return q, k, v
 
 
@@ -132,7 +182,9 @@ def attention_block(x, p, cfg, *, causal=True, k_chunk: int = 1024):
     n_rep = cfg.n_heads // cfg.n_kv_heads
     out = chunked_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
                             causal=causal, k_chunk=k_chunk)
-    return mm(out.reshape(b, s, cfg.n_heads * cfg.d_head), p.wo)
+    out = shard(out.reshape(b, s, cfg.n_heads * cfg.d_head), "batch", None,
+                "attn_out")
+    return mm(out, p.wo)
 
 
 def cross_attention_block(x, p, cfg, enc_out, *, online: bool = False,

@@ -13,6 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.annotate import shard
+
 
 def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in the promoted dtype of the two (JAX's ``x @ w``)."""
@@ -52,7 +54,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 
 def swiglu(x, w_gate, w_up, w_down):
-    return mm(F.silu(mm(x, w_gate)) * mm(x, w_up), w_down)
+    h = F.silu(mm(x, w_gate)) * mm(x, w_up)
+    if h.ndim == 3:
+        h = shard(h, "batch", None, "dff")
+    return mm(h, w_down)
+
+
+def normal(shape, generator, device=None) -> torch.Tensor:
+    """N(0, 1) float32 drawn from ``generator`` (on ``device``, default
+    the generator's); ``generator`` may be a device instead, where the
+    result holds shapes alone (no draw: ``meta``)."""
+    if isinstance(generator, torch.device):
+        return torch.empty(shape, device=device or generator)
+    return torch.randn(shape, generator=generator,
+                       device=device or generator.device)
 
 
 def dense_init(d_in: int, d_out: int, generator: torch.Generator, *,
@@ -61,13 +76,9 @@ def dense_init(d_in: int, d_out: int, generator: torch.Generator, *,
     """N(0, 1) * scale (default ``1/sqrt(d_in)``), drawn in float32 from
     ``generator`` (which sets the device unless ``device`` is given)."""
     scale = scale if scale is not None else 1.0 / np.sqrt(d_in)
-    device = device or generator.device
-    return (torch.randn((d_in, d_out), generator=generator, device=device)
-            * scale).to(dtype)
+    return (normal((d_in, d_out), generator, device) * scale).to(dtype)
 
 
 def embed_init(vocab: int, d_model: int, generator: torch.Generator, *,
                dtype=torch.bfloat16, device=None) -> torch.Tensor:
-    device = device or generator.device
-    return (torch.randn((vocab, d_model), generator=generator, device=device)
-            * 0.02).to(dtype)
+    return (normal((vocab, d_model), generator, device) * 0.02).to(dtype)

@@ -59,10 +59,11 @@ from repro_torch.core.compressor import CompressionConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.prng import MASK32
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (dense_init, embed_init, mm, rmsnorm,
-                                       swiglu)
+from repro_torch.models.layers import (dense_init, embed_init, mm, normal,
+                                       rmsnorm, swiglu)
 from repro_torch.models import ssm as ssmmod
 from repro_torch.models.moe import moe_ffn
+from repro_torch.parallel.annotate import shard
 
 #: The families Model runs (all of the reference's).
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
@@ -88,9 +89,14 @@ def shared_cfg(cfg):
 
 
 # ============================================================ param init
+def _dev(gen) -> torch.device:
+    """The device of a generator, or the device itself (shapes alone)."""
+    return gen if isinstance(gen, torch.device) else gen.device
+
+
 def _attn_params(cfg, gen: torch.Generator, d_in=None) -> dict:
     d = d_in or cfg.d_model
-    dev = gen.device
+    dev = _dev(gen)
     p = {
         "wq": dense_init(d, cfg.n_heads * cfg.d_head, gen),
         "wk": dense_init(d, cfg.n_kv_heads * cfg.d_head, gen),
@@ -114,7 +120,7 @@ def _mlp_params(d_model: int, d_ff: int, gen: torch.Generator) -> dict:
 
 
 def _dense_layer_params(cfg, gen: torch.Generator) -> dict:
-    dev = gen.device
+    dev = _dev(gen)
     return {"ln1": torch.ones(cfg.d_model, device=dev),
             "attn": _attn_params(cfg, gen),
             "ln2": torch.ones(cfg.d_model, device=dev),
@@ -126,14 +132,16 @@ def _experts(n: int, d_in: int, d_out: int, gen: torch.Generator):
     the float32 draw is one expert's, not the stack's (arctic's would be
     17.8 GB)."""
     out = torch.empty((n, d_in, d_out), dtype=torch.bfloat16,
-                      device=gen.device)
+                      device=_dev(gen))
+    if isinstance(gen, torch.device):
+        return out                       # shapes alone
     for i in range(n):
         out[i] = dense_init(d_in, d_out, gen)
     return out
 
 
 def _moe_layer_params(cfg, gen: torch.Generator) -> dict:
-    dev = gen.device
+    dev = _dev(gen)
     e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
     p = {"ln1": torch.ones(d, device=dev),
          "attn": _attn_params(cfg, gen),
@@ -152,13 +160,12 @@ def _ssm_layer_params(cfg, gen: torch.Generator) -> dict:
     """A Mamba-2 layer: its norm and the mixer's unfused projections, the
     convs N(0, 1) * 0.2 in bf16, ``a_log`` 0, ``d_skip`` 1, ``dt_bias``
     and the conv biases 0."""
-    dev = gen.device
+    dev = _dev(gen)
     d_inner, n_heads = ssmmod.ssm_dims(cfg)
     d, n = cfg.d_model, cfg.ssm_state
 
     def conv(c):
-        return (torch.randn((cfg.ssm_conv, c), generator=gen, device=dev)
-                * 0.2).to(torch.bfloat16)
+        return (normal((cfg.ssm_conv, c), gen) * 0.2).to(torch.bfloat16)
 
     zeros = functools.partial(torch.zeros, device=dev)
     return {"ln": torch.ones(d, device=dev),
@@ -180,7 +187,7 @@ def _ssm_layer_params(cfg, gen: torch.Generator) -> dict:
 def _shared_attn_params(cfg, gen: torch.Generator) -> dict:
     """The hybrid's shared block at width 2 * d_model, and its ``down``
     projection back to d_model."""
-    dev, d2 = gen.device, 2 * cfg.d_model
+    dev, d2 = _dev(gen), 2 * cfg.d_model
     return {"ln": torch.ones(d2, device=dev),
             "attn": _attn_params(shared_cfg(cfg), gen),
             "ln2": torch.ones(d2, device=dev),
@@ -192,7 +199,7 @@ def _dec_layer_params(cfg, gen: torch.Generator) -> dict:
     """An enc-dec decoder layer: a dense layer with cross-attention under
     ``ln_x``."""
     p = _dense_layer_params(cfg, gen)
-    p["ln_x"] = torch.ones(cfg.d_model, device=gen.device)
+    p["ln_x"] = torch.ones(cfg.d_model, device=_dev(gen))
     p["xattn"] = _attn_params(cfg, gen)
     return p
 
@@ -201,7 +208,10 @@ def init_params(cfg, gen: torch.Generator) -> dict:
     """Random weights drawn from ``gen`` (on its device), with the
     reference's shapes, dtypes and scales: the embedding in ``act_dtype``,
     dense, expert and conv weights bf16, the router, norms, biases and
-    the SSM's scalars float32."""
+    the SSM's scalars float32.  ``gen`` may instead be a device
+    (``torch.device("meta")``): the tree's shapes and dtypes there, no
+    draw made (:func:`repro_torch.parallel.sharding.param_pspecs` walks
+    it)."""
     check_family(cfg)
     act_dtype = getattr(torch, getattr(cfg, "act_dtype", "bfloat16"))
     layer = {"moe": _moe_layer_params, "ssm": _ssm_layer_params,
@@ -210,7 +220,7 @@ def init_params(cfg, gen: torch.Generator) -> dict:
                                               _dense_layer_params)
     params = {"embed": embed_init(cfg.vocab, cfg.d_model, gen,
                                   dtype=act_dtype),
-              "final_norm": torch.ones(cfg.d_model, device=gen.device),
+              "final_norm": torch.ones(cfg.d_model, device=_dev(gen)),
               "lm_head": dense_init(cfg.d_model, cfg.vocab, gen),
               "layers": [layer(cfg, gen)
                          for _ in range(max(cfg.n_layers, 1))]}
@@ -219,8 +229,105 @@ def init_params(cfg, gen: torch.Generator) -> dict:
     elif cfg.family == "encdec":
         params["enc_layers"] = [_dense_layer_params(cfg, gen)
                                 for _ in range(cfg.encoder_layers)]
-        params["enc_norm"] = torch.ones(cfg.d_model, device=gen.device)
+        params["enc_norm"] = torch.ones(cfg.d_model, device=_dev(gen))
     return params
+
+
+def init_cache(cfg, batch: int, max_seq: int, enc_len: int = 0,
+               dtype=torch.bfloat16, device="cpu") -> dict:
+    """Zeros of the family's cache on ``device`` (``meta`` for shapes
+    alone): k/v (L, B, max_seq, Hkv, Dh) for the attention families (and
+    the encoder's output ``enc`` (B, enc_len, D) for ``encdec``); for
+    ``ssm`` / ``hybrid`` the conv cache (L, B, K-1, d_inner + 2N) and the
+    float32 SSD state (L, B, H, P, N), and the hybrid's shared-block k/v,
+    one per site."""
+    dev = device
+    cache = {"pos": torch.zeros(batch, dtype=torch.int32, device=dev)}
+
+    def kv(n, d_head):
+        return torch.zeros((n, batch, max_seq, cfg.n_kv_heads, d_head),
+                           dtype=dtype, device=dev)
+
+    if cfg.family in ("ssm", "hybrid"):
+        d_inner, n_heads = ssmmod.ssm_dims(cfg)
+        cache["conv"] = torch.zeros(
+            (cfg.n_layers, batch, cfg.ssm_conv - 1,
+             d_inner + 2 * cfg.ssm_state), dtype=dtype, device=dev)
+        cache["ssd"] = torch.zeros(
+            (cfg.n_layers, batch, n_heads, cfg.ssm_headdim,
+             cfg.ssm_state), dtype=torch.float32, device=dev)
+        if cfg.family == "hybrid":
+            ns = len(cfg.shared_attn_sites())
+            cache["shared_k"] = kv(ns, shared_cfg(cfg).d_head)
+            cache["shared_v"] = kv(ns, shared_cfg(cfg).d_head)
+    else:
+        cache["k"], cache["v"] = kv(cfg.n_layers, cfg.d_head), \
+            kv(cfg.n_layers, cfg.d_head)
+        if cfg.family == "encdec":
+            cache["enc"] = torch.zeros((batch, enc_len, cfg.d_model),
+                                       dtype=dtype, device=dev)
+    return cache
+
+
+def _pad_seq(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """``x`` (B, S, ...) with ``pad`` zero positions appended along S.  A
+    DTensor (sharded along anything but S) pads shard by shard: the
+    padding is local to every shard, and torch 2.11's DTensor gives a
+    padded tensor on a two-dim mesh a one-dim layout."""
+    widths = (0, 0) * (x.dim() - 2) + (0, pad)
+    if not hasattr(x, "to_local"):
+        return F.pad(x, widths)
+    from torch.distributed.tensor import DTensor
+
+    if any(p.is_shard(1) for p in x.placements):
+        raise ValueError(f"padding the sequence of {x.placements}")
+    local = F.pad(x.to_local(), widths)
+    shape = (x.shape[0], x.shape[1] + pad, *x.shape[2:])
+    return DTensor.from_local(local, x.device_mesh, x.placements,
+                              shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def _vocab_parallel_nll(logits, targets):
+    """``logsumexp(logits) - logits[target]`` (B, S) of DTensor logits laid
+    out (batch, None, vocab), without gathering them: each rank takes the
+    logsumexp and the gold logit of its own vocabulary shard, and
+    all-reduces of (B, S) values combine them: the largest shard's
+    logsumexp (a max, outside the graph: it cancels), the shards'
+    ``exp(lse - max)`` (a sum), and the gold logit, which one shard holds
+    (a sum).  DTensor's own ops would gather the chunk's logits (its
+    logsumexp does; its gather leaves a masked partial it cannot
+    reduce)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh, pl = logits.device_mesh, tuple(logits.placements)
+    if any(p.is_partial() or p.is_shard(1) for p in pl):
+        raise ValueError(f"vocab-parallel loss of logits laid out {pl}")
+    b, s, v = logits.shape
+    _, offset = compute_local_shape_and_global_offset((b, s, v), mesh, pl)
+    local = logits.to_local()
+    tx = targets.to_local() if hasattr(targets, "to_local") else targets
+    if tx.shape != local.shape[:2]:
+        raise ValueError(f"targets' shard {tuple(tx.shape)} is not the "
+                         f"logits' rows {tuple(local.shape[:2])}")
+    idx = tx - offset[2]
+    inside = (idx >= 0) & (idx < local.shape[2])
+    gold = torch.where(inside, torch.gather(
+        local, -1, idx.clamp(0, local.shape[2] - 1)[..., None])[..., 0], 0.0)
+    rows = tuple(Replicate() if p.is_shard(2) else p for p in pl)
+
+    def reduce(t, op="sum"):
+        return DTensor.from_local(
+            t, mesh, tuple(Partial(op) if p.is_shard(2) else p for p in pl),
+            shape=(b, s), stride=(s, 1)).redistribute(mesh, rows).to_local()
+
+    part = torch.logsumexp(local, -1)
+    top = reduce(part.detach(), "max")
+    lse = top + torch.log(reduce(torch.exp(part - top)))
+    return DTensor.from_local(lse - reduce(gold), mesh, rows, shape=(b, s),
+                              stride=(s, 1))
 
 
 def _module(tree: dict) -> nn.Module:
@@ -300,7 +407,12 @@ class Model(nn.Module):
                                         causal=causal, k_chunk=cfg.k_chunk)
 
     def _dense_layer(self, h, lp):
-        return self._ffn(self._attend(h, lp), lp)[0]
+        h = shard(h, "batch", None, None)
+        # the output projection sums partial products over `model`: reduce
+        # them before the norm (as the reference's GSPMD does), or DTensor
+        # would gather the MLP's weights to multiply a partial sum
+        h = shard(self._attend(h, lp), "batch", None, None)
+        return shard(self._ffn(h, lp)[0], "batch", None, None)
 
     def _moe_layer(self, h, lp):
         return self._ffn(self._attend(h, lp), lp)
@@ -339,9 +451,17 @@ class Model(nn.Module):
         ``encdec``, ``enc_embeds`` (B, Se, D) is the audio frontend's stub
         output and the tokens are the decoder's."""
         cfg = self.cfg
-        h = self.embed[tokens]
+        # a sharded table is looked up, not indexed: DTensor runs the
+        # lookup vocab-parallel (one all-reduce of the rows) where indexing
+        # would gather the table; a plain one keeps the index, whose
+        # backward sums a token's rows in its own order
+        h = (F.embedding(tokens, self.embed)
+             if hasattr(self.embed, "to_local") else self.embed[tokens])
         if prefix_embeds is not None:
             h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+        # the residual stream as the first layer takes it (a stashed layer
+        # stores its input as it arrives)
+        h = shard(h, "batch", None, None)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if cfg.family == "moe":
             # the reference's MoE branch: remat checkpoints the layer,
@@ -397,8 +517,8 @@ class Model(nn.Module):
         n_chunks = max(1, -(-s // vocab_chunk))
         pad = n_chunks * vocab_chunk - s
         if pad:
-            h_pred = F.pad(h_pred, (0, 0, 0, pad))
-            targets = F.pad(targets, (0, pad))
+            h_pred = _pad_seq(h_pred, pad)
+            targets = _pad_seq(targets, pad)
         valid = (torch.arange(n_chunks * vocab_chunk, device=h.device)
                  < s).reshape(n_chunks, vocab_chunk)
         total = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -411,10 +531,14 @@ class Model(nn.Module):
         return nll + cfg.aux_loss_weight * aux
 
     def _chunk_nll(self, hx, tx, vx):
-        logits = mm(hx, self.lm_head).to(torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, tx[..., None])[..., 0]
-        return torch.sum((lse - gold) * vx.to(torch.float32))
+        logits = shard(mm(hx, self.lm_head).to(torch.float32), "batch", None,
+                       "vocab")
+        if hasattr(logits, "to_local"):
+            nll = _vocab_parallel_nll(logits, tx)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            nll = lse - torch.gather(logits, -1, tx[..., None])[..., 0]
+        return torch.sum(nll * vx.to(torch.float32))
 
     def _ffn(self, h, lp):
         """The layer's FFN on the residual stream -> (h, aux), shared by
@@ -441,37 +565,9 @@ class Model(nn.Module):
     # ------------------------------------------------------------ decode
     def init_cache(self, batch: int, max_seq: int, enc_len: int = 0,
                    dtype=torch.bfloat16) -> dict:
-        """Zeros of the family's cache: k/v (L, B, max_seq, Hkv, Dh) for
-        the attention families (and the encoder's output ``enc`` (B,
-        enc_len, D) for ``encdec``); for ``ssm`` / ``hybrid`` the conv
-        cache (L, B, K-1, d_inner + 2N) and the float32 SSD state (L, B,
-        H, P, N), and the hybrid's shared-block k/v, one per site."""
-        cfg, dev = self.cfg, self.device
-        cache = {"pos": torch.zeros(batch, dtype=torch.int32, device=dev)}
-
-        def kv(n, d_head):
-            return torch.zeros((n, batch, max_seq, cfg.n_kv_heads, d_head),
-                               dtype=dtype, device=dev)
-
-        if cfg.family in ("ssm", "hybrid"):
-            d_inner, n_heads = ssmmod.ssm_dims(cfg)
-            cache["conv"] = torch.zeros(
-                (cfg.n_layers, batch, cfg.ssm_conv - 1,
-                 d_inner + 2 * cfg.ssm_state), dtype=dtype, device=dev)
-            cache["ssd"] = torch.zeros(
-                (cfg.n_layers, batch, n_heads, cfg.ssm_headdim,
-                 cfg.ssm_state), dtype=torch.float32, device=dev)
-            if cfg.family == "hybrid":
-                ns = len(cfg.shared_attn_sites())
-                cache["shared_k"] = kv(ns, self.shared_cfg.d_head)
-                cache["shared_v"] = kv(ns, self.shared_cfg.d_head)
-        else:
-            cache["k"], cache["v"] = kv(cfg.n_layers, cfg.d_head), \
-                kv(cfg.n_layers, cfg.d_head)
-            if cfg.family == "encdec":
-                cache["enc"] = torch.zeros((batch, enc_len, cfg.d_model),
-                                           dtype=dtype, device=dev)
-        return cache
+        """:func:`init_cache` on the model's device."""
+        return init_cache(self.cfg, batch, max_seq, enc_len, dtype,
+                          self.device)
 
     def _prefill_attn(self, x, p, acfg, causal: bool):
         """A prompt's attention through :func:`attn.online_attention` (the

@@ -13,6 +13,15 @@ words, zero and range are the plain path's bit for bit.
 Float states (``state_bits=0``) are kept in ``state_dtype``; float32
 moments and the parameters are updated in place, which saves a copy of
 every leaf per step.  The arithmetic is the reference's, in the same order.
+
+Parameters may be DTensors (a sharded LM, :mod:`repro_torch.parallel.
+sharding`).  A gradient comes back from autograd in whatever placement
+DTensor's rules left it (a partial sum, or replicated at full shape), so
+each is first redistributed to its parameter's placements; the clip norm
+is the global norm over every shard; the update then runs on the local
+shards, element for element the unsharded arithmetic.  8-bit moments of a
+parameter split over more than one rank are not supported: their blocks
+of ``state_group`` would straddle the shards.
 """
 from __future__ import annotations
 
@@ -70,11 +79,72 @@ def _dq_state(s: dict, bits: int, group: int, shape) -> torch.Tensor:
         s["p"], s["z"], s["r"], bits, group), tuple(shape))
 
 
+def _is_split(p) -> bool:
+    """True for a DTensor split over more than one rank."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(p, DTensor) and any(
+        pl.is_shard() and p.device_mesh.size(i) > 1
+        for i, pl in enumerate(p.placements))
+
+
+def _local(t):
+    """A DTensor's local shard (a plain tensor as it is)."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def placed(g, p):
+    """Gradient ``g`` in parameter ``p``'s placements (a collective where
+    they differ; plain tensors as they are).  Along a mesh dim where ``g``
+    comes back sharded and ``p`` is replicated (a bias added to
+    head-sharded activations), the shards are gathered with the blocking
+    ``all_gather_into_tensor`` of that dim's group: DTensor's own gather is
+    the functional collective, which gloo on CUDA tensors does not survive
+    (torch 2.11: the rank segfaults); every other move is DTensor's."""
+    if not hasattr(p, "placements"):
+        return g
+    for i, (gp, pp) in enumerate(zip(g.placements, p.placements)):
+        if gp.is_shard() and pp.is_replicate():
+            g = _gather(g, i)
+    if tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
+def _gather(g, mesh_dim: int):
+    """DTensor ``g`` replicated along ``mesh_dim``, where it is sharded."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh, pl = g.device_mesh, list(g.placements)
+    dim, n = pl[mesh_dim].dim, mesh.size(mesh_dim)
+    if g.shape[dim] % n:
+        raise ValueError(f"gathering an uneven shard of {tuple(g.shape)}")
+    local = g.to_local().movedim(dim, 0).contiguous()
+    out = torch.empty((n * local.shape[0], *local.shape[1:]),
+                      dtype=local.dtype, device=local.device)
+    dist.all_gather_into_tensor(out, local, group=mesh.get_group(mesh_dim))
+    pl[mesh_dim] = Replicate()
+    full = out.movedim(0, dim).contiguous()
+    return DTensor.from_local(full, mesh, tuple(pl), shape=g.shape,
+                              stride=g.stride())
+
+
+def _sq_norm(g) -> torch.Tensor:
+    """``sum(g**2)`` in float32 over every shard of ``g``."""
+    s = torch.sum(torch.square(g.float()))
+    return s.full_tensor() if hasattr(s, "full_tensor") else s
+
+
 def adamw_init(params, cfg: AdamWConfig | None = None) -> dict:
     cfg = cfg or AdamWConfig()
+    if cfg.state_bits and any(_is_split(p) for p in params):
+        raise NotImplementedError(
+            "8-bit AdamW moments of a parameter sharded over more than one "
+            "rank (their blocks straddle the shards) come in port slice 19")
 
     def zero_like(p):
-        z = torch.zeros_like(p, dtype=torch.float32)
+        z = torch.zeros_like(_local(p), dtype=torch.float32)
         if cfg.state_bits:
             return _q_state(z, cfg.state_bits, cfg.state_group, 0)
         return z.to(getattr(torch, cfg.state_dtype))
@@ -90,9 +160,11 @@ def adamw_update(grads, state: dict, params, cfg: AdamWConfig) -> None:
     step = state["step"]
     lr = float(schedule(cfg, step))
     t = np.float32(step + 1)
+    grads = [placed(g, p) for g, p in zip(grads, params)]
+    gnorm = torch.sqrt(sum(_sq_norm(g) for g in grads)) \
+        if cfg.grad_clip else None
+    grads = [_local(g) for g in grads]
     if cfg.grad_clip:
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in grads))
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
         grads = [g * scale for g in grads]
@@ -102,7 +174,7 @@ def adamw_update(grads, state: dict, params, cfg: AdamWConfig) -> None:
     seed = (step + 1) & MASK32
     for i, (g, m, v, p) in enumerate(zip(grads, state["m"], state["v"],
                                          params)):
-        g = g.float()
+        g, p = g.float(), _local(p)
         if bits:
             m_f = _dq_state(m, bits, group, g.shape)
             v_f = torch.clamp_min(_dq_state(v, bits, group, g.shape), 0.0)

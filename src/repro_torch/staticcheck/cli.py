@@ -9,8 +9,11 @@ matrix on ``--device`` (the card unless the CPU is asked for), a few
 seconds; its results are cached in
 ``results/staticcheck/torch_audit_cache.json`` keyed by the device and a
 digest of every source the audited programs could depend on
-(``src/repro_torch/**/*.py`` and ``src/repro_torch/csrc/*``), so repeated
-runs on an unchanged tree skip straight to the verdict.
+(``src/repro_torch/**/*.py``, ``src/repro_torch/csrc/*`` and the tile
+cache the fused pair reads), so repeated runs on an unchanged tree skip
+straight to the verdict.  The kernel-contracts pass checks every entry of
+the tile cache (``kernels/autotune.cache_path()``) beside the plan
+matrix's launches.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import pathlib
 import sys
 import traceback
 
+from repro_torch.kernels import autotune
 from repro_torch.staticcheck import (deadcode, findings as fmod,
                                      kernel_contracts, plan_verify,
                                      saved_audit, seed_lint)
@@ -37,11 +41,13 @@ PASSES = ("seed-lint", "plan-verify", "kernel-contracts", "saved-audit")
 
 def tree_digest(device: str, root: pathlib.Path = PKG_ROOT) -> str:
     """Digest of everything the audited matrix depends on: the device, the
-    port's Python tree and its CUDA sources."""
+    port's Python tree, its CUDA sources and the persisted tile cache."""
     h = hashlib.sha256(device.encode())
     paths = sorted(root.rglob("*.py")) + sorted((root / "csrc").glob("*"))
-    for p in paths:
-        h.update(str(p.relative_to(root)).encode())
+    tiles = autotune.cache_path()
+    for p in paths + ([tiles] if tiles.exists() else []):
+        h.update(p.name.encode() if p == tiles
+                 else str(p.relative_to(root)).encode())
         h.update(p.read_bytes())
     return h.hexdigest()
 

@@ -1,10 +1,13 @@
 """Declarative pre/post-conditions for the compression kernels, stated
 over the CUDA launch configurations the port computes (the reference's
-``repro.staticcheck.kernel_contracts``, whose TPU VMEM budget and
-``(tm, tn)`` autotune cache have no counterpart here).
+``repro.staticcheck.kernel_contracts``, whose TPU VMEM budget has no
+counterpart here), and over every entry of the tile cache
+(:mod:`repro_torch.kernels.autotune`).
 
 A :class:`Launch` is one kernel call the main path makes: its kind
-(``quant``, ``rp``, ``fused``), its shape and its quantization config.
+(``quant``, ``rp``, ``fused``), its shape, its quantization config and,
+for the fused pair, the compiled configuration each kernel runs and the
+backward's split count (default: the fixed rule).
 :func:`fwd_launch` and :func:`bwd_launch` re-derive what
 ``csrc/fused_matmul.cu`` launches for it, by the same arithmetic, and each
 :class:`Contract` states one invariant over them:
@@ -28,16 +31,20 @@ A :class:`Launch` is one kernel call the main path makes: its kind
 :func:`run` checks every (layer config x width x rows) the plan matrix
 launches; :func:`check_launches` takes any other list (``chip_smoke.py``
 checks the shapes it launches on the card, and the tests hold them
-clean).  There is no tile cache to read: the port picks its tiles by
-fixed rules, and a cache arrives only with tile selection (ROADMAP A.12b,
-slice 18).  A gpu test holds :func:`fwd_launch` and :func:`bwd_launch`'s
-shared memory equal to the kernel library's own ``matmul_quant_smem`` /
-``dequant_matmul_smem``.
+clean).  :func:`check_autotune_cache` checks every entry of the tile
+cache: it parses, names a compiled configuration that covers its n, and
+every contract holds for the launch it names.  A gpu test holds
+:func:`fwd_launch` and :func:`bwd_launch`'s shared memory equal to the
+kernel library's own ``matmul_quant_smem`` / ``dequant_matmul_smem`` for
+each configuration.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import pathlib
+import re
 from typing import Callable
 
 from repro_torch.kernels import fused_matmul, quant_blockwise
@@ -50,10 +57,7 @@ SMEM_CAP = 232_448
 
 # csrc/fused_matmul.cu, namespace fwd: rows of x a CTA, columns of x a
 # chunk at most, blocks a quantize batch at most
-KBM, KCHUNK_MAX, KQB = 64, 256, 256
-#: The forward's CTA configurations by the width n of y (``kFwd``):
-#: (n at most, NT, WN, KW, S); BN = 8 * NT * WN columns a CTA.
-FWD_CONFIGS = ((40, 5, 1, 16, 2), (64, 8, 1, 16, 4), (None, 8, 4, 16, 2))
+KBM, KCHUNK_MAX, KQB = fused_matmul.FWD_ROWS, 256, 256
 
 # namespace bwd: bf16 stage buffers, columns a producer thread decodes
 KNB, KRUN = 2, 8
@@ -75,6 +79,9 @@ class Launch:
     group_size: int = 256
     levels: tuple | None = None
     rp_ratio: int = 0
+    fwd_config: int | None = None     # None: fused_matmul.fwd_index(n)
+    bwd_config: int | None = None     # None: fused_matmul.tile_index(n)
+    bwd_splits: int | None = None     # None: fused_matmul.splits' rule
 
     @property
     def key(self) -> str:
@@ -103,16 +110,19 @@ class BwdLaunch:
     scratch: int          # bytes of the partials
 
 
-def fwd_launch(d: int, n: int, group_size: int) -> FwdLaunch:
-    """What ``matmul_quant`` launches for x (., d) in G-blocks and y of n
-    columns (``fwd::chunking`` and ``fwd::layout``)."""
+def fwd_launch(d: int, n: int, group_size: int,
+               config: int | None = None) -> FwdLaunch:
+    """What ``matmul_quant`` launches for x (., d) in G-blocks, y of n
+    columns and configuration ``config`` (default: the fixed rule)
+    (``fwd::chunking`` and ``fwd::layout``)."""
     g = group_size
     chunk = d > 0 and d % g == 0 and g <= KCHUNK_MAX
     cw = (min(d, g * (KCHUNK_MAX // g), g * (KQB // KBM)) if chunk
           else min(d, KCHUNK_MAX))
     cw = max(cw, 1)
-    _, nt, wn, kw, s = next(c for c in FWD_CONFIGS
-                            if c[0] is None or n <= c[0])
+    if config is None:
+        config = fused_matmul.fwd_index(n)
+    nt, wn, _, kw, s, _ = fused_matmul.FWD_CONFIGS[config]
     bn = 8 * nt * wn
     ws = bn + 8 if bn % 16 == 0 else bn
     xs = -(-cw // kw) * kw + 4
@@ -129,12 +139,17 @@ def _padded(cols: int) -> int:
 
 
 def bwd_launch(m: int, d: int, n: int, group_size: int, bits: int,
-               aligned: bool = True) -> BwdLaunch:
+               aligned: bool = True, config: int | None = None,
+               n_splits: int | None = None) -> BwdLaunch:
     """What ``dequant_matmul`` launches for an (m, d) stash of G-blocks and
-    an (m, n) gradient, the packed words 16-byte aligned or not."""
-    bd, bn, ks = fused_matmul.tile(n)
+    an (m, n) gradient, the packed words 16-byte aligned or not, with tile
+    ``config`` over ``n_splits`` ranges (defaults: the fixed rules)."""
+    if config is None:
+        bd, bn, ks = fused_matmul.tile(n)
+    else:
+        bd, bn, ks = fused_matmul.TILES[config]
     r, maxw = BWD_RINGS[bn]
-    s, rows = fused_matmul.splits(m, d, n)
+    s, rows = fused_matmul.splits(m, d, n, config, n_splits)
     w = group_size // (32 // bits)
     ring = (d % group_size == 0 and group_size % bd == 0 and w % KRUN == 0
             and w <= maxw and aligned)
@@ -154,6 +169,7 @@ class Contract:
     description: str
     applies: str                            # "fused" | "quant" | "rp"
     check: Callable[[Launch], str | None]   # violation message, or None
+    side: str = "both"                      # the fused pair's "fwd" | "bwd"
 
 
 def _quant_precondition(e: Launch) -> str | None:
@@ -176,15 +192,36 @@ def _block_alignment(e: Launch) -> str | None:
     if (e.d % g and g % e.d) or (e.m * e.d) % g:
         return (f"the ({e.m}, {e.d}) operand is not whole G={g} blocks "
                 "aligned to rows: a row tile would not own whole blocks")
-    f = fwd_launch(e.d, e.n, g)
+    f = fwd_launch(e.d, e.n, g, e.fwd_config)
     if f.chunk_mode and (f.cw % g or KBM * (f.cw // g) > KQB):
         return (f"a chunk of {f.cw} columns is not whole blocks of {g} "
                 f"within {KQB // KBM} a row")
     return None
 
 
+def _tile_config(e: Launch) -> str | None:
+    """The configurations named are compiled and cover n."""
+    for what, config, table, width in (
+            ("forward configuration", e.fwd_config, fused_matmul.FWD_CONFIGS,
+             fused_matmul.fwd_columns),
+            ("backward tile", e.bwd_config, fused_matmul.TILES,
+             lambda i: fused_matmul.TILES[i][1])):
+        if config is None:
+            continue
+        if not 0 <= config < len(table):
+            return (f"no compiled {what} {config} (the library has "
+                    f"{len(table)})")
+        widest = max(width(i) for i in range(len(table)))
+        if not fused_matmul.covers(width(config), e.n, widest):
+            return (f"{what} {config} spans {width(config)} columns and "
+                    f"is not the widest: it does not cover n={e.n}")
+    if e.bwd_splits is not None and e.bwd_splits < 1:
+        return f"a split count of {e.bwd_splits}"
+    return None
+
+
 def _fwd_smem(e: Launch) -> str | None:
-    f = fwd_launch(e.d, e.n, e.group_size)
+    f = fwd_launch(e.d, e.n, e.group_size, e.fwd_config)
     if f.smem > fused_matmul.MAX_SMEM:
         return (f"the forward's CTA needs {f.smem} bytes of shared memory "
                 f"(chunk {f.cw} columns, {f.bn} columns of y, a quantize "
@@ -192,8 +229,13 @@ def _fwd_smem(e: Launch) -> str | None:
     return None
 
 
+def _bwd(e: Launch, aligned: bool = True) -> BwdLaunch:
+    return bwd_launch(e.m, e.d, e.n, e.group_size, e.bits, aligned,
+                      e.bwd_config, e.bwd_splits)
+
+
 def _bwd_splits(e: Launch) -> str | None:
-    b = bwd_launch(e.m, e.d, e.n, e.group_size, e.bits)
+    b = _bwd(e)
     ks = b.tile[2]
     if not 1 <= b.splits <= fused_matmul.MAX_SPLITS:
         return (f"{b.splits} row ranges, outside [1, "
@@ -203,12 +245,16 @@ def _bwd_splits(e: Launch) -> str | None:
     if not (b.splits - 1) * b.rows < max(e.m, 1) <= b.splits * b.rows:
         return (f"{b.splits} ranges of {b.rows} rows do not cover the "
                 f"{e.m} rows with none empty")
+    if e.bwd_splits is not None and b.splits != e.bwd_splits:
+        return (f"S={e.bwd_splits} is not whole stages of {ks} rows: the "
+                f"launch makes {b.splits} ranges")
     return None
 
 
 def _bwd_scratch(e: Launch) -> str | None:
-    b = bwd_launch(e.m, e.d, e.n, e.group_size, e.bits)
-    want = fused_matmul.scratch_nbytes(e.m, e.d, e.n)
+    b = _bwd(e)
+    want = fused_matmul.scratch_nbytes(e.m, e.d, e.n, e.bwd_config,
+                                       e.bwd_splits)
     if b.scratch != want:
         return (f"the partials take {b.scratch} bytes ({b.splits} x "
                 f"{e.d} x {e.n} floats) but the wrapper allocates {want}")
@@ -217,7 +263,7 @@ def _bwd_scratch(e: Launch) -> str | None:
 
 def _bwd_smem(e: Launch) -> str | None:
     for aligned in (True, False):
-        b = bwd_launch(e.m, e.d, e.n, e.group_size, e.bits, aligned)
+        b = _bwd(e, aligned)
         if not b.smem <= b.max_smem <= SMEM_CAP:
             return (f"the backward's tile {b.tile} (ring {b.ring}) needs "
                     f"{b.smem} bytes of shared memory, set up for "
@@ -234,29 +280,39 @@ CONTRACTS: tuple[Contract, ...] = (
     Contract("quant-precondition",
              "the fused pair can run (whole words, at most 16 levels)",
              "fused", _fused_precondition),
+    Contract("tile-config",
+             "each kernel runs a compiled configuration that covers n",
+             "fused", _tile_config),
     Contract("tile-block-alignment",
              "a row tile owns whole quantization blocks", "fused",
              _block_alignment),
     Contract("smem-budget", "the forward's CTA fits MAX_SMEM", "fused",
-             _fwd_smem),
+             _fwd_smem, "fwd"),
     Contract("bwd-splits",
              "at most MAX_SPLITS row ranges, each whole stages", "fused",
-             _bwd_splits),
+             _bwd_splits, "bwd"),
     Contract("bwd-scratch", "scratch is S * d * n floats", "fused",
-             _bwd_scratch),
+             _bwd_scratch, "bwd"),
     Contract("smem-budget", "the backward's CTA fits 227 KiB", "fused",
-             _bwd_smem),
+             _bwd_smem, "bwd"),
 )
 
 
-def check_launch(e: Launch) -> list[Finding]:
+def check_launch(e: Launch, where: str | None = None,
+                 side: str = "both") -> list[Finding]:
+    """Every contract of ``e``'s kind, of the fused pair's ``side``
+    ("fwd", "bwd" or "both"; none past a ``tile-config`` finding: the
+    configuration they would read does not exist)."""
     out = []
     for c in CONTRACTS:
-        if c.applies != e.kind:
+        if c.applies != e.kind or "both" not in (side, c.side) \
+                and side != c.side:
             continue
         msg = c.check(e)
         if msg is not None:
-            out.append(Finding(PASS, c.rule, e.key, msg))
+            out.append(Finding(PASS, c.rule, where or e.key, msg))
+            if c.rule == "tile-config":
+                break
     return out
 
 
@@ -303,6 +359,63 @@ def matrix_launches() -> list[Launch]:
     return out
 
 
-def run(launches=None) -> list[Finding]:
-    """The contracts over the matrix's launches and ``launches``."""
-    return check_launches(matrix_launches() + list(launches or ()))
+# ------------------------------------------------------------ tile cache
+_KEY_RE = re.compile(r"^(?P<kind>fwd|bwd)/(?P<m>\d+)x(?P<d>\d+)x(?P<n>\d+)"
+                     r"/b(?P<bits>\d+)/g(?P<group>\d+)/(?P<backend>[^/]+)$")
+
+
+def entry_launch(key: str, choice) -> Launch | None:
+    """The launch a tile-cache entry names (None if it does not parse):
+    ``fwd/...`` -> ``[config]``, ``bwd/...`` -> ``[config, S]``; its
+    ``side`` is the key's kind."""
+    m = _KEY_RE.match(key)
+    if m is None or not isinstance(choice, (list, tuple)) \
+            or not all(isinstance(v, int) for v in choice):
+        return None
+    shape = (int(m["m"]), int(m["d"]), int(m["n"]), int(m["bits"]),
+             int(m["group"]))
+    if m["kind"] == "fwd" and len(choice) == 1:
+        return Launch("fused", *shape, fwd_config=choice[0])
+    if m["kind"] == "bwd" and len(choice) == 2:
+        return Launch("fused", *shape, bwd_config=choice[0],
+                      bwd_splits=choice[1])
+    return None
+
+
+def check_autotune_cache(path: pathlib.Path | None = None) -> list[Finding]:
+    """Every contract over every entry of the tile cache at ``path``
+    (default: :func:`repro_torch.kernels.autotune.cache_path`)."""
+    if path is None:
+        from repro_torch.kernels.autotune import cache_path
+
+        path = cache_path()
+    p = pathlib.Path(path)
+    if not p.exists():
+        return []
+    try:
+        cache = json.loads(p.read_text())
+    except (ValueError, OSError) as e:
+        return [Finding(PASS, "cache-key", str(p),
+                        f"tile cache is not valid JSON: {e}")]
+    if not isinstance(cache, dict):
+        return [Finding(PASS, "cache-key", str(p),
+                        "tile cache is not a JSON object")]
+    out = []
+    for key in sorted(cache):
+        e = entry_launch(key, cache[key])
+        if e is None:
+            out.append(Finding(PASS, "cache-key", key,
+                               f"unparseable tile-cache entry "
+                               f"({cache[key]!r}); expected kind/MxDxN/"
+                               "bBITS/gG/backend -> [config] (fwd) or "
+                               "[config, S] (bwd)"))
+        else:
+            out.extend(check_launch(e, where=key, side=key[:3]))
+    return out
+
+
+def run(launches=None, cache: pathlib.Path | None = None) -> list[Finding]:
+    """The contracts over the tile cache, the matrix's launches and
+    ``launches``."""
+    return check_autotune_cache(cache) + check_launches(
+        matrix_launches() + list(launches or ()))

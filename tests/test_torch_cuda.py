@@ -571,16 +571,85 @@ def test_cuda_dequant_matmul_misaligned_gradient(cuda, levels):
 
 @pytest.mark.gpu
 def test_cuda_dequant_matmul_tile_is_the_wrappers(cuda):
-    """The kernel launches the tile the wrapper sizes the row ranges and
-    the scratch for."""
+    """The kernel launches, for each configuration index, the tile the
+    wrapper sizes the row ranges and the scratch for (and the fixed
+    rule's index for n picks the same tile); an unknown index is -1."""
     import ctypes
 
     from repro_torch.kernels import fused_matmul as t_fk
 
     got = (ctypes.c_int * 3)()
+    for config in range(len(t_fk.TILES)):
+        t_fk._lib().dequant_matmul_tile(config, got)
+        assert tuple(got) == t_fk.TILES[config]
     for n in (1, 5, 40, 41, 48, 64, 65, 256, 520):
-        t_fk._lib().dequant_matmul_tile(n, got)
+        t_fk._lib().dequant_matmul_tile(t_fk.tile_index(n), got)
         assert tuple(got) == t_fk.tile(n)
+    t_fk._lib().dequant_matmul_tile(len(t_fk.TILES), got)
+    assert tuple(got) == (-1, -1, -1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levels", [None, VM2], ids=["uniform", "vm"])
+@pytest.mark.parametrize("m,d,n", [(4096, 256, 40), (4096, 512, 64),
+                                   (2000, 256, 256), (700, 96, 300)])
+def test_cuda_fused_pair_every_configuration(cuda, levels, m, d, n):
+    """Each compiled configuration of the forward and each tile of the
+    backward (at the fixed rule's split count and at S = 1 and 5) runs
+    on any n: the forward's stash bit-equal to quant_pack and y within
+    2e-4 of the plain product, dw within the backward's band; an index
+    the library lacks raises."""
+    from repro_torch.kernels import fused_matmul as t_fk
+
+    g = 256 if d % 256 == 0 else d
+    x = torch.from_numpy(_x(m, d, seed=m + n)).cuda()
+    w = torch.from_numpy(
+        (_x(d, n, seed=n) / np.sqrt(d)).astype(np.float32)).cuda()
+    gr = torch.from_numpy(_x(m, n, seed=d)).cuda()
+    stash_q = t_qk.quant_pack(x.reshape(-1, g), 2, 42, levels)
+    y_p = t_ref.matmul_quantize_packed(x, w, 2, 42, levels,
+                                       group_size=g)[0]
+    for config in range(len(t_fk.FWD_CONFIGS)):
+        y, *stash = t_fk.matmul_quant(x, w, 2, 42, levels, group_size=g,
+                                      config=config)
+        assert all(torch.equal(a, b) for a, b in zip(stash, stash_q))
+        torch.testing.assert_close(y, y_p, rtol=2e-4, atol=2e-4)
+    want = t_ref.dequant_matmul_packed(*stash_q, gr, 2, g, d, levels)
+    x_hat = t_ref.dequantize_packed(*stash_q, 2, g, levels).reshape(-1, d)
+    scale = x_hat.abs().T @ gr.abs()
+    for config in range(len(t_fk.TILES)):
+        for s in (None, 1, 5):
+            dw = t_fk.dequant_matmul(*stash_q, gr, 2, g, d, levels,
+                                     config=config,
+                                     n_splits=s or t_fk.splits(
+                                         m, d, n, config)[0])
+            assert bool(((dw - want).abs() <= 1e-4 * scale + 1e-30).all())
+    with pytest.raises(ValueError, match="no compiled"):
+        t_fk.matmul_quant(x, w, 2, 42, levels, group_size=g, config=3)
+    with pytest.raises(ValueError, match="no compiled"):
+        t_fk.dequant_matmul(*stash_q, gr, 2, g, d, levels, config=3,
+                            n_splits=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levels", [None, VM2], ids=["uniform", "vm"])
+@pytest.mark.parametrize("n,g,bits,row0", [(37, 256, 2, 11), (1001, 64, 4, 3),
+                                           (9, 96, 1, 5),
+                                           (20_480, 256, 2, 20_480)])
+def test_cuda_quant_pack_offset_bit_equal_to_plain(cuda, levels, n, g, bits,
+                                                   row0):
+    """A shard's rows quantized with their global block offset: the
+    kernel's words, zero and range are the plain version's with the same
+    offset, and the rows of the unsharded call (vector and scalar
+    paths)."""
+    if levels is not None and bits != 2:
+        levels = None
+    x = torch.from_numpy(_x(row0 + n, g, seed=n)).cuda()
+    got = t_qk.quant_pack(x[row0:], bits, 42, levels, row0=row0)
+    want = t_ref.quantize_packed(x[row0:], bits, 42, levels, row0=row0)
+    whole = t_qk.quant_pack(x, bits, 42, levels)
+    for a, b, c in zip(got, want, whole):
+        assert torch.equal(a, b) and torch.equal(a, c[row0:])
 
 
 @pytest.mark.gpu
@@ -1624,20 +1693,26 @@ def test_cuda_saved_audit_matches_cpu(cuda):
 def test_cuda_contract_smem_is_the_kernels(cuda, d, n, g, bits):
     """The kernel contracts' shared memory for the fused pair is what the
     kernel library computes for its launches (matmul_quant_smem, and
-    dequant_matmul_smem beside dequant_matmul_tile's tile), packed words
-    aligned or not."""
+    dequant_matmul_smem beside dequant_matmul_tile's tile), for every
+    compiled configuration, packed words aligned or not."""
     import ctypes
 
     from repro_torch.kernels import fused_matmul as t_fk
     from repro_torch.staticcheck import kernel_contracts as kc
 
     lib = t_fk._lib()
-    assert lib.matmul_quant_smem(d, n, g) == kc.fwd_launch(d, n, g).smem
+    for config in range(len(t_fk.FWD_CONFIGS)):
+        assert lib.matmul_quant_smem(d, n, g, config) == \
+            kc.fwd_launch(d, n, g, config).smem
+    assert lib.matmul_quant_smem(d, n, g, t_fk.fwd_index(n)) == \
+        kc.fwd_launch(d, n, g).smem
     tile = (ctypes.c_int * 3)()
-    lib.dequant_matmul_tile(n, tile)
     got = (ctypes.c_longlong * 2)()
-    for aligned in (True, False):
-        lib.dequant_matmul_smem(d, n, g, bits, int(aligned), got)
-        b = kc.bwd_launch(4096, d, n, g, bits, aligned)
-        assert tuple(tile) == b.tile
-        assert (got[0], got[1]) == (b.smem, b.max_smem)
+    for config in range(len(t_fk.TILES)):
+        lib.dequant_matmul_tile(config, tile)
+        for aligned in (True, False):
+            lib.dequant_matmul_smem(d, n, g, bits, int(aligned), config, got)
+            b = kc.bwd_launch(4096, d, n, g, bits, aligned, config)
+            assert tuple(tile) == b.tile
+            assert (got[0], got[1]) == (b.smem, b.max_smem)
+    assert lib.matmul_quant_smem(d, n, g, 3) == -1

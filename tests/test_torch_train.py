@@ -429,9 +429,15 @@ def test_lm_launcher_resume_bit_identical(tmp_path, offload):
 
 @pytest.mark.parametrize("argv,error,match", [
     (["--arch", "qwen1.5-4b", "--smoke", "--production-mesh"],
-     NotImplementedError, "A.12b"),
+     RuntimeError, "needs 256 ranks; the process group has 1"),
+    (["--graph-batches", "2", "--graph-scale", "0.004",
+      "--production-mesh"],
+     RuntimeError, "needs 256 ranks; the process group has 1"),
 ])
 def test_lm_launcher_refuses_what_is_not_ported(argv, error, match):
+    """``--production-mesh`` builds the reference's (16, 16) mesh: on one
+    rank both halves raise, naming the 256 ranks it needs (it never
+    shrinks to the world it has)."""
     with pytest.raises(error, match=match):
         t_train.main(argv + ["--steps", "1", "--device", "cpu"])
 
