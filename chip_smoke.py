@@ -150,7 +150,7 @@ Phases, in order; any failure raises and exits non-zero:
    recipe with ``--obs``: its tokens and logits, 2 requests completed, 2
    TTFT observations.  The phase stays under PHASE11_LIMIT_S;
 12. slice 14, the training launcher (``repro_torch.launch.train``) in
-   process, after phase 11 (e): (a) the graph half at phase 4's size:
+   process, after phase 17 (which runs after phase 11 (e)): (a) the graph half at phase 4's size:
    ``--graph-batches 8 --steps 3`` equal to ``engine.runner.run`` on the
    same plan bit for bit, its printed peak and live stash equal to
    ``activation_memory_report``; ``--mesh-parts 8 --steps 2`` on one rank
@@ -214,10 +214,11 @@ Phases, in order; any failure raises and exits non-zero:
    (0.1); (c) seamless-m4t-large-v2 (24 + 24 layers), with the 2 + 2
    layer model's encoder output and a decode step's logits through the
    kernel against the plain attention, and a decode step's time in
-   cross-attention; (d) ``launch.train`` at full width and depth
-   (FAMILY_LM: mamba2 act B 4 x 2048 5 steps, zamba2 act B 2 x 2048 2
-   steps, seamless remat B 2 x 1024 with ``enc_embeds`` 2 steps, float32
-   moments): finite losses and gradients every step, the INT2 stash
+   cross-attention; (d) ``launch.train`` at full width (FAMILY_LM:
+   mamba2 act B 4 x 2048 5 steps cut to FAMILY_LM_LAYERS' 16 layers,
+   zamba2 act B 2 x 2048 2 steps and seamless remat B 2 x 1024 with
+   ``enc_embeds`` 2 steps at full depth, float32 moments): finite losses
+   and gradients every step, the INT2 stash
    launched once a Mamba-2 layer and step each way, mamba2's loss
    falling, then mamba2 at LM_LAYERS_SHORT layers under none / remat /
    act with the loss graph's residual bytes act < remat < none.  The
@@ -265,7 +266,28 @@ Phases, in order; any failure raises and exits non-zero:
    (c) ``launch.train --production-mesh`` on one rank raises, naming the
    256 ranks (phase 12 (b) holds the local mesh's losses to
    PHASE12_LOSSES).  The phase stays under PHASE16_LIMIT_S;
-17. a JSON line of per-kernel numbers (phase 13's shapes under
+17. slice 19, every family on the (data, model) mesh, after phase 11
+   and before phase 12 (its qwen3-moe runs need most of the card; the
+   bytes a phase leaves allocated are logged after each of 12-17):
+   ``quant_pack`` with a column split's block offset bit-equal to its
+   plain version and timed; (a) each run of FAMILY17 at full width, cut
+   in depth, in float32, trained FAMILY17_STEPS steps on one rank and then
+   on two gloo ranks sharing the card on (1, 2): each parameter's local
+   shape as ``param_pspecs`` says, the stash and 8-bit moment launches as
+   planned (``plan17``) on each rank, the losses within rtol 2e-4 / atol
+   2e-5 of the one-rank run, every parameter after the last step within
+   that band under ``remat`` with float32 moments (qwen3-moe's bf16
+   experts, sampled, within one bf16 step but FAMILY17_BF16_SHARE of
+   them within 2 lr a step), logged against it under
+   ``act`` and with 8-bit moments, and every ``act`` run's layer 0 step-0
+   stash recorded and its rows bit-equal; 8-bit moments of a Shard(0) and
+   a column-split parameter (MOMENTS17) bit-equal to one rank's given the
+   same gradients; (b) qwen1.5-4b and mamba2-780m (DECODE17) decoded on
+   (1, 2) over the cache laid out by ``cache_pspecs``, greedy tokens
+   equal to one rank's; (c) the dry run's DRYRUN17 cells, each in a
+   subprocess beside (a) and (b), each ``ok`` with its record logged.
+   The phase stays under PHASE17_LIMIT_S;
+18. a JSON line of per-kernel numbers (phase 13's shapes under
    ``moe_shapes``, phase 14's under ``family_shapes``, phase 15's under
    ``example_shapes``), then ``{"ok": true, "device": ...}``.
 
@@ -278,6 +300,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -2989,9 +3012,10 @@ def slice_launcher_resume(torch, wrappers) -> collections.Counter:
 #: Seconds phase 13 may take in all.
 PHASE13_LIMIT_S = 150.0
 MOE_ARCH = "qwen3-moe-235b-a22b"
-#: qwen3-moe-235b-a22b at full width, cut from 94 layers to 12 (~62 GB of
-#: bf16 weights; the 80 GB card holds 13 at most beside the serving run).
-MOE_SERVE_LAYERS = 12
+#: qwen3-moe-235b-a22b at full width, cut from 94 layers to 6 (~31 GB of
+#: bf16 weights; the 80 GB card holds 13 at most beside the serving run;
+#: 12 until the script outgrew its time).
+MOE_SERVE_LAYERS = 6
 #: Phase 8's traffic on the MoE model: the launcher's flags but the arch.
 MOE_SERVE_ARGV = ["--arch", MOE_ARCH] + SERVE_ARGV[2:]
 #: The serving prefill's attention: 4 prompts x 64 query heads.
@@ -3004,7 +3028,7 @@ MOE_SERVE_LAUNCHES = {
     "flash_attention": 2 * MOE_SERVE_LAYERS,
     "quant_pack": (2 + 62) * 2 * MOE_SERVE_LAYERS,
     "dequant_unpack": 62 * MOE_SERVE_LAYERS * SERVE_PAGES_PER_SLOT}
-#: 12 layers x 260 pages x 2 x (16 tokens x 512 elements at 4 bits + 16 x 8
+#: MOE_SERVE_LAYERS x 260 pages x 2 x (16 tokens x 512 elements at 4 bits + 16 x 8
 #: blocks x 8 bytes of zero and range).
 MOE_SERVE_POOL_BYTES = MOE_SERVE_LAYERS * 260 * 2 * (16 * 512 // 2
                                                      + 16 * 8 * 8)
@@ -3480,6 +3504,9 @@ SSD_BAND = 1e-3
 #: of their largest magnitude.
 STATE_BAND = 2.0 ** -5
 PREFIX_TOKENS = 896
+#: Depths phase 14 (d) cuts a family's training to (full depth where not
+#: listed): mamba2 at 16 of its 48 layers since the script outgrew its time.
+FAMILY_LM_LAYERS = {MAMBA: 16}
 FAMILY_LM = {
     MAMBA: ["--arch", MAMBA, "--batch", "4", "--seq", "2048", "--lr",
             str(LM_LR), "--act-mode", "act", "--steps", "5", "--device",
@@ -3581,7 +3608,7 @@ def check_ssd(torch, model, prompt) -> dict:
     cfg, lp = model.cfg, model.layers[0]
     with torch.no_grad():
         x = rmsnorm(model.embed[prompt], lp.ln)
-        _, xi, bmat, cmat, dt = ssm._project(x, lp.mixer, cfg)
+        _, xi, bmat, cmat, dt = ssm._project(x, lp.mixer)
         xh = xi.reshape(*xi.shape[:2], -1, cfg.ssm_headdim)
         a_neg = -torch.exp(lp.mixer.a_log.float())
         y, st = ssm.ssd_chunked(xh, dt, a_neg, bmat, cmat,
@@ -3865,7 +3892,8 @@ def grad_taps(steps, out: list):
 
 def slice_family_train(torch, wrappers) -> collections.Counter:
     """Phase 14 (d): the three families trained through the launcher at
-    full width and depth (FAMILY_LM), float32 moments: finite losses and
+    full width (FAMILY_LM; depth cut by FAMILY_LM_LAYERS), float32
+    moments: finite losses and
     gradients every step, the INT2 stash's launches a Mamba-2 layer and
     step under ``act``, mamba2's loss falling; then mamba2 at
     LM_LAYERS_SHORT layers under none / remat / act (residual bytes act <
@@ -3878,6 +3906,9 @@ def slice_family_train(torch, wrappers) -> collections.Counter:
     for name, argv in FAMILY_LM.items():
         t0 = time.perf_counter()
         cfg = get(name)
+        cfg = dataclasses.replace(
+            cfg, n_layers=FAMILY_LM_LAYERS.get(name, cfg.n_layers))
+        depth = cfg.n_layers
         args = train.parser().parse_args(argv)
         n = cfg.param_count()
         toks = args.batch * args.seq
@@ -3890,11 +3921,11 @@ def slice_family_train(torch, wrappers) -> collections.Counter:
             f"largest transient a loss chunk's float32 logits and their "
             f"gradient {logits}" + (f"; INT2 stashes {stash}"
                                     if args.act_mode == "act" else ""))
-        n_stash = cfg.n_layers if args.act_mode == "act" else 0
+        n_stash = depth if args.act_mode == "act" else 0
         want = dict(planned(0, 0, 0), quant_pack=n_stash * args.steps,
                     dequant_unpack=n_stash * args.steps)
         finite = []
-        with grad_taps(lsteps, finite):
+        with grad_taps(lsteps, finite), lm_depth(train, depth):
             (res, _), counts, peak = counted_run(
                 torch, wrappers, want, f"{name} lm",
                 lambda: launcher(train, argv, train.lm_main))
@@ -3917,11 +3948,11 @@ def slice_family_train(torch, wrappers) -> collections.Counter:
             batch = res["make_batch"](args.steps)
             profile_call(torch, lambda: float(res["step_fn"](
                 (res["model"], res["opt_state"]), batch)[1]["loss"]),
-                f"lm step ({name}, 48 layers, act, B 4 x 2048)", top=20)
+                f"lm step ({name}, {depth} layers, act, B 4 x 2048)", top=20)
             log(f"[{name} lm] with the profiled step: "
                 f"{time.perf_counter() - t0:.1f} s")
             ssd = time_ssd(torch, cfg, args.batch, args.seq)
-            share = cfg.n_layers * (ssd["fwd_ms"] + ssd["fwd_bwd_ms"]) \
+            share = depth * (ssd["fwd_ms"] + ssd["fwd_bwd_ms"]) \
                 / (1e3 * statistics.median(h["dt"] for h in hist[1:]))
             log(f"[{name} lm] the SSD scan of a layer at B {args.batch} x "
                 f"{args.seq} (CUDA events): forward {ssd['fwd_ms']:.3f} ms, "
@@ -4309,7 +4340,7 @@ PHASE12_LOSSES = [12.398728370666504, 11.805458068847656, 11.252832412719727,
 #: layers (a one-rank run and then two ranks share the card's memory and
 #: the phase's time), SHARD_STEPS[mode] steps of SHARD_BATCH x SHARD_SEQ
 #: tokens on each two-rank (data, model) mesh of SHARD_MESHES.
-SHARD_LAYERS, SHARD_BATCH, SHARD_SEQ = 8, 2, 1024
+SHARD_LAYERS, SHARD_BATCH, SHARD_SEQ = 4, 2, 1024
 SHARD_STEPS = {"act": 3, "remat": 2}
 SHARD_MESHES = ((1, 2), (2, 1))
 #: The sharded run's band against the one-rank run (the reference's mesh
@@ -4606,6 +4637,8 @@ def off_band(torch, model, mesh, want: dict) -> list:
 
     out = []
     for n, p in model.named_parameters():
+        if n not in want:
+            continue
         exp = want[n]
         if hasattr(p, "to_local"):
             exp = distribute_tensor(exp, mesh, p.placements,
@@ -4849,7 +4882,582 @@ def slice_mesh_launcher(torch) -> None:
         raise AssertionError("--production-mesh on one rank did not raise")
 
 
+# --------------- phase 17: every family on the mesh, sharded decode, dry run
+#: Seconds phase 17 may take in all.
+PHASE17_LIMIT_S = 150.0
+#: Phase 17 (a): each family at full width, cut in depth (a one-rank run,
+#: then two ranks sharing the card's 80 GB), float32 weights and residual
+#: stream, FAMILY17_STEPS AdamW steps (lr LM_LR) of batch x seq tokens on
+#: the (1, 2) mesh: run -> (arch, cut of the config, mode, batch, seq,
+#: AdamW overrides).  qwen3-moe runs twice, one micro-batch a step, its
+#: expert stacks in their bf16 (in float32, with their float32 gradients,
+#: one rank ran out of the card's memory): with float32 moments, held to
+#: the band like every ``remat`` run (the expert-parallel update checked
+#: element by element), and with 8-bit moments in blocks of 64 (its
+#: lm_head's shard on (1, 2) is 75,968 columns, which straddles blocks of
+#: 256, the rule the dry run's ``moment8_straddle`` lists), whose
+#: parameters are logged against the band: a moment code that the sharded
+#: gradient's last bits flip moves its weight, by up to 160 lr where v
+#: rounds to 0 (ROADMAP C).
+MOE17 = "qwen3-moe-235b-a22b"
+FAMILY17 = {
+    MOE17: (MOE17, dict(n_layers=1, grad_accum=1), "remat", 2, 256, {}),
+    MOE17 + " 8-bit": (MOE17, dict(n_layers=1, grad_accum=1), "remat", 2,
+                       256, dict(state_bits=8, state_group=64)),
+    "mamba2-780m": ("mamba2-780m", dict(n_layers=4), "act", 2, 512, {}),
+    "zamba2-1.2b": ("zamba2-1.2b", dict(n_layers=2), "act", 2, 512, {}),
+    "seamless-m4t-large-v2": ("seamless-m4t-large-v2",
+                              dict(n_layers=2, encoder_layers=2), "remat",
+                              2, 512, {}),
+    "internvl2-2b": ("internvl2-2b", dict(n_layers=2), "act", 2, 512, {}),
+}
+FAMILY17_STEPS = 2
+#: A parameter of more than FAMILY17_BIG elements (the embeddings, the
+#: vocabulary projections, the expert stacks) is held to the one-rank run
+#: by its first FAMILY17_SAMPLE slices of each rank's half along the dim
+#: its spec splits on (1, 2) (the first dim where none): the whole tensors
+#: would not fit on the card beside the two ranks' runs.
+FAMILY17_BIG, FAMILY17_SAMPLE = 1 << 26, 16
+#: The share of a run's sampled bf16 weights that may lie more than one
+#: bf16 step (but within 2 lr a step) from the one-rank run's under
+#: ``remat`` with float32 moments: 1-2 of a rank's 301,989,888 on the
+#: card; a wrong expert update would move most of them.
+FAMILY17_BF16_SHARE = 1e-6
+
+
+def sample17(name: str, t):
+    """One-rank parameter ``t`` as held against the ranks: itself, or for
+    a large one (dim, split, its sample) (FAMILY17_BIG), the dim the
+    parameter's spec on (1, 2) splits."""
+    import torch
+
+    from repro_torch.parallel.sharding import param_spec
+
+    if t.numel() <= FAMILY17_BIG:
+        return t
+    spec = param_spec(name.rsplit(".", 1)[-1], tuple(t.shape),
+                      {"data": 1, "model": 2})
+    dims = [i for i, e in enumerate(spec) if e == "model"]
+    dim = dims[0] if dims else 0
+    if not dims:
+        return dim, False, t.narrow(dim, 0, FAMILY17_SAMPLE).clone()
+    half = t.shape[dim] // 2
+    return dim, True, torch.cat([t.narrow(dim, 0, FAMILY17_SAMPLE),
+                                 t.narrow(dim, half, FAMILY17_SAMPLE)], dim)
+#: Phase 17 (b): greedy decode on (1, 2) against one rank: (arch, layers),
+#: DECODE17_BATCH prompts of DECODE17_PROMPT tokens, DECODE17_STEPS steps.
+DECODE17 = (("qwen1.5-4b", 4), ("mamba2-780m", 4))
+DECODE17_BATCH, DECODE17_PROMPT, DECODE17_STEPS = 4, 256, 8
+#: Phase 17 (a): the 8-bit moments held bit-equal to one rank's, given
+#: the same gradients: (name, global shape, split dim over ``model``): a
+#: Shard(0) split (an expert stack's rows) and a column split.
+MOMENTS17 = (("rows", (16, 4096), 0), ("cols", (4096, 1024), 1))
+#: Phase 17 (c): the dry-run cells run on the card's host, each in a
+#: subprocess beside (a) and (b).
+DRYRUN17 = (("qwen3-32b", "train_4k", "single"),
+            ("qwen3-moe-235b-a22b", "decode_32k", "multi"))
+
+
+def family17_cfg(run: str):
+    from repro_torch.configs import get
+    from repro_torch.core.compressor import CompressionConfig
+
+    arch, cut, mode, _, _, _ = FAMILY17[run]
+    return dataclasses.replace(
+        get(arch), act_mode=mode, act_dtype="float32",
+        act_compression=CompressionConfig(bits=2, group_size=256), **cut)
+
+
+def family17_batch(torch, cfg, batch: int, seq: int, step: int) -> dict:
+    """A step's tokens and the stub frontends' outputs (float32), the same
+    in every process (drawn on the card from a seeded generator)."""
+    from repro_torch.data import batch_for_step
+
+    out = {"tokens": torch.as_tensor(
+        batch_for_step(cfg.vocab, batch, seq, step), device="cuda")}
+    gen = torch.Generator("cuda").manual_seed(1000 + step)
+    if cfg.frontend == "vision":
+        out["prefix_embeds"] = torch.randn(
+            (batch, cfg.frontend_len, cfg.d_model), generator=gen,
+            device="cuda")
+    if cfg.family == "encdec":
+        out["enc_embeds"] = torch.randn((batch, seq, cfg.d_model),
+                                        generator=gen, device="cuda")
+    return out
+
+
+def plan17(run: str, n_layers: int, n_params: int) -> tuple:
+    """(quant_pack, dequant_unpack) launches of a FAMILY17 run on each
+    rank: an ``act`` run stashes each layer once a step and reads the
+    stash once in its backward; 8-bit AdamW quantizes its two moments of
+    every parameter once at init and after every step, and dequantizes
+    them every step."""
+    _, _, mode, _, _, over = FAMILY17[run]
+    stash = n_layers * FAMILY17_STEPS if mode == "act" else 0
+    moments = 2 * n_params if over.get("state_bits") else 0
+    return (stash + moments * (FAMILY17_STEPS + 1),
+            stash + moments * FAMILY17_STEPS)
+
+
+def bf16_steps_off(torch, got, exp) -> tuple:
+    """(elements of bf16 ``got`` more than one bf16 step from ``exp``,
+    those of them also more than FAMILY17_STEPS times 2 lr apart): a
+    bf16 weight's gradient differs from one rank's by a last bit, which
+    rounds an update either way (one step) or, where the moments' sum
+    nearly cancels, turns the update's sign (2 lr a step)."""
+    bits = got.view(torch.int16).int() - exp.view(torch.int16).int()
+    diff = (got.float() - exp.float()).abs()
+    steps = (bits.abs() > 1) & (diff > SHARD_ATOL)
+    return steps, steps & (diff > 2 * LM_LR * FAMILY17_STEPS)
+
+
+def family17_train(torch, run: str, mesh, want: dict | None = None) -> dict:
+    """FAMILY17_STEPS steps of FAMILY17's ``run`` on ``mesh`` from the
+    seed-0 float32 weights: the losses, the step times, the stash
+    launches (raising unless plan17's) and layer 0's step-0 stash (raising
+    where an ``act`` run records none); the parameters after the last step
+    (one rank), or each parameter's elements outside the band of
+    ``want``'s (a rank of two: raising under ``remat`` with float32
+    moments, where a bf16 weight's sample is held to one bf16 step)."""
+    from repro_torch.core import act_compress
+    from repro_torch.kernels import quant_blockwise as qk
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parallel import annotate, sharding
+
+    cfg = family17_cfg(run)
+    _, _, mode, batch, seq, over = FAMILY17[run]
+    tag = f"[family {run} {tuple(mesh.shape)}]"
+    annotate.set_rules(**annotate.rules_for(cfg, mesh, batch))
+    model = Model(cfg, generator=torch.Generator("cuda").manual_seed(0))
+    for p in model.parameters():
+        if p.dim() < 3:            # an expert stack stays bf16 (FAMILY17)
+            p.data = p.data.float()
+    specs = sharding.distribute_model(model, mesh)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    for name, p in model.named_parameters():
+        if not local_shape_ok(p, specs[name], sizes):
+            raise AssertionError(f"{tag} {name}: local shape not as "
+                                 f"param_pspecs says ({specs[name]})")
+    opt = AdamWConfig(lr=LM_LR, weight_decay=0.01, grad_clip=1.0, **over)
+    names, params = zip(*model.named_parameters())
+    plan = plan17(run, cfg.n_layers, len(params))
+    real, stash = act_compress.compress, []
+
+    def record(x, cfg_, seed, row0=0):
+        ct = real(x, cfg_, seed, row0)
+        if not stash:
+            stash.append((row0, ct.packed.clone()))
+        return ct
+
+    qk.quant_pack.launches = qk.dequant_unpack.launches = 0
+    state = adamw_init(params, opt, names=names)
+    step = make_train_step(model, opt)
+    act_compress.compress = record
+    losses, secs = [], []
+    try:
+        for i in range(FAMILY17_STEPS):
+            b = sharding.distribute_batch(
+                cfg, family17_batch(torch, cfg, batch, seq, i), mesh)
+            t0 = time.perf_counter()
+            losses.append(float(step(state, b)["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    finally:
+        act_compress.compress = real
+        annotate.set_rules()
+    out = {"losses": losses, "secs": secs,
+           "counts": (qk.quant_pack.launches, qk.dequant_unpack.launches),
+           "peak": torch.cuda.max_memory_allocated()}
+    if out["counts"] != plan:
+        raise AssertionError(f"{tag} launches {out['counts']}, planned "
+                             f"{plan}")
+    if mode == "act" and not stash:
+        raise AssertionError(f"{tag} an act run recorded no stash")
+    if want is None:
+        # a large parameter is held by a sample (see FAMILY17_SAMPLE)
+        out["params"] = {n: sample17(n, p.detach())
+                         for n, p in model.named_parameters()}
+        out["stash"] = stash[0][1] if stash else None
+        return out
+    if not all(math.isclose(a, b, rel_tol=SHARD_RTOL, abs_tol=SHARD_ATOL)
+               for a, b in zip(losses, want["losses"])):
+        raise AssertionError(f"{tag} losses {losses} vs one rank's "
+                             f"{want['losses']}")
+    rank = mesh.get_local_rank("model")
+    whole = {n: w for n, w in want["params"].items()
+             if not isinstance(w, tuple)}
+    out["off"] = off_band(torch, model, mesh, whole)
+    out["experts_off"], out["experts_flips"] = [], 0
+    out["experts_steps"] = out["experts_sampled"] = 0
+    for n, p in model.named_parameters():
+        if n in whole:
+            continue
+        dim, split, exp = want["params"][n]
+        got = p.to_local() if hasattr(p, "to_local") else p
+        got = got.narrow(dim, 0, FAMILY17_SAMPLE).detach()
+        exp = exp.narrow(dim, rank * FAMILY17_SAMPLE if split else 0,
+                         FAMILY17_SAMPLE)
+        if p.dtype == torch.bfloat16:
+            # a bf16 weight: within one bf16 step but for a few elements
+            # within 2 lr a step (FAMILY17_BF16_SHARE)
+            out["experts_flips"] += int((~torch.eq(got, exp)).sum())
+            steps, off = bf16_steps_off(torch, got, exp)
+            out["experts_steps"] += int(steps.sum())
+            out["experts_sampled"] += got.numel()
+        else:
+            off = ~torch.isclose(got, exp, rtol=SHARD_RTOL, atol=SHARD_ATOL)
+        if off.any():
+            row = (n, int(off.sum()), float((got.float() - exp.float())
+                                            .abs().max()))
+            out["experts_off" if p.dtype == torch.bfloat16 else "off"].append(
+                row)
+    # 8-bit moments draw stochastic rounding as the stash does: their
+    # parameters are logged against the band (FAMILY17), as act's are
+    if mode in SHARD_STRICT and not over.get("state_bits") and (
+            out["off"] or out["experts_off"] or out["experts_steps"]
+            > FAMILY17_BF16_SHARE * out["experts_sampled"]):
+        raise AssertionError(
+            f"{tag} parameters outside the band of the one-rank run: "
+            f"{out['off']}; bf16 samples more than 2 lr a step off: "
+            f"{out['experts_off']}; more than one bf16 step off: "
+            f"{out['experts_steps']} of {out['experts_sampled']}")
+    if stash:
+        row0, words = stash[0]
+        if not torch.equal(words, want["stash"][row0:row0 + len(words)]):
+            raise AssertionError(f"{tag} layer 0's step-0 stash is not the "
+                                 "one-rank stash's rows")
+        out["stash_rows"] = (row0, len(words))
+    return out
+
+
+def moments17(torch, mesh=None) -> dict:
+    """Two 8-bit AdamW steps (blocks of 256, through the quant kernels) of
+    each parameter of MOMENTS17 from zero moments, fed the same full
+    gradients (each rank its shard on ``mesh``): the moments' words, zero
+    and range after them."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import adamw_update
+
+    opt = AdamWConfig(lr=1e-2, state_bits=8)
+    out = {}
+    for name, shape, dim in MOMENTS17:
+        p = torch.linspace(-1, 1, math.prod(shape),
+                           device="cuda").reshape(shape)
+        if mesh is not None:
+            p = distribute_tensor(p, mesh, (Replicate(), Shard(dim)),
+                                  src_data_rank=None)
+        state = adamw_init([p], opt, names=[name])
+        for step in range(2):
+            g = torch.randn(shape, device="cuda", generator=torch.Generator(
+                "cuda").manual_seed(7 * step + dim))
+            if mesh is not None:
+                g = distribute_tensor(g, mesh, p.placements,
+                                      src_data_rank=None)
+            adamw_update([g], state, [p], opt)
+        out[name] = {f"{k}_{f}": state[k][0][f].clone() for k in ("m", "v")
+                     for f in ("p", "z", "r")}
+    return out
+
+
+def moment_rows(torch, full: dict, got: dict, rank: int) -> list:
+    """Names of MOMENTS17's moments whose words, zero or range on rank
+    ``rank`` are not its blocks of the one-rank moments ``full``."""
+    bad = []
+    g = 256
+    for name, shape, dim in MOMENTS17:
+        local = list(shape)
+        local[dim] //= 2
+        idx = [slice(None)] * 2
+        idx[dim] = slice(rank * local[dim], (rank + 1) * local[dim])
+        flat = torch.arange(math.prod(shape)).reshape(shape)[tuple(idx)]
+        blocks = (flat.reshape(-1, g)[:, 0] // g).cuda()
+        for key, val in got[name].items():
+            if not torch.equal(val, full[name][key][blocks]):
+                bad.append(f"{name} {key}")
+    return bad
+
+
+def decode17(torch, arch: str, layers: int, mesh=None) -> dict:
+    """Greedy decode of DECODE17_STEPS tokens after a one-rank prefill of
+    DECODE17_BATCH x DECODE17_PROMPT tokens (float32); on ``mesh`` the
+    model and the cache are then laid out by ``param_pspecs`` and
+    ``cache_pspecs``: the tokens, the last step's logits and the step
+    times."""
+    from repro_torch.configs import get
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import Model
+    from repro_torch.parallel import annotate, sharding
+
+    cfg = dataclasses.replace(get(arch), n_layers=layers, act_mode="none",
+                              act_dtype="float32")
+    model = Model(cfg, generator=torch.Generator("cuda").manual_seed(0)
+                  ).float()
+    tokens = torch.randint(0, cfg.vocab, (DECODE17_BATCH, DECODE17_PROMPT),
+                           device="cuda", generator=torch.Generator(
+                               "cuda").manual_seed(5))
+    seq = DECODE17_PROMPT + DECODE17_STEPS
+    logits, cache = model.prefill(tokens, max_seq=seq)
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    if mesh is not None:
+        annotate.set_rules(**annotate.rules_for(cfg, mesh, DECODE17_BATCH,
+                                                is_train=False))
+        sharding.distribute_model(model, mesh)
+        cache = sharding.distribute_cache(cfg, cache, mesh, DECODE17_BATCH,
+                                          seq)
+    step = make_serve_step(model)
+    toks, secs = [], []
+    try:
+        for _ in range(DECODE17_STEPS):
+            t0 = time.perf_counter()
+            tok, lg, cache = step(cache, tok)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            # a rank's rows are every row on (1, 2): no gather (gloo's
+            # functional one does not survive CUDA tensors)
+            toks.append((tok.to_local() if hasattr(tok, "to_local")
+                         else tok).cpu())
+    finally:
+        annotate.set_rules()
+    lg = lg.to_local() if hasattr(lg, "to_local") else lg
+    return {"tokens": torch.cat(toks, 1), "logits": lg.cpu(), "secs": secs}
+
+
+def family17_rank(rank: int, world: int, want: dict) -> dict:
+    """Phase 17 (a) and (b) on one of two gloo ranks sharing the card, on
+    the (1, 2) mesh: every family of FAMILY17 held to the one-rank runs
+    ``want``, the 8-bit moments, then the decode of DECODE17."""
+    import faulthandler
+
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    mesh = make_mesh((1, 2), ("data", "model"))
+    out = {"train": {}, "decode": {}}
+    for run in FAMILY17:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        r = family17_train(torch, run, mesh, want["train"][run])
+        r["s"] = time.perf_counter() - t0
+        out["train"][run] = r
+        torch.cuda.empty_cache()
+    out["moments_bad"] = moment_rows(torch, want["moments"],
+                                     moments17(torch, mesh), rank)
+    for arch, layers in DECODE17:
+        t0 = time.perf_counter()
+        out["decode"][arch] = decode17(torch, arch, layers, mesh)
+        out["decode"][arch]["s"] = time.perf_counter() - t0
+    return out
+
+
+def dryrun17_start() -> list:
+    """Phase 17 (c)'s cells, each started in a subprocess (CPU only)."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (os.pathsep + env["PYTHONPATH"]
+                                    if env.get("PYTHONPATH") else "")
+    return [(cell, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--mesh", cell[2]], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cell in DRYRUN17]
+
+
+def dryrun17_finish(procs) -> None:
+    """Wait for phase 17 (c)'s cells; each must end ``ok``: its record's
+    numbers are logged."""
+    from repro_torch.launch import dryrun
+
+    for (arch, shape, mesh), proc in procs:
+        try:
+            text, _ = proc.communicate(timeout=max(
+                10.0, PHASE17_LIMIT_S - (time.perf_counter() - T17[0])))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        path = dryrun.RESULTS / f"{arch}__{shape}__{mesh}.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        if proc.returncode != 0 or rec.get("status") != "ok":
+            raise AssertionError(f"[dryrun {arch} {shape} {mesh}] exit "
+                                 f"{proc.returncode}: {text[-2000:]}")
+        log(f"[dryrun {arch} {shape} {mesh}] ok: trace_s {rec['trace_s']}, "
+            f"memory {rec['memory']}, hlo {rec['hlo']}, model_flops_global "
+            f"{rec['model_flops_global']}, n_devices {rec['n_devices']}, "
+            f"8-bit straddle {rec['moment8_straddle']}")
+
+
+@contextlib.contextmanager
+def alloc_conf(value: str):
+    """``PYTORCH_CUDA_ALLOC_CONF`` set to ``value`` for the processes
+    started inside (this process's allocator has read it already)."""
+    import os
+
+    old = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = old
+
+
+#: When phase 17 started (its subprocesses' deadline).
+T17 = [0.0]
+
+
+def check_stride(torch, qk, ref) -> dict:
+    """``quant_pack`` with a column split's block offset (``row0`` and
+    ``block_stride``) against its plain version at phase 17's moment
+    shapes (a (4096, 512) shard of a (4096, 1024) moment in blocks of 256:
+    its rows 2 blocks, 4 apart): bit-equal, and timed beside the
+    stride-free launch."""
+    x = torch.randn((4096 * 2, 256), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3))
+    got = qk.quant_pack(x, 8, 11, row0=2, block_stride=(2, 4))
+    want = ref.quantize_packed(x, 8, 11, row0=2, block_stride=(2, 4))
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("quant_pack with a block stride differs from "
+                             "its plain version")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    return {"ms": time_ms(torch, lambda: qk.quant_pack(
+                x, 8, 11, row0=2, block_stride=(2, 4)), flush),
+            "stride_free_ms": time_ms(torch, lambda: qk.quant_pack(
+                x, 8, 11, row0=2), flush),
+            "bound_ms": bound(x.numel() * 4 + x.numel() + 8 * x.shape[0],
+                              18 * x.numel())[0]}
+
+
+def slice_families_sharded(torch) -> collections.Counter:
+    """Phase 17: (c)'s dry-run cells started in subprocesses; (a) each
+    family of FAMILY17 trained on one rank, the 8-bit moments of
+    MOMENTS17 on one rank, then one pair of gloo ranks on (1, 2) sharing
+    the card trains every family held to it, and (b) decodes DECODE17
+    held to one rank's greedy tokens; then (c)'s records."""
+    from repro_torch.kernels import quant_blockwise as qk
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import run_ranks
+
+    T17[0] = time.perf_counter()
+    smi = card()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[family] {torch.cuda.memory_allocated()} bytes allocated on the "
+        f"card before phase 17 ({smi})")
+    procs = dryrun17_start()
+    total = collections.Counter()
+    try:
+        row = check_stride(torch, qk, ref)
+        log(f"[quant_pack block stride] bit-equal to the plain version; "
+            f"{row['ms']:.4f} ms (stride-free {row['stride_free_ms']:.4f}, "
+            f"bound {row['bound_ms']:.4f}) ({smi})")
+        want = {"train": {}, "moments": moments17(torch)}
+        local = make_local_mesh()
+        for run in FAMILY17:
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            one = family17_train(torch, run, local)
+            total.update(quant_pack=one["counts"][0],
+                         dequant_unpack=one["counts"][1])
+            log(f"[family {run} one rank] losses {one['losses']}; step s "
+                f"{one['secs']}; launches {one['counts']} as planned; peak "
+                f"{one['peak']}; layer 0's stash "
+                f"{None if one['stash'] is None else tuple(one['stash'].shape)}"
+                f" ({time.perf_counter() - t0:.1f} s, {smi})")
+            want["train"][run] = {
+                "losses": one["losses"], "params": one["params"],
+                "stash": None if one["stash"] is None else one["stash"]}
+            del one
+            torch.cuda.empty_cache()
+        decode_one = {}
+        for arch, layers in DECODE17:
+            t0 = time.perf_counter()
+            decode_one[arch] = decode17(torch, arch, layers)
+            log(f"[decode {arch} {layers} layers one rank] step s "
+                f"{decode_one[arch]['secs']} "
+                f"({time.perf_counter() - t0:.1f} s, {smi})")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        # the ranks' allocator grows its segments in place: qwen3-moe's
+        # ranks each hold ~27 GB and left 7 GB apiece in fragments of
+        # fixed segments, which ran the card out of memory
+        with alloc_conf("expandable_segments:True"):
+            ranks = run_ranks(family17_rank, 2, (want,), timeout=300)
+        log(f"[family] two ranks: {time.perf_counter() - t0:.1f} s")
+        del want
+        torch.cuda.empty_cache()
+        for rank, res in enumerate(ranks):
+            for run, r in res["train"].items():
+                total.update(quant_pack=r["counts"][0],
+                             dequant_unpack=r["counts"][1])
+                log(f"[family {run} (1, 2) rank {rank}] losses "
+                    f"{r['losses']} within rtol {SHARD_RTOL} / atol "
+                    f"{SHARD_ATOL} of one rank's; parameters outside that "
+                    f"band (name, elements, largest difference): "
+                    f"{r['off']}; sampled bf16 weights more than 2 lr a "
+                    f"step off: {r['experts_off']}, more than one bf16 step "
+                    f"off: {r['experts_steps']} of {r['experts_sampled']} "
+                    f"({r['experts_flips']} not equal); stash rows "
+                    f"{r.get('stash_rows')} bit-equal; launches "
+                    f"{r['counts']} as planned; step s {r['secs']}; peak "
+                    f"{r['peak']}; {r['s']:.1f} s ({smi})")
+            if res["moments_bad"]:
+                raise AssertionError(f"[moments rank {rank}] not the "
+                                     f"one-rank blocks: {res['moments_bad']}")
+            log(f"[moments rank {rank}] 8-bit moments of {MOMENTS17} "
+                "bit-equal to one rank's (words, zero, range)")
+            for arch, r in res["decode"].items():
+                one = decode_one[arch]
+                if not torch.equal(r["tokens"], one["tokens"]):
+                    raise AssertionError(f"[decode {arch} rank {rank}] "
+                                         f"tokens {r['tokens'].tolist()} vs "
+                                         f"{one['tokens'].tolist()}")
+                err = float((r["logits"] - one["logits"]).abs().max())
+                log(f"[decode {arch} (1, 2) rank {rank}] greedy tokens equal "
+                    f"to one rank's; last logits within {err:.3e}; step s "
+                    f"{r['secs']}; {r['s']:.1f} s ({smi})")
+    finally:
+        dryrun17_finish(procs)
+    return total
+
+
 T_START = time.perf_counter()
+
+
+def live_cuda(torch, top: int = 8) -> str:
+    """The CUDA tensors still referenced after a collection: their bytes
+    (each storage once), and the largest ``top`` with shape, dtype and the
+    types of the objects that refer to them (what the phases leave on the
+    card)."""
+    gc.collect()
+    seen, rows = set(), []
+    for o in gc.get_objects():
+        try:
+            if not (isinstance(o, torch.Tensor) and o.is_cuda):
+                continue
+            st = o.untyped_storage()
+        except Exception:       # an object that will not say
+            continue
+        if st.data_ptr() in seen:
+            continue
+        seen.add(st.data_ptr())
+        rows.append((st.nbytes(), tuple(o.shape), str(o.dtype), o))
+    rows.sort(key=lambda r: -r[0])
+    big = [(n, shape, dt, sorted({type(r).__name__
+                                  for r in gc.get_referrers(t)})[:6])
+           for n, shape, dt, t in rows[:top]]
+    return (f"{sum(r[0] for r in rows)} bytes in {len(rows)} storages "
+            f"reachable from Python; largest {big}")
 
 
 def main() -> int:
@@ -5022,6 +5630,22 @@ def main() -> int:
     del model9, device9
     torch.cuda.empty_cache()
 
+    # 17. every family on the (data, model) mesh, the sharded decode step
+    # and the production dry run, before phases 12-16: its qwen3-moe runs
+    # need most of the card, and what a phase leaves is logged after each
+    t0 = time.perf_counter()
+    launches17 = slice_families_sharded(torch)
+    family17_s = time.perf_counter() - t0
+    log(f"phase 17: {family17_s:.1f} s; launches {dict(launches17)}")
+    for name, n in launches17.items():
+        launches[name] += n
+    if not family17_s < PHASE17_LIMIT_S:
+        raise AssertionError(f"phase 17 took {family17_s:.1f} s, over "
+                             f"{PHASE17_LIMIT_S} s")
+    gc.collect()
+    log(f"[memory] {torch.cuda.memory_allocated()} bytes allocated after "
+        f"phase 17")
+
     # 12. slice 14: the training launcher, graph and LM halves
     t0 = time.perf_counter()
     for part in (slice_launcher_graph, slice_launcher_lm,
@@ -5034,6 +5658,8 @@ def main() -> int:
     if not launcher_s < PHASE12_LIMIT_S:
         raise AssertionError(f"phase 12 took {launcher_s:.1f} s, over "
                              f"{PHASE12_LIMIT_S} s")
+    log(f"[memory] {torch.cuda.memory_allocated()} bytes allocated after "
+        f"phase 12")
 
     # 13. slice 15: the MoE family
     t0 = time.perf_counter()
@@ -5052,6 +5678,8 @@ def main() -> int:
     if not moe_s < PHASE13_LIMIT_S:
         raise AssertionError(f"phase 13 took {moe_s:.1f} s, over "
                              f"{PHASE13_LIMIT_S} s")
+    log(f"[memory] {torch.cuda.memory_allocated()} bytes allocated after "
+        f"phase 13")
 
     # 14. slice 16: the SSM, hybrid and enc-dec families
     t0 = time.perf_counter()
@@ -5068,6 +5696,8 @@ def main() -> int:
     if not family_s < PHASE14_LIMIT_S:
         raise AssertionError(f"phase 14 took {family_s:.1f} s, over "
                              f"{PHASE14_LIMIT_S} s")
+    log(f"[memory] {torch.cuda.memory_allocated()} bytes allocated after "
+        f"phase 14")
 
     # 15. the static checker and the examples
     t0 = time.perf_counter()
@@ -5079,6 +5709,8 @@ def main() -> int:
     if not check_s < PHASE15_LIMIT_S:
         raise AssertionError(f"phase 15 took {check_s:.1f} s, over "
                              f"{PHASE15_LIMIT_S} s")
+    log(f"[memory] {torch.cuda.memory_allocated()} bytes allocated after "
+        f"phase 15")
 
     # 16. tile selection and LM sharding
     t0 = time.perf_counter()
@@ -5094,8 +5726,11 @@ def main() -> int:
     if not shard_s < PHASE16_LIMIT_S:
         raise AssertionError(f"phase 16 took {shard_s:.1f} s, over "
                              f"{PHASE16_LIMIT_S} s")
+    log(f"[memory] {torch.cuda.memory_allocated()} bytes allocated after "
+        f"phase 16")
+    log(f"[memory] after phase 16: {live_cuda(torch)}")
 
-    # 17. results
+    # 18. results
     sources = {"quant_pack": ("src/repro_torch/csrc/quant_blockwise.cu",
                               "src/repro/kernels/quant_blockwise.py:62"),
                "dequant_unpack": ("src/repro_torch/csrc/quant_blockwise.cu",

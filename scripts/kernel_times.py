@@ -192,7 +192,7 @@ def time_kv_kernel(torch, chip_smoke, qk, flush, gen) -> dict:
             stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
             err = lib.quant_pack(x.data_ptr(), *(t.data_ptr() for t in out),
                                  n, g, bits, 0, seeds.data_ptr(), nbt, 0,
-                                 levels, 0, stream)
+                                 1, 1, levels, 0, stream)
             if err:
                 raise RuntimeError(f"quant_pack: CUDA error {err}")
 

@@ -154,11 +154,12 @@ def from_blocks(blocks: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
 
 # -------------------------------------------------------------- primitives
 def quantize_blocks(blocks, bits: int, seed: int, levels=None, *,
-                    impl: str = "auto", row0: int = 0):
+                    impl: str = "auto", row0: int = 0, block_stride=None):
     """(n_blocks, G) f32 -> (packed int32, zero (n,), rng (n,)); ``row0``
-    is the global block index of row 0."""
+    is the global block index of row 0, ``block_stride`` (blocks a local
+    row, blocks a global row) a column split's stride."""
     return ops.quantize_packed(blocks, bits, seed, levels, impl=impl,
-                               row0=row0)
+                               row0=row0, block_stride=block_stride)
 
 
 def dequantize_blocks(packed, zero, rng, bits: int, group_size: int,

@@ -106,25 +106,49 @@ def _level_table(levels, bits: int, device) -> torch.Tensor:
     return torch.as_tensor(levels, dtype=torch.float32, device=device)
 
 
+def global_blocks(n: int, row0: int = 0, block_stride=None,
+                  device="cpu") -> torch.Tensor:
+    """The global block index (int64, mod 2**32) of each of ``n`` local
+    blocks: ``row0`` is local block 0's, and ``block_stride = (local,
+    global)`` says the local blocks come in rows of ``local`` blocks that
+    lie ``global`` blocks apart in the unsharded tensor (a column split:
+    local row r's blocks start at ``row0 + r * global``).  Without a
+    stride (or with ``local == global``) the blocks are one contiguous run
+    from ``row0``."""
+    b = torch.arange(n, dtype=torch.int64, device=device)
+    if block_stride is not None:
+        local, glob = (int(v) for v in block_stride)
+        b = (b // local) * glob + b % local
+    return (b + int(row0)) & MASK32
+
+
 def quantize_grouped(blocks: torch.Tensor, bits: int, seed, levels=None, *,
-                     rows_per_seed: int | None = None, row0: int = 0
+                     rows_per_seed: int | None = None, row0: int = 0,
+                     block_stride=None
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Quantize (n_blocks, G) -> (codes int32, zero f32, range f32).
 
     ``seed`` is a python int, or with ``rows_per_seed`` a tensor of one
-    seed per run of rows (:func:`stochastic_round_per_run`).  ``row0`` is
-    the global block index of row 0 (a shard's rows draw the noise of the
-    unsharded call's)."""
+    seed per run of rows (:func:`stochastic_round_per_run`).  ``row0`` and
+    ``block_stride`` place the rows among the global blocks
+    (:func:`global_blocks`): a shard's rows draw the noise of the
+    unsharded call's."""
     lv = _level_table(levels, bits, blocks.device)
     B = float(2**bits - 1)
     zero, rng = block_stats(blocks)
     safe = rng.clamp_min(EPS)
     hnorm = ((blocks - zero[:, None]) / safe[:, None] * B).clamp(0.0, B)
     if rows_per_seed is None:
-        codes = stochastic_round_to_levels(hnorm, lv, seed,
-                                           index0=row0 * blocks.shape[1])
+        n, g = blocks.shape
+        index0 = row0 * g
+        if block_stride is not None:
+            # each row's counter starts at its global block's first element
+            gb = global_blocks(n, row0, block_stride, blocks.device)
+            index0 = (gb * g - torch.arange(n, dtype=torch.int64,
+                                            device=blocks.device) * g)[:, None]
+        codes = stochastic_round_to_levels(hnorm, lv, seed, index0=index0)
     else:
-        if row0:
+        if row0 or block_stride is not None:
             raise ValueError("row0 offsets the one-seed stream; a seed "
                              "table restarts its counter every run")
         codes = stochastic_round_per_run(hnorm, lv, seed, rows_per_seed)

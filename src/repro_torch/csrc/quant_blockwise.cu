@@ -14,9 +14,12 @@
 // reference's jax.vmap of quantize_blocks in serving/kvcache.py), so block
 // row r draws u = uniform(seeds[r / rps], (r % rps) * G + col).  A null
 // table is the plain one-seed kernel, with the same bits as before.
-// Without a table, row0 is the global block index of row 0: a shard of a
-// larger input (one rank's rows of a sharded activation) draws counter
-// (row0 + r) * G + col, mod 2**32, the unsharded call's noise for its rows.
+// Without a table, BlockOffset places the rows among the global blocks: a
+// shard of a larger input (one rank's rows of a sharded activation, its
+// columns of a split AdamW moment) draws counter gb(r) * G + col, mod
+// 2**32, the unsharded call's noise for its rows, where gb(r) = row0 +
+// (r / local) * global + r % local (local rows of `local` blocks lying
+// `global` blocks apart; local == global is one contiguous run).
 //
 // What bounds it on an H100.  Quantize reads 4 bytes an element and writes
 // bits/8 (+ 8 a block); dequantize the reverse: 0.0139 ms of bytes at
@@ -92,6 +95,17 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
+// Where local block b lies among the unsharded tensor's blocks (mod 2**32):
+// local rows of `local` blocks, `global` blocks apart, the first at `row0`.
+struct BlockOffset {
+  uint32_t row0, local, global;
+  __device__ __forceinline__ uint32_t global_block(uint32_t b) const {
+    if (local == global) return row0 + b;      // one contiguous run
+    const uint32_t r = b / local;
+    return row0 + r * global + (b - r * local);
+  }
+};
+
 template <int BITS>
 struct Code {
   static constexpr int kPerWord = 32 / BITS;
@@ -141,7 +155,7 @@ quant_vec_kernel(const float4* __restrict__ x, uint4* __restrict__ packed,
                  float* __restrict__ zero, float* __restrict__ rng,
                  uint32_t n_blocks, uint32_t seed_hash,
                  const uint32_t* __restrict__ seeds, uint32_t rows_per_seed,
-                 uint32_t row0, Levels lv) {
+                 BlockOffset off, Levels lv) {
   using V = Vec<BITS, LOG_G>;
   // a VM table of at most 2**BITS levels (the host's dispatch rule)
   constexpr int kLv = VM ? (BITS < 4 ? (1 << BITS) : quant::kMaxLevels) : 0;
@@ -203,7 +217,7 @@ quant_vec_kernel(const float4* __restrict__ x, uint4* __restrict__ packed,
     const quant::BlockDivisor div(fmaxf(range, quant::kEps));
     // the SR stream: one seed for all rows (counter = row * G + e), or one
     // per run of rows_per_seed rows (counter restarting at each run)
-    uint32_t sh = seed_hash, c0 = (row0 + b) << LOG_G;
+    uint32_t sh = seed_hash, c0 = off.global_block(b) << LOG_G;
     if (seeds != nullptr) {
       sh = quant::fmix32(a_seed);
       c0 = row << LOG_G;
@@ -333,7 +347,7 @@ quant_scalar_kernel(const float* __restrict__ x, uint32_t* __restrict__ packed,
                     float* __restrict__ zero, float* __restrict__ rng,
                     uint32_t n_blocks, int G, uint32_t seed_hash,
                     const uint32_t* __restrict__ seeds,
-                    uint32_t rows_per_seed, uint32_t row0, LV lv) {
+                    uint32_t rows_per_seed, BlockOffset off, LV lv) {
   constexpr int kSearch = LV::kSize > quant::kMaxLevels ? LV::kSize : 0;
   __shared__ float table[LV::kSize];
   quant::load_levels(lv, table);
@@ -353,7 +367,8 @@ quant_scalar_kernel(const float* __restrict__ x, uint32_t* __restrict__ packed,
     group_minmax<5>(mn, mx);
     const float range = __fsub_rn(mx, mn);
     const float safe = fmaxf(range, quant::kEps);
-    uint32_t sh = seed_hash, c0 = (row0 + b) * static_cast<uint32_t>(G);
+    uint32_t sh = seed_hash,
+             c0 = off.global_block(b) * static_cast<uint32_t>(G);
     if (seeds != nullptr) {
       sh = quant::fmix32(__ldg(seeds + b / rows_per_seed));
       c0 = (b % rows_per_seed) * static_cast<uint32_t>(G);
@@ -440,7 +455,7 @@ int launch(long long warp_items, cudaStream_t stream, Args... args) {
 template <int BITS, int LOG_G>
 int quant_vec(const float* x, uint32_t* packed, float* zero, float* rng,
               uint32_t n, uint32_t seed_hash, const uint32_t* seeds,
-              uint32_t rps, uint32_t row0, const Levels& lv, cudaStream_t s) {
+              uint32_t rps, BlockOffset off, const Levels& lv, cudaStream_t s) {
   if constexpr (((BITS << LOG_G) & 127) != 0) {
     return cudaErrorInvalidValue;   // not a vector-path width
   } else {
@@ -451,9 +466,9 @@ int quant_vec(const float* x, uint32_t* packed, float* zero, float* rng,
     auto* p4 = reinterpret_cast<uint4*>(packed);
     if (lv.n)
       return launch<quant_vec_kernel<BITS, LOG_G, true>>(
-          tiles, s, x4, p4, zero, rng, n, seed_hash, seeds, rps, row0, lv);
+          tiles, s, x4, p4, zero, rng, n, seed_hash, seeds, rps, off, lv);
     return launch<quant_vec_kernel<BITS, LOG_G, false>>(
-        tiles, s, x4, p4, zero, rng, n, seed_hash, seeds, rps, row0, lv);
+        tiles, s, x4, p4, zero, rng, n, seed_hash, seeds, rps, off, lv);
   }
 }
 
@@ -479,24 +494,24 @@ int dequant_vec(const uint32_t* packed, const float* zero, const float* rng,
 template <int BITS>
 int quant_bits(const float* x, uint32_t* packed, float* zero, float* rng,
                uint32_t n, int G, uint32_t seed_hash, const uint32_t* seeds,
-               uint32_t rps, uint32_t row0, const float* levels, int n_levels,
+               uint32_t rps, BlockOffset off, const float* levels, int n_levels,
                cudaStream_t s) {
   if (n_levels > quant::kMaxLevels) {
     return launch<quant_scalar_kernel<BITS, quant::WideLevels>>(
-        n, s, x, packed, zero, rng, n, G, seed_hash, seeds, rps, row0,
+        n, s, x, packed, zero, rng, n, G, seed_hash, seeds, rps, off,
         quant::make_levels<quant::WideLevels>(levels, n_levels));
   }
   const Levels lv = quant::make_levels(levels, n_levels);
   if (aligned16(x) && lv.n <= (1 << BITS)) {
     switch (vector_log_g(G, BITS)) {
-      case 6: return quant_vec<BITS, 6>(x, packed, zero, rng, n, seed_hash, seeds, rps, row0, lv, s);
-      case 7: return quant_vec<BITS, 7>(x, packed, zero, rng, n, seed_hash, seeds, rps, row0, lv, s);
-      case 8: return quant_vec<BITS, 8>(x, packed, zero, rng, n, seed_hash, seeds, rps, row0, lv, s);
+      case 6: return quant_vec<BITS, 6>(x, packed, zero, rng, n, seed_hash, seeds, rps, off, lv, s);
+      case 7: return quant_vec<BITS, 7>(x, packed, zero, rng, n, seed_hash, seeds, rps, off, lv, s);
+      case 8: return quant_vec<BITS, 8>(x, packed, zero, rng, n, seed_hash, seeds, rps, off, lv, s);
     }
   }
   return launch<quant_scalar_kernel<BITS, Levels>>(n, s, x, packed, zero, rng,
                                                    n, G, seed_hash, seeds,
-                                                   rps, row0, lv);
+                                                   rps, off, lv);
 }
 
 template <int BITS>
@@ -532,27 +547,33 @@ extern "C" int quant_lanes_per_block(int group_size, int bits) {
 // (n_blocks,).  levels: host array of n_levels floats (n_levels = 0:
 // uniform levels; at most 256).  seeds: null (every row takes seed), or a
 // device array of n_blocks / rows_per_seed seeds, one per run of
-// rows_per_seed rows.  row0: the global block index of row 0 (0 with a
-// seed table).
+// rows_per_seed rows.  row0, blocks_local, blocks_global: the global
+// block offset (BlockOffset; 0, 1, 1 with a seed table): local rows of
+// blocks_local blocks, blocks_global apart, the first at block row0.
 extern "C" int quant_pack(const float* x, uint32_t* packed, float* zero,
                           float* rng, long long n_blocks, int group_size,
                           int bits, unsigned int seed, const uint32_t* seeds,
                           int rows_per_seed, unsigned int row0,
-                          const float* levels, int n_levels, void* stream) {
+                          unsigned int blocks_local,
+                          unsigned int blocks_global, const float* levels,
+                          int n_levels, void* stream) {
   if (n_blocks <= 0 || n_blocks >= (1ll << 31) || group_size <= 0 ||
       n_levels < 0 || n_levels > quant::kMaxTableLevels ||
-      (seeds != nullptr && row0 != 0))
+      blocks_local == 0 || blocks_local > blocks_global ||
+      n_blocks % blocks_local != 0 ||
+      (seeds != nullptr && (row0 != 0 || blocks_local != blocks_global)))
     return cudaErrorInvalidValue;
   const auto n = static_cast<uint32_t>(n_blocks);
+  const BlockOffset off{row0, blocks_local, blocks_global};
   const uint32_t sh = quant::fmix32(seed);
   const auto rps = static_cast<uint32_t>(rows_per_seed);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (bits) {
-    case 1: return quant_bits<1>(x, packed, zero, rng, n, group_size, sh, seeds, rps, row0, levels, n_levels, s);
-    case 2: return quant_bits<2>(x, packed, zero, rng, n, group_size, sh, seeds, rps, row0, levels, n_levels, s);
-    case 4: return quant_bits<4>(x, packed, zero, rng, n, group_size, sh, seeds, rps, row0, levels, n_levels, s);
-    case 8: return quant_bits<8>(x, packed, zero, rng, n, group_size, sh, seeds, rps, row0, levels, n_levels, s);
-    case 16: return quant_bits<16>(x, packed, zero, rng, n, group_size, sh, seeds, rps, row0, levels, n_levels, s);
+    case 1: return quant_bits<1>(x, packed, zero, rng, n, group_size, sh, seeds, rps, off, levels, n_levels, s);
+    case 2: return quant_bits<2>(x, packed, zero, rng, n, group_size, sh, seeds, rps, off, levels, n_levels, s);
+    case 4: return quant_bits<4>(x, packed, zero, rng, n, group_size, sh, seeds, rps, off, levels, n_levels, s);
+    case 8: return quant_bits<8>(x, packed, zero, rng, n, group_size, sh, seeds, rps, off, levels, n_levels, s);
+    case 16: return quant_bits<16>(x, packed, zero, rng, n, group_size, sh, seeds, rps, off, levels, n_levels, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -70,16 +70,19 @@ def static_levels(levels):
 
 def quantize_packed(x2d, bits: int, seed, levels=None, *,
                     impl: str = "auto", rows_per_seed: int | None = None,
-                    row0: int = 0):
+                    row0: int = 0, block_stride=None):
     """(n_blocks, G) f32 -> (packed int32, zero (n,), rng (n,)).  ``seed``
     is an int, or a tensor of one seed per run of ``rows_per_seed`` rows;
-    ``row0`` is the global block index of row 0 (a shard's offset)."""
+    ``row0`` is the global block index of row 0 and ``block_stride`` (blocks
+    a local row, blocks a global row) a column split's (a shard's
+    offset)."""
     levels = static_levels(levels)
     if _plain(impl, x2d.device):
         return refmod.quantize_packed(x2d, bits, seed, levels,
-                                      rows_per_seed=rows_per_seed, row0=row0)
+                                      rows_per_seed=rows_per_seed, row0=row0,
+                                      block_stride=block_stride)
     return qk.quant_pack(x2d, bits, seed, levels, rows_per_seed=rows_per_seed,
-                         row0=row0)
+                         row0=row0, block_stride=block_stride)
 
 
 def dequantize_packed(packed, zero, rng, bits: int, group_size: int,

@@ -30,7 +30,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("quant_blockwise")
     lib.quant_pack.argtypes = [_P, _P, _P, _P, ctypes.c_longlong,
                                ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
-                               _P, ctypes.c_int, ctypes.c_uint32, _P,
+                               _P, ctypes.c_int, ctypes.c_uint32,
+                               ctypes.c_uint32, ctypes.c_uint32, _P,
                                ctypes.c_int, _P]
     lib.dequant_unpack.argtypes = [_P, _P, _P, _P, ctypes.c_longlong,
                                    ctypes.c_int, ctypes.c_int, _P,
@@ -101,8 +102,30 @@ def _seed_run_length(seed, n: int, rows_per_seed: int | None) -> int:
     return rows_per_seed
 
 
+def offset_unsupported(n_blocks: int, row0: int = 0, block_stride=None,
+                       seeded: bool = False) -> str | None:
+    """Why ``quant_pack`` cannot take this block offset (None = it can):
+    a stride ``(local, global)`` needs ``1 <= local <= global`` and whole
+    local rows (``local`` divides the block count), and a seed table
+    takes no offset (its counter restarts every run).  The rule of
+    ``quant_pack``'s argument check in ``csrc/quant_blockwise.cu``."""
+    if block_stride is not None:
+        local, glob = (int(v) for v in block_stride)
+        if not 1 <= local <= glob or glob >= 1 << 32:
+            return (f"block stride {block_stride}: need 1 <= blocks a "
+                    f"local row <= blocks a global row < 2**32")
+        if n_blocks % local:
+            return (f"{n_blocks} blocks are not whole local rows of "
+                    f"{local}")
+    if seeded and (row0 or block_stride is not None):
+        return ("row0 offsets the one-seed stream; a seed table restarts "
+                "its counter every run")
+    return None
+
+
 def quant_pack(x2d: torch.Tensor, bits: int, seed, levels=None, *,
-               rows_per_seed: int | None = None, row0: int = 0):
+               rows_per_seed: int | None = None, row0: int = 0,
+               block_stride=None):
     """(n_blocks, G) f32 -> (packed int32 (n, ceil(G*bits/32)), zero (n,),
     rng (n,)).
 
@@ -115,14 +138,20 @@ def quant_pack(x2d: torch.Tensor, bits: int, seed, levels=None, *,
 
     ``row0`` (one seed only) is the global block index of row 0: a shard
     of a larger input draws counter ``(row0 + row) * G + col`` (mod
-    2**32), so its words are the unsharded call's rows bit for bit."""
+    2**32), so its words are the unsharded call's rows bit for bit.
+    ``block_stride = (local, global)`` is a column split's: the rows come
+    in local rows of ``local`` blocks, ``global`` blocks apart in the
+    unsharded tensor, so row ``row`` is global block ``row0 + (row //
+    local) * global + row % local``
+    (:func:`repro_torch.core.quant.global_blocks`)."""
     rps = _seed_run_length(seed, x2d.shape[0], rows_per_seed)
-    if row0 and rps:
-        raise ValueError("row0 offsets the one-seed stream; a seed table "
-                         "restarts its counter every run")
+    reason = offset_unsupported(x2d.shape[0], row0, block_stride, bool(rps))
+    if reason is not None:
+        raise ValueError(reason)
     if not x2d.is_cuda:
         return ref.quantize_packed(x2d, bits, seed, levels,
-                                   rows_per_seed=rows_per_seed, row0=row0)
+                                   rows_per_seed=rows_per_seed, row0=row0,
+                                   block_stride=block_stride)
     if x2d.dtype != torch.float32 or x2d.dim() != 2:
         raise ValueError(f"quant_pack needs a 2-D float32 tensor, got "
                          f"{x2d.dtype} {tuple(x2d.shape)}")
@@ -143,7 +172,8 @@ def quant_pack(x2d: torch.Tensor, bits: int, seed, levels=None, *,
             x2d.data_ptr(), packed.data_ptr(), zero.data_ptr(),
             rng.data_ptr(), n, g, bits, 0 if rps else int(seed) & MASK32,
             None if seeds is None else seeds.data_ptr(), rps,
-            int(row0) & MASK32, lv, n_lv, _stream()), "quant_pack")
+            int(row0) & MASK32, *(block_stride or (1, 1)), lv, n_lv,
+            _stream()), "quant_pack")
         quant_pack.launches += 1
     return packed, zero, rng
 

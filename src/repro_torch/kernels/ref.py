@@ -15,15 +15,19 @@ from repro_torch.core import random_projection as rpmod
 
 
 def quantize_packed(x2d: torch.Tensor, bits: int, seed, levels=None, *,
-                    rows_per_seed: int | None = None, row0: int = 0):
+                    rows_per_seed: int | None = None, row0: int = 0,
+                    block_stride=None):
     """(n_blocks, G) f32 -> (packed int32 (n_blocks, G*bits/32), zero, rng).
 
     ``seed``: a python int, or a tensor of one seed per run of
     ``rows_per_seed`` rows (each run's counter restarts at 0).  ``row0``:
-    the global block index of row 0 (one seed only)."""
+    the global block index of row 0, and ``block_stride`` (blocks a local
+    row, blocks a global row) for a column split (one seed only;
+    :func:`repro_torch.core.quant.global_blocks`)."""
     codes, zero, rng = quantmod.quantize_grouped(x2d, bits, seed, levels,
                                                  rows_per_seed=rows_per_seed,
-                                                 row0=row0)
+                                                 row0=row0,
+                                                 block_stride=block_stride)
     return packmod.pack(codes, bits), zero, rng
 
 

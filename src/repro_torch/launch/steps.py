@@ -39,6 +39,45 @@ def full_value(t: torch.Tensor) -> torch.Tensor:
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
+def micro_batch(v: torch.Tensor, a: int, i: int) -> torch.Tensor:
+    """Rows ``i * B/a .. (i+1) * B/a`` of batch tensor ``v`` (the
+    reference's ``reshape(a, B/a, ...)[i]``).  A DTensor whose rows are
+    split over data axes is gathered (the blocking all-gather), cut, and
+    split over the same axes again where the micro-batch divides (else
+    replicated there), so each micro-batch holds the one-rank run's rows."""
+    if not hasattr(v, "to_local"):
+        return v.reshape(a, v.shape[0] // a, *v.shape[1:])[i]
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.parallel import local as tp
+
+    mesh, pl = v.device_mesh, list(v.placements)
+    axes = [d for d, p in enumerate(pl) if p.is_shard(0)
+            and mesh.size(d) > 1]
+    rows = v.to_local()
+    for d in reversed(axes):
+        rows = tp.gather(rows, tp.axis_group(mesh, mesh.mesh_dim_names[d]),
+                         dim=0)
+    mb = v.shape[0] // a
+    rows = rows[i * mb:(i + 1) * mb]
+    n = 1
+    for d in axes:
+        n *= mesh.size(d)
+    if mb % n == 0:
+        idx = 0
+        for d in axes:
+            idx = idx * mesh.size(d) + tp.axis_rank(mesh,
+                                                    mesh.mesh_dim_names[d])
+        rows = rows[idx * (mb // n):(idx + 1) * (mb // n)]
+    else:
+        for d in axes:
+            pl[d] = Replicate()
+    shape = (mb, *v.shape[1:])
+    return DTensor.from_local(rows.contiguous(), mesh, tuple(pl),
+                              shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def make_train_step(model, opt: AdamWConfig, accum_dtype=torch.float32,
                     act_impl: str | None = None):
     """``train_step(opt_state, batch) -> {"loss": ...}``: the loss of
@@ -76,7 +115,7 @@ def make_train_step(model, opt: AdamWConfig, accum_dtype=torch.float32,
                          for p in params]
                 losses = []
                 for i in range(a):
-                    mb = {k: v.reshape(a, v.shape[0] // a, *v.shape[1:])[i]
+                    mb = {k: micro_batch(v, a, i)
                           for k, v in batch.items()}
                     loss = loss_fn(mb, step)
                     for s, g, p in zip(grads,
@@ -112,10 +151,22 @@ def make_prefill_step(model, max_seq: int | None = None):
 def make_serve_step(model):
     """One decode step: greedy next token + updated cache (in place): the
     KV cache of the attention families, the conv and SSD state caches of
-    ``ssm`` / ``hybrid`` (and the hybrid's shared-block KV)."""
+    ``ssm`` / ``hybrid`` (and the hybrid's shared-block KV).  A sharded
+    model's cache is laid out by ``cache_pspecs``
+    (``parallel.sharding.distribute_cache``), and its tokens and logits
+    come back as DTensors of each rank's rows."""
 
     def serve_step(cache, tokens):
         logits, cache = model.decode_step(cache, tokens)
+        if hasattr(logits, "to_local"):         # a sharded model: its rows
+            from torch.distributed.tensor import DTensor
+
+            local = logits.to_local()
+            tok = torch.argmax(local[:, -1], dim=-1).to(torch.int32)[:, None]
+            shape = (logits.shape[0], 1)
+            return DTensor.from_local(tok, logits.device_mesh,
+                                      logits.placements, shape=shape,
+                                      stride=(1, 1)), logits, cache
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok[:, None], logits, cache
 

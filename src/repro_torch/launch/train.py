@@ -41,9 +41,11 @@ for; without a card the default raises.  Two halves:
   lays the parameters out by
   :func:`~repro_torch.parallel.sharding.param_pspecs` and each batch by
   ``batch_pspecs`` (as DTensors; nothing changes on one rank) and reads
-  the loss with ``full_tensor()``.  The dense family (``dense``,
-  ``vlm``) runs sharded; the other families raise on a mesh of more than
-  one rank (port slice 19).
+  the loss with ``full_tensor()``.  Every family runs sharded (the SSM's
+  heads and the MoE's experts over ``model`` on their local shards), and
+  so do 8-bit moments, each shard's blocks at their global offset; a
+  parameter whose shard would straddle the moment blocks raises, naming
+  it.
 * **Graph** (``--graph-batches N`` or ``--mesh-parts N``): the GNN
   engines on an arxiv/flickr/papers100m-like graph.  The flags lower onto
   one :class:`~repro_torch.engine.plan.ExecutionPlan`; ``engine.runner.run``
@@ -312,7 +314,8 @@ def lm_main(args) -> dict:
                       state_bits=args.opt_bits)
     act_impl = None if args.act_impl == "auto" else args.act_impl
     train_step = make_train_step(model, opt, act_impl=act_impl)
-    opt_state = adamw_init(list(model.parameters()), opt)
+    names, params = zip(*model.named_parameters())
+    opt_state = adamw_init(params, opt, names=names)
 
     def step_fn(state, batch):
         return state, train_step(state[1], batch)

@@ -19,10 +19,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, mm, rmsnorm
 from repro_torch.parallel.annotate import shard
+from repro_torch.parallel.local import plain_operand, reduce_all
 
 NEG_INF = -1e30
 
@@ -138,7 +140,10 @@ def _attend_shards(q, k, v, *, causal: bool, q_offset: int, kv_len,
                              f"{t.placements}")
     _, offset = compute_local_shape_and_global_offset(
         tuple(q.shape), q.device_mesh, want)
-    out = chunked_attention(q.to_local(), k.to_local(), v.to_local(),
+    from repro_torch.parallel.local import contiguous_grad
+
+    out = chunked_attention(*(contiguous_grad(t.to_local())
+                              for t in (q, k, v)),
                             causal=causal, q_offset=q_offset + offset[1],
                             kv_len=kv_len, k_chunk=k_chunk).contiguous()
     return DTensor.from_local(out, q.device_mesh, want, shape=q.shape,
@@ -146,21 +151,37 @@ def _attend_shards(q, k, v, *, causal: bool, q_offset: int, kv_len,
                                                  device="meta").stride())
 
 
+def _split_heads(t, n: int, d_head: int, flat: str, heads: str):
+    """(B, S, n*d_head) -> (B, S, n, d_head).  Where the rules split the
+    flattened dim (logical axis ``flat``) but not the heads (``heads``:
+    the head count does not divide the axis), the flattened dim is
+    gathered first: DTensor cannot cut a split dim into heads the split
+    does not fall between (the reference's GSPMD reshards there)."""
+    from repro_torch.parallel.annotate import spec_of
+
+    if spec_of(flat)[0] is not None and spec_of(heads)[0] is None:
+        t = shard(t, "batch", None, None)
+    return t.reshape(*t.shape[:2], n, d_head)
+
+
 def qkv_project(x, p, cfg, positions):
     """x (B,S,D) -> q (B,S,H,Dh), k/v (B,S,Hkv,Dh) with rope + qk-norm.
     ``p`` holds the layer's attention weights (``wq``, ``wk``, ``wv``, and
-    ``bq``/``bk``/``bv``, ``q_norm``/``k_norm`` where the config has them)."""
-    b, s, _ = x.shape
+    ``bq``/``bk``/``bv``, ``q_norm``/``k_norm`` where the config has them).
+    A plain ``x`` beside DTensor weights (a sharded decode step's local
+    rows) gets every head whole on every rank
+    (:func:`repro_torch.parallel.local.matmul`)."""
     q = shard(mm(x, p.wq), "batch", None, "attn_out")
     k = shard(mm(x, p.wk), "batch", None, "kv_out")
     v = shard(mm(x, p.wv), "batch", None, "kv_out")
-    q = q.reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    q = _split_heads(q, cfg.n_heads, cfg.d_head, "attn_out", "heads")
+    k = _split_heads(k, cfg.n_kv_heads, cfg.d_head, "kv_out", "kv_heads")
+    v = _split_heads(v, cfg.n_kv_heads, cfg.d_head, "kv_out", "kv_heads")
     if cfg.qkv_bias:
-        q = q + p.bq.reshape(1, 1, cfg.n_heads, cfg.d_head).to(q.dtype)
-        k = k + p.bk.reshape(1, 1, cfg.n_kv_heads, cfg.d_head).to(k.dtype)
-        v = v + p.bv.reshape(1, 1, cfg.n_kv_heads, cfg.d_head).to(v.dtype)
+        bq, bk, bv = (plain_operand(b, x) for b in (p.bq, p.bk, p.bv))
+        q = q + bq.reshape(1, 1, cfg.n_heads, cfg.d_head).to(q.dtype)
+        k = k + bk.reshape(1, 1, cfg.n_kv_heads, cfg.d_head).to(k.dtype)
+        v = v + bv.reshape(1, 1, cfg.n_kv_heads, cfg.d_head).to(v.dtype)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm)
         k = rmsnorm(k, p.k_norm)
@@ -196,17 +217,24 @@ def cross_attention_block(x, p, cfg, enc_out, *, online: bool = False,
     :func:`online_attention`, the kernel on the card (non-causal, Sq !=
     Skv: a decode step's Sq is 1), routed by ``impl``."""
     b, s, _ = x.shape
-    se = enc_out.shape[1]
-    q = mm(x, p.wq).reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = mm(enc_out, p.wk).reshape(b, se, cfg.n_kv_heads, cfg.d_head)
-    v = mm(enc_out, p.wv).reshape(b, se, cfg.n_kv_heads, cfg.d_head)
+    q = shard(mm(x, p.wq), "batch", None, "attn_out")
+    k = shard(mm(enc_out, p.wk), "batch", None, "kv_out")
+    v = shard(mm(enc_out, p.wv), "batch", None, "kv_out")
+    q = shard(_split_heads(q, cfg.n_heads, cfg.d_head, "attn_out", "heads"),
+              "batch", None, "heads", None)
+    k = shard(_split_heads(k, cfg.n_kv_heads, cfg.d_head, "kv_out",
+                           "kv_heads"), "batch", None, "kv_heads", None)
+    v = shard(_split_heads(v, cfg.n_kv_heads, cfg.d_head, "kv_out",
+                           "kv_heads"), "batch", None, "kv_heads", None)
     n_rep = cfg.n_heads // cfg.n_kv_heads
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     if online:
         out = online_attention(q, k, v, causal=False, impl=impl)
     else:
         out = chunked_attention(q, k, v, causal=False, k_chunk=1024)
-    return mm(out.reshape(b, s, cfg.n_heads * cfg.d_head), p.wo)
+    out = shard(out.reshape(b, s, cfg.n_heads * cfg.d_head), "batch", None,
+                "attn_out")
+    return mm(out, p.wo)
 
 
 def _grouped_q(q: torch.Tensor, hkv: int) -> torch.Tensor:
@@ -218,23 +246,29 @@ def _grouped_q(q: torch.Tensor, hkv: int) -> torch.Tensor:
     return (q.to(torch.float32) * scale).reshape(b, hkv, hq // hkv, dh)
 
 
-def decode_attend(q, kf, vf, pos, *, out_dtype):
+def decode_attend(q, kf, vf, pos, *, out_dtype, seq=(0, ())):
     """Single-token grouped-head attention over a materialized KV window.
 
     q (B,1,Hq,Dh) (rope applied); kf/vf (B,S,Hkv,Dh) float32 (the window
     may be padded past ``pos``); pos (B,) integer, entries with index > pos
     mask out.  Returns (B, 1, Hq*Dh) in ``out_dtype`` (before ``wo``).
-    """
+
+    ``seq`` (s0, groups): the window is positions ``s0 ..`` of a sequence
+    split over ``groups`` (a cache laid out by ``cache_pspecs``): one max
+    all-reduce gives the softmax's max, and two sum all-reduces its sum
+    and the output (log-sum-exp).  Unsplit, ``(0, ())``."""
+    s0, groups = seq
     b, _, hq, dh = q.shape
     hkv, smax = kf.shape[2], kf.shape[1]
     qg = _grouped_q(q, hkv)
     s = torch.einsum("bkgd,bskd->bkgs", qg, kf)            # (B,Hkv,G,S)
-    valid = torch.arange(smax, device=q.device)[None, :] <= pos[:, None]
+    kv_pos = s0 + torch.arange(smax, device=q.device)
+    valid = kv_pos[None, :] <= pos[:, None]
     s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
-    m = s.amax(-1, keepdim=True)
+    m = reduce_all(s.amax(-1, keepdim=True), groups, "max")
     pexp = torch.exp(s - m)
-    l = pexp.sum(-1, keepdim=True)
-    out = torch.einsum("bkgs,bskd->bkgd", pexp / l, vf)    # (B,Hkv,G,Dh)
+    l = reduce_all(pexp.sum(-1, keepdim=True), groups)
+    out = reduce_all(torch.einsum("bkgs,bskd->bkgd", pexp / l, vf), groups)
     return out.reshape(b, 1, hq * dh).to(out_dtype)
 
 
@@ -273,7 +307,7 @@ def decode_attend_paged(q, pos, n_chunks: int, fetch_chunk, *,
     return out.reshape(b, 1, hq * dh).to(out_dtype)
 
 
-def attention_decode(x, p, cfg, cache_k, cache_v, pos):
+def attention_decode(x, p, cfg, cache_k, cache_v, pos, *, seq=(0, ())):
     """One-token decode. x (B,1,D); cache (B,Smax,Hkv,Dh); pos (B,) integer.
 
     Projects q/k/v, writes the new KV row at ``pos`` (in place: the port
@@ -281,12 +315,26 @@ def attention_decode(x, p, cfg, cache_k, cache_v, pos):
     position past the end clamps to the last row, as the reference's
     ``dynamic_update_slice`` clamps), and attends via :func:`decode_attend`.
     Returns (out (B,1,D), cache_k, cache_v).
+
+    ``seq`` (s0, groups): the cache holds positions ``s0 ..`` of a
+    sequence split over ``groups`` (see :func:`decode_attend`); only the
+    rank whose slice holds ``pos`` writes the row, at its local index.
     """
+    s0, groups = seq
     q, k, v = qkv_project(x, p, cfg, pos[:, None])
     rows = torch.arange(x.shape[0], device=x.device)
-    at = pos.clamp(max=cache_k.shape[1] - 1)
-    cache_k[rows, at] = k[:, 0].to(cache_k.dtype)
-    cache_v[rows, at] = v[:, 0].to(cache_v.dtype)
+    s_local = cache_k.shape[1]
+    n_split = 1
+    for g in groups:
+        n_split *= dist.get_world_size(g)
+    at = pos.clamp(max=s_local * n_split - 1) - s0
+    own = ((at >= 0) & (at < s_local))[:, None, None]
+    at = at.clamp(0, s_local - 1)
+    cache_k[rows, at] = torch.where(own, k[:, 0].to(cache_k.dtype),
+                                    cache_k[rows, at])
+    cache_v[rows, at] = torch.where(own, v[:, 0].to(cache_v.dtype),
+                                    cache_v[rows, at])
     out = decode_attend(q, cache_k.to(torch.float32),
-                        cache_v.to(torch.float32), pos, out_dtype=x.dtype)
+                        cache_v.to(torch.float32), pos, out_dtype=x.dtype,
+                        seq=seq)
     return mm(out, p.wo), cache_k, cache_v

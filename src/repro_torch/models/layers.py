@@ -17,12 +17,23 @@ from repro_torch.parallel.annotate import shard
 
 
 def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in the promoted dtype of the two (JAX's ``x @ w``)."""
+    """``x @ w`` in the promoted dtype of the two (JAX's ``x @ w``).  A
+    plain ``x`` beside a DTensor ``w`` (a sharded decode step's local
+    rows) multiplies ``w``'s shards, the product whole on every rank
+    (:func:`repro_torch.parallel.local.matmul`)."""
+    if hasattr(w, "placements") and not hasattr(x, "placements"):
+        from repro_torch.parallel.local import matmul
+
+        return matmul(x, w)
     dt = torch.promote_types(x.dtype, w.dtype)
     return x.to(dt) @ w.to(dt)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
+    if hasattr(w, "placements") and not hasattr(x, "placements"):
+        from repro_torch.parallel.local import whole
+
+        w = whole(w)
     x32 = x.to(torch.float32)
     inv = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
     return (x32 * inv * w).to(x.dtype)

@@ -101,36 +101,69 @@ def moe_ffn(x: torch.Tensor, p, *, n_experts: int, top_k: int,
     """x (B, S, D) -> (y (B, S, D) in x's dtype, aux loss float32 scalar).
 
     ``p`` has ``router`` (D, E), ``w_gate`` / ``w_up`` (E, D, F) and
-    ``w_down`` (E, F, D) as attributes (a layer's ``moe`` module)."""
-    b, s, d = x.shape
+    ``w_down`` (E, F, D) as attributes (a layer's ``moe`` module).
+
+    Expert stacks split over ``model`` (DTensors, the reference's
+    ``experts`` rule, ``src/repro/models/moe.py:75-81``) run
+    expert-parallel: routing is replicated on ``model`` (every rank routes
+    its local rows with the whole router), each rank runs its E/m experts
+    over their slots and adds their gate-weighted outputs into a partial
+    y, and one all-reduce over ``model`` completes y; the gates and the
+    expert inputs take their gradients summed over ``model``.  A DTensor
+    ``x`` (the residual stream: its batch over the data axes) runs on its
+    local rows and y comes back laid out as ``x``; the balance loss is
+    then the whole batch's (its per-expert means averaged over the data
+    axes) and comes back a replicated DTensor (a plain tensor would take a
+    DTensor gradient from the loss it is added to).  A plain ``x`` beside
+    DTensor weights is a decode step's local rows.  Unsplit, the expert
+    range is all E and every collective is the identity."""
+    from repro_torch.parallel import local as tp
+
+    split = tp.split_over_model(p.w_gate)
+    if {tp.split_over_model(p.w_up), tp.split_over_model(p.w_down)} \
+            != {split}:
+        raise ValueError("the expert stacks split over model apart")
+    group = tp.model_group(p.w_gate)
     e, k = n_experts, top_k
+    el = e // tp.axis_size(p.w_gate.device_mesh, tp.MODEL) if split else e
+    e0 = tp.model_rank(p.w_gate) * el
+
+    xl = tp.local_input(x, False)
+    b, s, d = xl.shape
     c = capacity(s, e, k, capacity_factor)
-    probs = router_probs(x, p.router)
+    probs = router_probs(xl, tp.local_param(p.router, x, False))
     r = route(probs, k, c, norm_topk)
 
     # balance loss (Switch-style): E/k * sum_e f_e * P_e
     sel = F.one_hot(r["idx"], e).to(torch.float32).sum(2)        # (B,S,E)
-    aux = e / k * torch.sum(sel.mean((0, 1)) * probs.mean((0, 1)))
+    aux = e / k * torch.sum(tp.batch_mean(sel.mean((0, 1)), x)
+                            * tp.batch_mean(probs.mean((0, 1)), x))
 
-    # dispatch, expert-major: the (E, B, C) tokens gathered in one go
-    src = r["src_tok"].reshape(b, e, c).transpose(0, 1)          # (E,B,C)
-    valid = r["slot_valid"].reshape(b, e, c).transpose(0, 1)
-    rows = torch.arange(b, device=x.device)[None, :, None]
-    xe = x[rows, src] * valid[..., None].to(x.dtype)             # (E,B,C,D)
-    xe = xe.reshape(e, b * c, d)
+    # dispatch, expert-major: this rank's (E_l, B, C) tokens in one go
+    src = r["src_tok"].reshape(b, e, c)[:, e0:e0 + el].transpose(0, 1)
+    valid = r["slot_valid"].reshape(b, e, c)[:, e0:e0 + el].transpose(0, 1)
+    rows = torch.arange(b, device=xl.device)[None, :, None]
+    xe = tp.enter(xl, group)[rows, src] * valid[..., None].to(xl.dtype)
+    xe = xe.reshape(el, b * c, d)
 
     # batched expert SwiGLU
-    hidden = F.silu(_bmm(xe, p.w_gate)) * _bmm(xe, p.w_up)
-    ye = _bmm(hidden, p.w_down)                                  # (E,B*C,D)
+    hidden = F.silu(_bmm(xe, tp.local_param(p.w_gate, x, split))) \
+        * _bmm(xe, tp.local_param(p.w_up, x, split))
+    ye = _bmm(hidden, tp.local_param(p.w_down, x, split))        # (E_l,B*C,D)
 
-    # combine: each choice's slot output (the dummy slot E*C a zero row),
+    # combine: each choice's slot output (a dropped pair's dummy slot and
+    # another rank's experts' slots read the zero row E_l*C),
     # gate-weighted, summed over k in float32
-    ye = ye.reshape(e, b, c, d).transpose(0, 1).reshape(b, e * c, d)
+    ye = ye.reshape(el, b, c, d).transpose(0, 1).reshape(b, el * c, d)
     ye_flat = F.pad(ye, (0, 0, 0, 1))
-    y = torch.zeros((b, s, d), dtype=torch.float32, device=x.device)
-    bidx = torch.arange(b, device=x.device)[:, None]
+    gates = tp.enter(r["gates"], group)
+    y = torch.zeros((b, s, d), dtype=torch.float32, device=xl.device)
+    bidx = torch.arange(b, device=xl.device)[:, None]
     for j in range(k):
-        yj = ye_flat[bidx, r["slot"][:, :, j]]
-        w = r["gates"][:, :, j] * r["keep"][:, :, j]
+        slot = r["slot"][:, :, j] - e0 * c
+        own = (slot >= 0) & (slot < el * c)
+        yj = ye_flat[bidx, torch.where(own, slot, el * c)]
+        w = gates[:, :, j] * (r["keep"][:, :, j] & own)
         y = y + yj.to(torch.float32) * w[..., None]
-    return y.to(x.dtype), aux
+    y = tp.reduce(y, group)
+    return tp.like(y.to(xl.dtype), x), tp.replicated(aux, x)

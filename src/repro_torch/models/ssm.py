@@ -18,6 +18,8 @@ block input's (:func:`repro_torch.models.layers.mm`'s rule).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -119,30 +121,124 @@ def ssd_chunked(xh, dt, a_neg, bmat, cmat, chunk: int = 128,
     return y.to(xh.dtype), (state if return_state else None)
 
 
-def _project(x, p, cfg):
-    """Unfused projections and the three depthwise convs."""
-    z = mm(x, p.w_z)
-    xi = causal_conv1d(mm(x, p.w_x), p.conv_x, p.conv_bx)
-    bmat = causal_conv1d(mm(x, p.w_B), p.conv_B, p.conv_bB)
-    cmat = causal_conv1d(mm(x, p.w_C), p.conv_C, p.conv_bC)
+def _project(x, w, ch=slice(None), heads=slice(None)):
+    """The unfused projections and the three depthwise convs of ``x``:
+    (z, xi, bmat, cmat, dt), from the mixer's weights ``w`` (a module, or
+    ``w(name)`` giving a rank's shards) and the slices ``ch`` / ``heads``
+    of its per-channel and per-head ones."""
+    if isinstance(w, torch.nn.Module):
+        w = functools.partial(getattr, w)
+    z = mm(x, w("w_z"))
+    xi = causal_conv1d(mm(x, w("w_x")), w("conv_x"), w("conv_bx")[ch])
+    bmat = causal_conv1d(mm(x, w("w_B")), w("conv_B"), w("conv_bB"))
+    cmat = causal_conv1d(mm(x, w("w_C")), w("conv_C"), w("conv_bC"))
     xi, bmat, cmat = F.silu(xi), F.silu(bmat), F.silu(cmat)
-    dt = softplus(mm(x, p.w_dt).to(torch.float32) + p.dt_bias)
+    dt = softplus(mm(x, w("w_dt")).to(torch.float32) + w("dt_bias")[heads])
     return z, xi, bmat, cmat, dt
 
 
+#: The mixer's weights split over ``model`` by their head or channel dim
+#: (``parallel.sharding.param_spec``); the rest are replicated there.
+_SPLIT = ("w_z", "w_x", "w_dt", "conv_x", "out_proj")
+
+
+def _head_split(p, cfg):
+    """(split, rank, heads this rank runs) of a mixer: split where the
+    weights of :data:`_SPLIT` are DTensors sharded over ``model`` (the
+    reference's ``ssm_heads`` rule), all or none of them; else every
+    head on rank 0."""
+    from repro_torch.parallel import local as tp
+
+    _, n_heads = ssm_dims(cfg)
+    split = {name: tp.split_over_model(getattr(p, name)) for name in _SPLIT}
+    if len(set(split.values())) > 1:
+        raise ValueError(f"the SSD heads split over model by some weights "
+                         f"and not others: {split}")
+    if not split["w_x"]:
+        return False, 0, n_heads
+    mesh = p.w_x.device_mesh
+    m = tp.axis_size(mesh, tp.MODEL)
+    return True, tp.axis_rank(mesh, tp.MODEL), n_heads // m
+
+
+def _gated_norm(y, z, w, width: int, group):
+    """``rmsnorm(y * silu(z), w)`` over ``width`` channels of which this
+    rank holds ``y``'s: the sum of squares summed over ``group`` (one
+    all-reduce of (B, S)), whose readers are each rank's own channels."""
+    from repro_torch.parallel import local as tp
+
+    x = y * F.silu(z)
+    if group is None:
+        return rmsnorm(x, w)
+    x32 = x.to(torch.float32)
+    ss = tp.reduce(torch.sum(x32 * x32, dim=-1, keepdim=True), group,
+                   grad="sum")
+    return (x32 * torch.rsqrt(ss / width + 1e-6) * w).to(x.dtype)
+
+
 def mamba2_block(x, p, cfg, chunk: int = 128, return_state: bool = False):
-    """The Mamba-2 mixer. x (B,S,D) -> (B,S,D) [, final SSD state]."""
+    """The Mamba-2 mixer. x (B,S,D) -> (B,S,D) [, final SSD state
+    (B,H,P,N)].
+
+    Weights split over ``model`` (DTensors, ``ssm_heads`` as the
+    reference's ``src/repro/models/ssm.py:53-91`` lays them out) run
+    head-parallel: each rank runs its own SSD heads on its local rows of a
+    DTensor ``x`` (the residual stream: its batch over the data axes),
+    from its shards of the split weights and its heads' slice of the
+    replicated per-head and per-channel ones (``a_log``, ``dt_bias``,
+    ``d_skip``, ``conv_bx``, ``norm_w``); ``w_B`` and ``w_C`` stay whole,
+    as the state is one group.  The gated norm sums its squares over the
+    ranks and ``out_proj``'s partial products are summed once; the output
+    comes back laid out as ``x`` and the final state as a DTensor of this
+    rank's heads.  Unsplit, the heads are all H and every collective is
+    the identity."""
+    from repro_torch.parallel import local as tp
+
     d_inner, n_heads = ssm_dims(cfg)
-    z, xi, bmat, cmat, dt = _project(x, p, cfg)
-    a_neg = -torch.exp(p.a_log.to(torch.float32))
-    xh = xi.reshape(*xi.shape[:2], n_heads, cfg.ssm_headdim)
+    split, rank, hl = _head_split(p, cfg)
+    group = tp.model_group(p.w_x)
+    pd = cfg.ssm_headdim
+    heads = slice(rank * hl, (rank + 1) * hl)
+    ch = slice(rank * hl * pd, (rank + 1) * hl * pd)
+
+    def w(name):
+        return tp.local_param(getattr(p, name), x, split)
+
+    xl = tp.local_input(x, split)
+    b, s, _ = xl.shape
+    z, xi, bmat, cmat, dt = _project(xl, w, ch, heads)
+    a_neg = -torch.exp(w("a_log")[heads].to(torch.float32))
+    xh = xi.reshape(b, s, hl, pd)
     y, state = ssd_chunked(xh, dt, a_neg, bmat, cmat, chunk=chunk,
                            return_state=return_state)
-    y = y + xh * p.d_skip[None, None, :, None].to(xh.dtype)
-    y = y.reshape(*x.shape[:2], d_inner)
-    y = rmsnorm(y * F.silu(z), p.norm_w)
-    out = mm(y, p.out_proj).to(x.dtype)
-    return (out, state) if return_state else out
+    y = y + xh * w("d_skip")[heads][None, None, :, None].to(xh.dtype)
+    y = _gated_norm(y.reshape(b, s, hl * pd), z, w("norm_w")[ch], d_inner,
+                    group)
+    out = tp.like(tp.reduce(mm(y, w("out_proj")).to(xl.dtype), group), x)
+    if not return_state:
+        return out
+    return out, _heads_dtensor(state, x, split, n_heads)
+
+
+def _heads_dtensor(state, x, split: bool, n_heads: int):
+    """This rank's SSD state (B_l, H_l, P, N) as a DTensor: the batch laid
+    out as DTensor ``x``'s, the heads over ``model`` where split; the
+    state itself beside a plain ``x``."""
+    if not hasattr(x, "placements"):
+        return state
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.parallel import local as tp
+
+    mesh = x.device_mesh
+    pl = tuple(Shard(1) if name == tp.MODEL and split
+               else (Shard(0) if name != tp.MODEL and xp.is_shard(0)
+                     else Replicate())
+               for name, xp in zip(mesh.mesh_dim_names, x.placements))
+    shape = (x.shape[0], n_heads, *state.shape[2:])
+    return DTensor.from_local(state, mesh, pl, shape=shape,
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
 
 
 def conv_inputs(x, p) -> torch.Tensor:
@@ -155,33 +251,56 @@ def mamba2_decode(x, p, cfg, conv_state, ssd_state):
     """One-token decode. x (B,1,D); conv_state (B,K-1,C_all) (the last K-1
     raw projections); ssd_state (B,H,P,N).  C_all = d_inner + 2N (x | B |
     C stacked).  Returns (y (B,1,D), conv_state, ssd_state), both states
-    new tensors."""
-    d_inner, n_heads = ssm_dims(cfg)
-    n = cfg.ssm_state
+    new tensors.
+
+    With weights split over ``model`` (a sharded decode step on local
+    rows), each rank runs its own heads over its heads' channels of the
+    conv window: ssd_state is this rank's heads' (the ``ssd`` entry of
+    ``cache_pspecs``), the conv cache stays whole (the new column's
+    channels gathered), and the output's partial products are summed
+    once; unsplit, every collective is the identity."""
+    from repro_torch.parallel import local as tp
+
+    d_inner, _ = ssm_dims(cfg)
+    n, pd = cfg.ssm_state, cfg.ssm_headdim
+    split, rank, hl = _head_split(p, cfg)
+    group = tp.model_group(p.w_x)
+    heads = slice(rank * hl, (rank + 1) * hl)
+    ch = slice(rank * hl * pd, (rank + 1) * hl * pd)
+
+    def w(name):
+        return tp.local_param(getattr(p, name), x, split)
+
     x0 = x[:, 0]
-    z = mm(x0, p.w_z)
-    new_col = conv_inputs(x0, p)
+    z = mm(x0, w("w_z"))
+    new_col = torch.cat([tp.gather(mm(x0, w("w_x")), group, dim=-1),
+                         mm(x0, w("w_B")), mm(x0, w("w_C"))], dim=-1)
     dt_win = torch.promote_types(conv_state.dtype, new_col.dtype)
     window = torch.cat([conv_state.to(dt_win), new_col[:, None].to(dt_win)],
                        dim=1)                               # (B,K,C_all)
     conv_state = window[:, 1:]
-    conv_w = torch.cat([p.conv_x, p.conv_B, p.conv_C], dim=1)
-    conv_b = torch.cat([p.conv_bx, p.conv_bB, p.conv_bC])
+    if split:                   # this rank's channels of x, then B and C
+        window = torch.cat([window[..., :d_inner][..., ch],
+                            window[..., d_inner:]], dim=-1)
+    conv_w = torch.cat([w("conv_x"), w("conv_B"), w("conv_C")], dim=1)
+    conv_b = torch.cat([w("conv_bx")[ch], w("conv_bB"), w("conv_bC")])
     dt_mul = torch.promote_types(window.dtype, conv_w.dtype)
     col = torch.einsum("bkc,kc->bc", window.to(dt_mul), conv_w.to(dt_mul)) \
         + conv_b
     col = F.silu(col)
-    xi = col[:, :d_inner]
-    bmat = col[:, d_inner:d_inner + n].to(torch.float32)
-    cmat = col[:, d_inner + n:].to(torch.float32)
-    dt = softplus(mm(x0, p.w_dt).to(torch.float32) + p.dt_bias)
-    a_neg = -torch.exp(p.a_log.to(torch.float32))
-    xh = xi.reshape(-1, n_heads, cfg.ssm_headdim).to(torch.float32)
+    dil = hl * pd
+    xi = col[:, :dil]
+    bmat = col[:, dil:dil + n].to(torch.float32)
+    cmat = col[:, dil + n:].to(torch.float32)
+    dt = softplus(mm(x0, w("w_dt")).to(torch.float32) + w("dt_bias")[heads])
+    a_neg = -torch.exp(w("a_log")[heads].to(torch.float32))
+    xh = xi.reshape(-1, hl, pd).to(torch.float32)
     decay = torch.exp(dt * a_neg)                           # (B,H)
     upd = (dt[:, :, None] * xh)[..., None] * bmat[:, None, None, :]
     ssd_state = ssd_state * decay[:, :, None, None] + upd
     y = torch.einsum("bhpn,bn->bhp", ssd_state, cmat)
-    y = y + xh * p.d_skip[None, :, None]
-    y = y.reshape(-1, d_inner).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p.norm_w)
-    return mm(y, p.out_proj)[:, None], conv_state, ssd_state
+    y = y + xh * w("d_skip")[heads][None, :, None]
+    y = y.reshape(-1, dil).to(x.dtype)
+    y = _gated_norm(y, z, w("norm_w")[ch], d_inner, group)
+    return tp.reduce(mm(y, w("out_proj")), group)[:, None], conv_state, \
+        ssd_state

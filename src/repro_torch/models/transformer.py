@@ -46,6 +46,7 @@ cross-attention at every decode step.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -64,6 +65,8 @@ from repro_torch.models.layers import (dense_init, embed_init, mm, normal,
 from repro_torch.models import ssm as ssmmod
 from repro_torch.models.moe import moe_ffn
 from repro_torch.parallel.annotate import shard
+from repro_torch.parallel import local as tp
+from repro_torch.parallel.local import row_parallel
 
 #: The families Model runs (all of the reference's).
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
@@ -233,6 +236,31 @@ def init_params(cfg, gen: torch.Generator) -> dict:
     return params
 
 
+def cache_shapes(cfg, batch: int, max_seq: int, enc_len: int = 0,
+                 dtype=torch.bfloat16) -> dict:
+    """:func:`init_cache`'s entries as shapes alone, ``{name: (shape,
+    dtype)}`` (no tensor: a traced step charges every tensor it makes)."""
+    out = {"pos": ((batch,), torch.int32)}
+
+    def kv(n, d_head):
+        return (n, batch, max_seq, cfg.n_kv_heads, d_head), dtype
+
+    if cfg.family in ("ssm", "hybrid"):
+        d_inner, n_heads = ssmmod.ssm_dims(cfg)
+        out["conv"] = ((cfg.n_layers, batch, cfg.ssm_conv - 1,
+                        d_inner + 2 * cfg.ssm_state), dtype)
+        out["ssd"] = ((cfg.n_layers, batch, n_heads, cfg.ssm_headdim,
+                       cfg.ssm_state), torch.float32)
+        if cfg.family == "hybrid":
+            ns = len(cfg.shared_attn_sites())
+            out["shared_k"] = out["shared_v"] = kv(ns, shared_cfg(cfg).d_head)
+    else:
+        out["k"] = out["v"] = kv(cfg.n_layers, cfg.d_head)
+        if cfg.family == "encdec":
+            out["enc"] = ((batch, enc_len, cfg.d_model), dtype)
+    return out
+
+
 def init_cache(cfg, batch: int, max_seq: int, enc_len: int = 0,
                dtype=torch.bfloat16, device="cpu") -> dict:
     """Zeros of the family's cache on ``device`` (``meta`` for shapes
@@ -241,32 +269,9 @@ def init_cache(cfg, batch: int, max_seq: int, enc_len: int = 0,
     ``ssm`` / ``hybrid`` the conv cache (L, B, K-1, d_inner + 2N) and the
     float32 SSD state (L, B, H, P, N), and the hybrid's shared-block k/v,
     one per site."""
-    dev = device
-    cache = {"pos": torch.zeros(batch, dtype=torch.int32, device=dev)}
-
-    def kv(n, d_head):
-        return torch.zeros((n, batch, max_seq, cfg.n_kv_heads, d_head),
-                           dtype=dtype, device=dev)
-
-    if cfg.family in ("ssm", "hybrid"):
-        d_inner, n_heads = ssmmod.ssm_dims(cfg)
-        cache["conv"] = torch.zeros(
-            (cfg.n_layers, batch, cfg.ssm_conv - 1,
-             d_inner + 2 * cfg.ssm_state), dtype=dtype, device=dev)
-        cache["ssd"] = torch.zeros(
-            (cfg.n_layers, batch, n_heads, cfg.ssm_headdim,
-             cfg.ssm_state), dtype=torch.float32, device=dev)
-        if cfg.family == "hybrid":
-            ns = len(cfg.shared_attn_sites())
-            cache["shared_k"] = kv(ns, shared_cfg(cfg).d_head)
-            cache["shared_v"] = kv(ns, shared_cfg(cfg).d_head)
-    else:
-        cache["k"], cache["v"] = kv(cfg.n_layers, cfg.d_head), \
-            kv(cfg.n_layers, cfg.d_head)
-        if cfg.family == "encdec":
-            cache["enc"] = torch.zeros((batch, enc_len, cfg.d_model),
-                                       dtype=dtype, device=dev)
-    return cache
+    return {name: torch.zeros(shape, dtype=dt, device=device)
+            for name, (shape, dt) in cache_shapes(cfg, batch, max_seq,
+                                                  enc_len, dtype).items()}
 
 
 def _pad_seq(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -385,6 +390,22 @@ class Model(nn.Module):
         return self.embed.device
 
     # ---------------------------------------------------- layer wrapping
+    def _embed(self, tokens, prefix_embeds=None):
+        """The token embeddings (B, S, D), after an optional (B, P, D)
+        prefix."""
+        # a sharded table is looked up, not indexed: DTensor runs the
+        # lookup vocab-parallel (one all-reduce of the rows) where indexing
+        # would gather the table; a plain one keeps the index, whose
+        # backward sums a token's rows in its own order
+        h = (F.embedding(tokens, self.embed)
+             if hasattr(self.embed, "to_local") else self.embed[tokens])
+        if prefix_embeds is not None:
+            # the vocab-parallel lookup's rows are a masked partial sum,
+            # which DTensor cannot concatenate: reduce them first
+            h = torch.cat([prefix_embeds.to(h.dtype),
+                           shard(h, "batch", None, None)], dim=1)
+        return h
+
     def _wrap(self, layer_fn):
         """``act_mode`` around ``layer_fn(x, lp) -> x``, as
         ``step(x, lp, seed)``."""
@@ -415,16 +436,23 @@ class Model(nn.Module):
         return shard(self._ffn(h, lp)[0], "batch", None, None)
 
     def _moe_layer(self, h, lp):
-        return self._ffn(self._attend(h, lp), lp)
+        h = shard(h, "batch", None, None)
+        h, aux = self._ffn(shard(self._attend(h, lp), "batch", None, None),
+                           lp)
+        return shard(h, "batch", None, None), aux
 
     def _enc_layer(self, h, lp):
-        return self._ffn(self._attend(h, lp, causal=False), lp)[0]
+        h = shard(h, "batch", None, None)
+        h = shard(self._attend(h, lp, causal=False), "batch", None, None)
+        return shard(self._ffn(h, lp)[0], "batch", None, None)
 
     def _dec_layer(self, h, lp, enc):
-        h = self._attend(h, lp)
-        h = h + attn.cross_attention_block(rmsnorm(h, lp.ln_x), lp.xattn,
-                                           self.cfg, enc)
-        return self._ffn(h, lp)[0]
+        h = shard(h, "batch", None, None)
+        h = shard(self._attend(h, lp), "batch", None, None)
+        h = shard(h + attn.cross_attention_block(rmsnorm(h, lp.ln_x),
+                                                 lp.xattn, self.cfg, enc),
+                  "batch", None, None)
+        return shard(self._ffn(h, lp)[0], "batch", None, None)
 
     def _ssm_layer(self, h, lp):
         cfg = self.cfg
@@ -436,11 +464,12 @@ class Model(nn.Module):
         back down and added to h."""
         sp = self.shared_attn
         x = torch.cat([h, h0], dim=-1)
-        x = x + attn.attention_block(rmsnorm(x, sp.ln), sp.attn,
-                                     self.shared_cfg, causal=True,
-                                     k_chunk=self.cfg.k_chunk)
-        x, _ = self._ffn(x, sp)
-        return h + mm(x, sp.down)
+        x = shard(x + attn.attention_block(rmsnorm(x, sp.ln), sp.attn,
+                                           self.shared_cfg, causal=True,
+                                           k_chunk=self.cfg.k_chunk),
+                  "batch", None, None)
+        x = shard(self._ffn(x, sp)[0], "batch", None, None)
+        return h + shard(row_parallel(x, sp.down), "batch", None, None)
 
     # ------------------------------------------------------------ training
     def hidden_states(self, tokens: torch.Tensor, *, prefix_embeds=None,
@@ -451,17 +480,9 @@ class Model(nn.Module):
         ``encdec``, ``enc_embeds`` (B, Se, D) is the audio frontend's stub
         output and the tokens are the decoder's."""
         cfg = self.cfg
-        # a sharded table is looked up, not indexed: DTensor runs the
-        # lookup vocab-parallel (one all-reduce of the rows) where indexing
-        # would gather the table; a plain one keeps the index, whose
-        # backward sums a token's rows in its own order
-        h = (F.embedding(tokens, self.embed)
-             if hasattr(self.embed, "to_local") else self.embed[tokens])
-        if prefix_embeds is not None:
-            h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
         # the residual stream as the first layer takes it (a stashed layer
         # stores its input as it arrives)
-        h = shard(h, "batch", None, None)
+        h = shard(self._embed(tokens, prefix_embeds), "batch", None, None)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if cfg.family == "moe":
             # the reference's MoE branch: remat checkpoints the layer,
@@ -554,6 +575,7 @@ class Model(nn.Module):
                            m.w_up, m.w_down)
         if not moe:
             return h, None
+        h = shard(h, "batch", None, None)
         y, aux = moe_ffn(rmsnorm(h, lp.ln2), lp.moe, n_experts=cfg.n_experts,
                          top_k=cfg.top_k,
                          capacity_factor=cfg.moe_capacity_factor)
@@ -565,21 +587,39 @@ class Model(nn.Module):
     # ------------------------------------------------------------ decode
     def init_cache(self, batch: int, max_seq: int, enc_len: int = 0,
                    dtype=torch.bfloat16) -> dict:
-        """:func:`init_cache` on the model's device."""
-        return init_cache(self.cfg, batch, max_seq, enc_len, dtype,
-                          self.device)
+        """:func:`init_cache` on the model's device; for a sharded model
+        laid out by ``cache_pspecs`` (each rank allocating its own shard,
+        :func:`repro_torch.parallel.sharding.zeros_cache`)."""
+        mesh = getattr(self.embed, "device_mesh", None)
+        if mesh is None:
+            return init_cache(self.cfg, batch, max_seq, enc_len, dtype,
+                              self.device)
+        from repro_torch.parallel.sharding import zeros_cache
+
+        return zeros_cache(self.cfg, cache_shapes(self.cfg, batch, max_seq,
+                                                  enc_len, dtype),
+                           mesh, batch, max_seq, self.device)
 
     def _prefill_attn(self, x, p, acfg, causal: bool):
-        """A prompt's attention through :func:`attn.online_attention` (the
-        kernel on the card): (output after ``wo``, k, v)."""
+        """A prompt's attention: (output after ``wo``, k, v).  Through
+        :func:`attn.online_attention` (the kernel on the card); a sharded
+        model's DTensors through :func:`attn.chunked_attention`, shard by
+        shard (the reference's ``k_chunk`` scan: the kernel has no DTensor
+        face)."""
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
         q, k, v = attn.qkv_project(x, p, acfg, positions)
         n_rep = acfg.n_heads // acfg.n_kv_heads
-        out = attn.online_attention(
-            q, attn._repeat_kv(k, n_rep), attn._repeat_kv(v, n_rep),
-            causal=causal, impl=self.impl)
-        return mm(out.reshape(b, s, acfg.n_heads * acfg.d_head), p.wo), k, v
+        kr, vr = attn._repeat_kv(k, n_rep), attn._repeat_kv(v, n_rep)
+        if hasattr(q, "to_local"):
+            out = attn.chunked_attention(q, kr, vr, causal=causal,
+                                         k_chunk=self.cfg.k_chunk)
+        else:
+            out = attn.online_attention(q, kr, vr, causal=causal,
+                                        impl=self.impl)
+        out = shard(out.reshape(b, s, acfg.n_heads * acfg.d_head), "batch",
+                    None, "attn_out")
+        return shard(mm(out, p.wo), "batch", None, None), k, v
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, *, prefix_embeds=None,
@@ -596,21 +636,34 @@ class Model(nn.Module):
         ``encdec``, as the reference: the encoder runs over
         ``enc_embeds`` into ``cache["enc"]``, decoding starts at position
         0, and the logits come from the *embedding* of the prompt's last
-        token: the decoder never reads the prompt."""
+        token: the decoder never reads the prompt.
+
+        A sharded model (DTensor parameters and inputs laid out by
+        ``batch_pspecs``) runs the training path's sharded layers, with
+        DTensor's implicit replication on (the plain positions act as
+        replicated tensors), and its cache is laid out by
+        ``cache_pspecs``."""
+        sharded = hasattr(self.embed, "device_mesh")
+        if sharded:
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+        with implicit_replication() if sharded else contextlib.nullcontext():
+            return self._prefill(tokens, prefix_embeds, enc_embeds, max_seq)
+
+    def _prefill(self, tokens, prefix_embeds, enc_embeds, max_seq):
         cfg = self.cfg
-        h = self.embed[tokens]
-        if prefix_embeds is not None:
-            h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+        h = shard(self._embed(tokens, prefix_embeds), "batch", None, None)
         b, s, _ = h.shape
         # written layer by layer: stacking a list would hold every layer's
         # cache twice at the end
         cache = self.init_cache(b, max_seq or s, dtype=h.dtype)
         if cfg.family == "encdec":
-            enc = enc_embeds.to(h.dtype)
+            enc = shard(enc_embeds.to(h.dtype), "batch", None, None)
             for lp in self.enc_layers:
                 a, _, _ = self._prefill_attn(rmsnorm(enc, lp.ln1), lp.attn,
                                              cfg, causal=False)
-                enc, _ = self._ffn(enc + a, lp)
+                enc = shard(self._ffn(shard(enc + a, "batch", None, None),
+                                      lp)[0], "batch", None, None)
             cache["enc"] = rmsnorm(enc, self.enc_norm)
             return self._logits(h[:, -1]), cache
         cache["pos"].fill_(s)
@@ -618,27 +671,32 @@ class Model(nn.Module):
             sites, h0, kw = cfg.shared_attn_sites(), h, cfg.ssm_conv - 1
             for li, lp in enumerate(self.layers):
                 if li in sites:
-                    si = sites.index(li)
+                    si, sp = sites.index(li), self.shared_attn
                     x = torch.cat([h, h0], dim=-1)
-                    a, k, v = self._prefill_attn(
-                        rmsnorm(x, self.shared_attn.ln),
-                        self.shared_attn.attn, self.shared_cfg, causal=True)
-                    cache["shared_k"][si, :, :s] = k
-                    cache["shared_v"][si, :, :s] = v
-                    x, _ = self._ffn(x + a, self.shared_attn)
-                    h = h + mm(x, self.shared_attn.down)
+                    a, k, v = self._prefill_attn(rmsnorm(x, sp.ln), sp.attn,
+                                                 self.shared_cfg, causal=True)
+                    tp.write(cache["shared_k"], si, k)
+                    tp.write(cache["shared_v"], si, v)
+                    x = shard(self._ffn(shard(x + a, "batch", None, None),
+                                        sp)[0], "batch", None, None)
+                    h = h + shard(row_parallel(x, sp.down), "batch", None,
+                                  None)
                 x = rmsnorm(h, lp.ln)
-                y, cache["ssd"][li] = ssmmod.mamba2_block(
-                    x, lp.mixer, cfg, chunk=cfg.ssm_chunk, return_state=True)
-                cache["conv"][li] = ssmmod.conv_inputs(x, lp.mixer)[:, s - kw:]
-                h = h + y
+                y, state = ssmmod.mamba2_block(x, lp.mixer, cfg,
+                                               chunk=cfg.ssm_chunk,
+                                               return_state=True)
+                tp.write(cache["ssd"], li, state)
+                tp.write(cache["conv"], li,
+                         ssmmod.conv_inputs(x, lp.mixer)[:, s - kw:])
+                h = shard(h + y, "batch", None, None)
         else:
             for li, lp in enumerate(self.layers):
                 a, k, v = self._prefill_attn(rmsnorm(h, lp.ln1), lp.attn,
                                              cfg, causal=True)
-                h, _ = self._ffn(h + a, lp)
-                cache["k"][li, :, :s] = k
-                cache["v"][li, :, :s] = v
+                h = shard(self._ffn(shard(h + a, "batch", None, None), lp)[0],
+                          "batch", None, None)
+                tp.write(cache["k"], li, k)
+                tp.write(cache["v"], li, v)
         return self._logits(h[:, -1]), cache
 
     @torch.no_grad()
@@ -647,11 +705,22 @@ class Model(nn.Module):
         is updated in place.  The hybrid's shared block reads ``[h, h0]``
         with h0 the current token's embedding; the enc-dec decoder
         cross-attends to ``cache["enc"]`` every step, projecting its K/V
-        anew as the reference does."""
+        anew as the reference does.
+
+        A sharded model decodes on each rank's local rows with plain
+        tensors (:class:`repro_torch.parallel.local.CacheView`), its cache
+        laid out by ``cache_pspecs``: every head of q, k and v whole on
+        every rank over the rank's slice of the K/V sequence (combined by
+        log-sum-exp), the SSD's own heads, the expert-parallel MoE, the
+        vocabulary-parallel lookup; the tokens may be the whole batch or
+        the DTensor of rows the last step returned, and the logits come
+        back as a DTensor of this rank's rows."""
         cfg = self.cfg
-        h = self.embed[tokens]
-        pos = cache["pos"]
+        view = tp.CacheView(self.embed, cache)
+        h = tp.lookup(self.embed, view.rows(tokens))
+        pos = view.pos
         if cfg.family in ("ssm", "hybrid"):
+            conv, ssd = view.local(cache["conv"]), view.local(cache["ssd"])
             sites, h0 = cfg.shared_attn_sites(), h
             for li, lp in enumerate(self.layers):
                 if li in sites:
@@ -659,23 +728,27 @@ class Model(nn.Module):
                     x = torch.cat([h, h0], dim=-1)
                     a, _, _ = attn.attention_decode(
                         rmsnorm(x, sp.ln), sp.attn, self.shared_cfg,
-                        cache["shared_k"][si], cache["shared_v"][si], pos)
+                        view.local(cache["shared_k"])[si],
+                        view.local(cache["shared_v"])[si], pos,
+                        seq=view.seq(cache["shared_k"]))
                     x, _ = self._ffn(x + a, sp)
                     h = h + mm(x, sp.down)
-                y, cache["conv"][li], cache["ssd"][li] = ssmmod.mamba2_decode(
-                    rmsnorm(h, lp.ln), lp.mixer, cfg, cache["conv"][li],
-                    cache["ssd"][li])
+                y, conv[li], ssd[li] = ssmmod.mamba2_decode(
+                    rmsnorm(h, lp.ln), lp.mixer, cfg, conv[li], ssd[li])
                 h = h + y
         else:
+            ck, cv = view.local(cache["k"]), view.local(cache["v"])
+            seq = view.seq(cache["k"])
             for li, lp in enumerate(self.layers):
                 a, _, _ = attn.attention_decode(rmsnorm(h, lp.ln1), lp.attn,
-                                                cfg, cache["k"][li],
-                                                cache["v"][li], pos)
+                                                cfg, ck[li], cv[li], pos,
+                                                seq=seq)
                 h = h + a
                 if cfg.family == "encdec":
                     h = h + attn.cross_attention_block(
-                        rmsnorm(h, lp.ln_x), lp.xattn, cfg, cache["enc"],
-                        online=True, impl=self.impl)
+                        rmsnorm(h, lp.ln_x), lp.xattn, cfg,
+                        view.local(cache["enc"]), online=True,
+                        impl=self.impl)
                 h, _ = self._ffn(h, lp)
-        cache["pos"] = pos + 1
-        return self._logits(h), cache
+        cache["pos"] = cache["pos"] + 1
+        return view.wrap(self._logits(h)), cache

@@ -19,9 +19,15 @@ sharding`).  A gradient comes back from autograd in whatever placement
 DTensor's rules left it (a partial sum, or replicated at full shape), so
 each is first redistributed to its parameter's placements; the clip norm
 is the global norm over every shard; the update then runs on the local
-shards, element for element the unsharded arithmetic.  8-bit moments of a
-parameter split over more than one rank are not supported: their blocks
-of ``state_group`` would straddle the shards.
+shards, element for element the unsharded arithmetic.
+
+8-bit moments of a split parameter keep the unsharded moments' bits: the
+reference quantizes the whole moment array, so each rank quantizes its
+shard's blocks with their global block indices (:func:`moment_offset`:
+``row0`` and, for a column split, the stride of its local rows among the
+global ones), and the SR noise is the global element's.  A split whose
+local runs are not whole blocks of ``state_group`` would straddle the
+shards, and raises, naming the parameter and its shape.
 """
 from __future__ import annotations
 
@@ -65,27 +71,79 @@ def schedule(cfg: AdamWConfig, step: int) -> np.float32:
 
 
 # -------------------------------------------------- quantized state leaves
-def _q_state(x: torch.Tensor, bits: int, group: int, seed: int) -> dict:
+def _q_state(x: torch.Tensor, bits: int, group: int, seed: int,
+             offset=(0, None)) -> dict:
     """``x`` block-quantized: packed words ``p``, ``z`` (zero) and ``r``
     (range) per block (the kernels on the card, the plain version on the
-    CPU)."""
+    CPU); ``offset`` (row0, block_stride) places a shard's blocks among
+    the whole moment's (:func:`moment_offset`)."""
     blocks, _ = backend.to_blocks(x, group)
-    p, z, r = backend.quantize_blocks(blocks, bits, int(seed) & MASK32)
+    p, z, r = backend.quantize_blocks(blocks, bits, int(seed) & MASK32,
+                                      row0=offset[0],
+                                      block_stride=offset[1])
     return {"p": p, "z": z, "r": r}
+
+
+def moment_offset(shape, local_shape, offset, group: int) -> tuple:
+    """``(row0, block_stride)`` of a shard's moment blocks among the
+    unsharded moment's (``quant_pack``'s offset arguments), from the
+    parameter's global ``shape``, its shard's ``local_shape`` and the
+    shard's global ``offset`` (one entry a dim); ``(0, None)`` for a
+    parameter that is not split.
+
+    Past the last split dim k the shard holds whole rows, so the shard is
+    runs of ``L = local[k] * prod(shape[k+1:])`` contiguous elements of the
+    unsharded array, one a local index of the dims before k, ``shape[k] *
+    prod(shape[k+1:])`` apart.  Raises ValueError where a run is not whole
+    blocks of ``group`` (a block would straddle the shards) or the runs
+    are not evenly spaced (a split dim before k with a dim between it and
+    k that is split too)."""
+    shape, local_shape = tuple(shape), tuple(local_shape)
+    cut = [i for i, (a, b) in enumerate(zip(local_shape, shape)) if a != b]
+    if not cut:
+        return 0, None
+    k = cut[-1]
+    inner = 1
+    for d in shape[k + 1:]:
+        inner *= d
+    run, row = local_shape[k] * inner, shape[k] * inner
+    if run % group:
+        raise ValueError(
+            f"a shard of {local_shape} of a {shape} moment: its runs of "
+            f"{run} elements straddle blocks of {group}")
+    base = offset[k] * inner
+    for i in range(k):
+        lstride = gstride = 1
+        for j in range(i + 1, k):
+            lstride, gstride = lstride * local_shape[j], gstride * shape[j]
+        if local_shape[i] > 1 and lstride != gstride:
+            raise ValueError(f"a shard of {local_shape} of a {shape} "
+                             "moment is not evenly spaced runs")
+        base += offset[i] * gstride * row
+    runs = 1
+    for d in local_shape[:k]:
+        runs *= d
+    stride = None if runs == 1 or run == row else (run // group,
+                                                   row // group)
+    return base // group, stride
+
+
+def shard_offset(p, group: int) -> tuple:
+    """:func:`moment_offset` of parameter ``p`` (a DTensor, on any device
+    ``meta`` included; ``(0, None)`` for a plain tensor)."""
+    if not hasattr(p, "placements"):
+        return 0, None
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    local, offset = compute_local_shape_and_global_offset(
+        tuple(p.shape), p.device_mesh, p.placements)
+    return moment_offset(p.shape, local, offset, group)
 
 
 def _dq_state(s: dict, bits: int, group: int, shape) -> torch.Tensor:
     return backend.from_blocks(backend.dequantize_blocks(
         s["p"], s["z"], s["r"], bits, group), tuple(shape))
-
-
-def _is_split(p) -> bool:
-    """True for a DTensor split over more than one rank."""
-    from torch.distributed.tensor import DTensor
-
-    return isinstance(p, DTensor) and any(
-        pl.is_shard() and p.device_mesh.size(i) > 1
-        for i, pl in enumerate(p.placements))
 
 
 def _local(t):
@@ -118,12 +176,22 @@ def _gather(g, mesh_dim: int):
 
     mesh, pl = g.device_mesh, list(g.placements)
     dim, n = pl[mesh_dim].dim, mesh.size(mesh_dim)
-    if g.shape[dim] % n:
-        raise ValueError(f"gathering an uneven shard of {tuple(g.shape)}")
-    local = g.to_local().movedim(dim, 0).contiguous()
-    out = torch.empty((n * local.shape[0], *local.shape[1:]),
+    # DTensor's shards of an uneven dim are torch.chunk's: each padded to
+    # the first's length for the gather, then cut back
+    sizes = [len(c) for c in torch.arange(g.shape[dim]).chunk(n)]
+    sizes += [0] * (n - len(sizes))
+    local = g.to_local().movedim(dim, 0)
+    width = sizes[0]
+    if local.shape[0] < width:
+        local = torch.cat([local, local.new_zeros(
+            (width - local.shape[0], *local.shape[1:]))])
+    local = local.contiguous()
+    out = torch.empty((n * width, *local.shape[1:]),
                       dtype=local.dtype, device=local.device)
     dist.all_gather_into_tensor(out, local, group=mesh.get_group(mesh_dim))
+    if any(sz != width for sz in sizes):
+        out = torch.cat([out[r * width:r * width + sz]
+                         for r, sz in enumerate(sizes)])
     pl[mesh_dim] = Replicate()
     full = out.movedim(0, dim).contiguous()
     return DTensor.from_local(full, mesh, tuple(pl), shape=g.shape,
@@ -136,21 +204,34 @@ def _sq_norm(g) -> torch.Tensor:
     return s.full_tensor() if hasattr(s, "full_tensor") else s
 
 
-def adamw_init(params, cfg: AdamWConfig | None = None) -> dict:
+def adamw_init(params, cfg: AdamWConfig | None = None, names=None) -> dict:
+    """Zero moments for ``params``.  With 8-bit moments a parameter whose
+    shard would straddle blocks raises ValueError naming it (``names``, one
+    a parameter, e.g. ``named_parameters``' keys; else its index) and its
+    shape."""
     cfg = cfg or AdamWConfig()
-    if cfg.state_bits and any(_is_split(p) for p in params):
-        raise NotImplementedError(
-            "8-bit AdamW moments of a parameter sharded over more than one "
-            "rank (their blocks straddle the shards) come in port slice 19")
+    params = list(params)
+    offsets = [(0, None)] * len(params)
+    if cfg.state_bits:
+        names = list(names) if names is not None else \
+            [f"parameter {i}" for i in range(len(params))]
+        offsets = []
+        for name, p in zip(names, params):
+            try:
+                offsets.append(shard_offset(p, cfg.state_group))
+            except ValueError as exc:
+                raise ValueError(f"8-bit moments of {name} "
+                                 f"{tuple(p.shape)}: {exc}") from None
 
-    def zero_like(p):
+    def zero_like(p, off):
         z = torch.zeros_like(_local(p), dtype=torch.float32)
         if cfg.state_bits:
-            return _q_state(z, cfg.state_bits, cfg.state_group, 0)
+            return _q_state(z, cfg.state_bits, cfg.state_group, 0, off)
         return z.to(getattr(torch, cfg.state_dtype))
 
-    return {"step": 0, "m": [zero_like(p) for p in params],
-            "v": [zero_like(p) for p in params]}
+    return {"step": 0,
+            "m": [zero_like(p, o) for p, o in zip(params, offsets)],
+            "v": [zero_like(p, o) for p, o in zip(params, offsets)]}
 
 
 @torch.no_grad()
@@ -164,17 +245,18 @@ def adamw_update(grads, state: dict, params, cfg: AdamWConfig) -> None:
     gnorm = torch.sqrt(sum(_sq_norm(g) for g in grads)) \
         if cfg.grad_clip else None
     grads = [_local(g) for g in grads]
-    if cfg.grad_clip:
-        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
-                            max=1.0)
-        grads = [g * scale for g in grads]
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
+                        max=1.0) if cfg.grad_clip else None
     bc1 = float(np.float32(1) - np.float32(cfg.b1) ** t)
     bc2 = float(np.float32(1) - np.float32(cfg.b2) ** t)
     bits, group = cfg.state_bits, cfg.state_group
     seed = (step + 1) & MASK32
     for i, (g, m, v, p) in enumerate(zip(grads, state["m"], state["v"],
                                          params)):
-        g, p = g.float(), _local(p)
+        # each gradient scaled as it is read: scaled copies of every
+        # gradient at once would double their memory
+        off = shard_offset(p, group) if bits else None
+        g, p = (g if scale is None else g * scale).float(), _local(p)
         if bits:
             m_f = _dq_state(m, bits, group, g.shape)
             v_f = torch.clamp_min(_dq_state(v, bits, group, g.shape), 0.0)
@@ -193,6 +275,6 @@ def adamw_update(grads, state: dict, params, cfg: AdamWConfig) -> None:
             upd = upd + cfg.weight_decay * p.float()
         p.sub_((lr * upd).to(p.dtype))
         if bits:
-            state["m"][i] = _q_state(m_f, bits, group, seed)
-            state["v"][i] = _q_state(v_f, bits, group, seed + 1)
+            state["m"][i] = _q_state(m_f, bits, group, seed, off)
+            state["v"][i] = _q_state(v_f, bits, group, seed + 1, off)
     state["step"] = step + 1

@@ -24,6 +24,8 @@ reference's spec with the leading layer ``None`` dropped.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 from torch import nn
 
@@ -239,8 +241,10 @@ def to_named(spec_tree, mesh):
     return placements(spec_tree, mesh)
 
 
-#: The families whose layers carry the reference's ``shard`` sites.
-SHARDED_FAMILIES = ("dense", "vlm")
+#: The families whose layers carry the reference's ``shard`` sites: all
+#: six (the SSM's heads and the MoE's experts run on their local shards,
+#: :mod:`repro_torch.parallel.local`).
+SHARDED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
 def distribute_model(model: nn.Module, mesh) -> dict:
@@ -251,10 +255,7 @@ def distribute_model(model: nn.Module, mesh) -> dict:
     if mesh.size() == 1:
         return specs
     if model.cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"the {model.cfg.family!r} family on a mesh of {mesh.size()} "
-            f"ranks: its sharding sites come in port slice 19 (sharded "
-            f"now: {SHARDED_FAMILIES})")
+        raise ValueError(f"unknown family {model.cfg.family!r}")
     for name, spec in specs.items():
         *owner, leaf = name.split(".")
         mod = model.get_submodule(".".join(owner))
@@ -262,6 +263,46 @@ def distribute_model(model: nn.Module, mesh) -> dict:
         mod.register_parameter(leaf, nn.Parameter(
             distribute(p.detach(), spec, mesh), requires_grad=p.requires_grad))
     return specs
+
+
+def distribute_cache(cfg, cache: dict, mesh, batch: int, seq: int) -> dict:
+    """A decode cache (:meth:`Model.init_cache`'s dict, the same full
+    tensors on every rank) laid out by :func:`cache_pspecs` as DTensors
+    (each rank keeps its own shard; nothing is sent)."""
+    if mesh.size() == 1:
+        return cache
+    specs = cache_pspecs(cfg, cache, mesh, batch, seq)
+    return {k: distribute(v, specs[k], mesh) for k, v in cache.items()}
+
+
+def zeros_cache(cfg, shapes: dict, mesh, batch: int, seq: int,
+                device) -> dict:
+    """Zeros of a decode cache given as ``{name: (shape, dtype)}``
+    (``models.transformer.cache_shapes``) on ``device``, laid out by
+    :func:`cache_pspecs`, each rank allocating its own shard only."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    specs = cache_pspecs(cfg, {k: SimpleNamespace(shape=shape)
+                               for k, (shape, _) in shapes.items()},
+                         mesh, batch, seq)
+    out = {}
+    for name, (shape, dtype) in shapes.items():
+        pl = placements(specs[name], mesh)
+        local, _ = compute_local_shape_and_global_offset(shape, mesh, pl)
+        out[name] = DTensor.from_local(
+            torch.zeros(local, dtype=dtype, device=device), mesh, pl,
+            shape=torch.Size(shape), stride=_contiguous_stride(shape))
+    return out
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
 
 
 def distribute_batch(cfg, batch: dict, mesh) -> dict:

@@ -25,10 +25,16 @@ import torch
 
 
 def _child(target, rank: int, world: int, backend: str, root: str,
-           timeout: float, args: tuple) -> None:
+           timeout: float, box: list) -> None:
+    import gc
+
     import torch.distributed as dist
 
     out = os.path.join(root, f"rank{rank}.pt")
+    # the arguments come in a list the process object holds, emptied here:
+    # a CUDA tensor the parent shared stays allocated in the parent until
+    # every rank has dropped it, and a rank's exit may drop none
+    args = box.pop()
     try:
         dist.init_process_group(
             backend, store=dist.FileStore(os.path.join(root, "store"), world),
@@ -39,6 +45,8 @@ def _child(target, rank: int, world: int, backend: str, root: str,
         torch.save(("error", traceback.format_exc()), out)
         raise
     finally:
+        del args
+        gc.collect()
         if dist.is_initialized():
             dist.destroy_process_group()
 
@@ -54,7 +62,7 @@ def run_ranks(target, world: int, args: tuple = (), *,
     with tempfile.TemporaryDirectory() as root:
         procs = [ctx.Process(target=_child, args=(target, rank, world,
                                                   backend, root, timeout,
-                                                  tuple(args)))
+                                                  [tuple(args)]))
                  for rank in range(world)]
         for p in procs:
             p.start()
@@ -66,6 +74,9 @@ def run_ranks(target, world: int, args: tuple = (), *,
             if p.is_alive():
                 p.kill()
                 p.join()
+        if torch.cuda.is_initialized():
+            # free the blocks of the CUDA tensors shared with the ranks
+            torch.cuda.ipc_collect()
         results, failures = [], []
         for rank, p in enumerate(procs):
             path = os.path.join(root, f"rank{rank}.pt")

@@ -25,7 +25,10 @@ backward's split count (default: the fixed rule).
   and none empty; scratch of ``S * d * n * 4`` bytes; shared memory from
   the same ``buffer_elems`` sum the launch uses, within the card's 227 KiB;
 * ``quant_blockwise``: :func:`repro_torch.kernels.quant_blockwise.unsupported`,
-  the predicate the dispatch layer routes on;
+  the predicate the dispatch layer routes on, and a shard's block offset
+  (``row0`` and the column split's ``block_stride``):
+  :func:`~repro_torch.kernels.quant_blockwise.offset_unsupported`, the
+  rule ``quant_pack`` checks its launch arguments by;
 * ``rp_matmul``: the projection ratio divides the stash width.
 
 :func:`run` checks every (layer config x width x rows) the plan matrix
@@ -82,12 +85,17 @@ class Launch:
     fwd_config: int | None = None     # None: fused_matmul.fwd_index(n)
     bwd_config: int | None = None     # None: fused_matmul.tile_index(n)
     bwd_splits: int | None = None     # None: fused_matmul.splits' rule
+    row0: int = 0                     # quant: the first block's global index
+    block_stride: tuple | None = None  # quant: (blocks a local row, global)
 
     @property
     def key(self) -> str:
         vm = f"/vm{len(self.levels)}" if self.levels else ""
+        off = (f"/at{self.row0}" if self.row0 else "") + (
+            "/stride{}x{}".format(*self.block_stride)
+            if self.block_stride else "")
         return (f"{self.kind}/{self.m}x{self.d}x{self.n}/b{self.bits}"
-                f"/g{self.group_size}{vm}")
+                f"/g{self.group_size}{vm}{off}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +182,10 @@ class Contract:
 
 def _quant_precondition(e: Launch) -> str | None:
     return quant_blockwise.unsupported(e.bits, e.group_size, e.levels)
+
+
+def _quant_offset(e: Launch) -> str | None:
+    return quant_blockwise.offset_unsupported(e.m, e.row0, e.block_stride)
 
 
 def _rp_precondition(e: Launch) -> str | None:
@@ -275,6 +287,9 @@ CONTRACTS: tuple[Contract, ...] = (
     Contract("quant-precondition",
              "the quant kernels can run (bits | 32, at most 256 levels)",
              "quant", _quant_precondition),
+    Contract("quant-offset",
+             "a shard's block offset is whole local rows of 1 <= local <= "
+             "global blocks", "quant", _quant_offset),
     Contract("rp-precondition", "the ratio divides the stash width", "rp",
              _rp_precondition),
     Contract("quant-precondition",

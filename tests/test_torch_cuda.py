@@ -653,6 +653,31 @@ def test_cuda_quant_pack_offset_bit_equal_to_plain(cuda, levels, n, g, bits,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols,split,g,bits", [(64, 1024, 2, 256, 8),
+                                                    (33, 768, 3, 64, 2),
+                                                    (8, 4000, 4, 125, 8)])
+def test_cuda_quant_pack_block_stride_bit_equal_to_plain(cuda, rows, cols,
+                                                         split, g, bits):
+    """A column split's shard (each of ``split`` ranks' columns of a
+    (rows, cols) moment in blocks of ``g``): the kernel with the shard's
+    ``row0`` and ``block_stride`` gives the plain version's words, zero
+    and range, and the unsharded call's blocks (vector and scalar
+    paths)."""
+    x = torch.from_numpy(_x(rows, cols, seed=cols)).cuda()
+    whole = t_qk.quant_pack(x.reshape(-1, g), bits, 9)
+    local, per_row = cols // split, cols // g
+    for r in range(split):
+        part = x[:, r * local:(r + 1) * local].reshape(-1, g)
+        off = dict(row0=r * local // g, block_stride=(local // g, per_row))
+        got = t_qk.quant_pack(part.contiguous(), bits, 9, **off)
+        want = t_ref.quantize_packed(part.contiguous(), bits, 9, **off)
+        blocks = (torch.arange(rows)[:, None] * per_row + r * local // g
+                  + torch.arange(local // g)[None, :]).reshape(-1).cuda()
+        for a, b, c in zip(got, want, whole):
+            assert torch.equal(a, b) and torch.equal(a, c[blocks])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("levels", [None, VM2], ids=["uniform", "vm"])
 @pytest.mark.parametrize("m,d,n", [(4096, 256, 64), (4096, 256, 256),
                                    (4096, 512, 256), (4096, 512, 40),

@@ -254,8 +254,11 @@ def test_two_gloo_ranks_train_the_dense_lm_on_both_meshes():
     one = ranks.train(make_local_mesh("cpu"))
     got = run_ranks(ranks.two_meshes, 2, timeout=300)
     for rank, res in enumerate(got):
-        assert len(res["refusals"]) == 2
-        assert all("slice 19" in r for r in res["refusals"])
+        # 8-bit moments refuse only shards that straddle their blocks,
+        # naming the parameter; the MoE family distributes
+        assert len(res["refusals"]) == 1
+        assert "8-bit moments of layers.0.attn.wq (64, 64)" in \
+            res["refusals"][0] and "straddle" in res["refusals"][0]
         for shape, dp in (((1, 2), 1), ((2, 1), 2)):
             r = res[shape]
             assert r["dp_group"] == dp
