@@ -287,9 +287,34 @@ Phases, in order; any failure raises and exits non-zero:
    equal to one rank's; (c) the dry run's DRYRUN17 cells, each in a
    subprocess beside (a) and (b), each ``ok`` with its record logged.
    The phase stays under PHASE17_LIMIT_S;
-18. a JSON line of per-kernel numbers (phase 13's shapes under
+18. slice 20, the dense trio (DENSE: mistral-nemo-12b, qwen3-32b,
+   qwen1.5-32b), after phase 14 and before phase 15 (the bytes still
+   allocated logged before it): first the kernels at the trio's shapes
+   against their plain versions, timed (DENSE_FLASH: bf16 causal flash at
+   the prefill's (64 / 128 / 80, 256, 128) beside SDPA; the seeded
+   quant_pack of a 2 x 256-token prompt and a decode step and the page
+   dequant_unpack of 2 slots at 8 and 40 KV heads, DENSE_KV_NBT; the INT2
+   stash at DENSE_STASH_BLOCKS); (a) each at full width and
+   DENSE_SERVE_LAYERS (full) depth, seed-0 weights drawn on the card
+   (``dense_reckon`` beside the bytes allocated and the peak, the card
+   holding DENSE_HEADROOM free beyond it), served through the launcher's
+   engine on DENSE_SERVE_ARGV (arctic's traffic): launches by phase 8's
+   formula, no plain attention on the card, the pool's bytes the
+   layout's, TTFT / TPOT / tokens/s / the peak, a run collecting logits
+   with the same tokens and finite logits, and at 2 layers of the same
+   weights the prefill logits with the kernel against the plain attention
+   and a paged decode step against the plain-dequantized window (phase 8's
+   bands); (b) ``launch.train`` on each at full width cut to
+   DENSE_LM_LAYERS layers (DENSE_LM_ARGV: ``act``, B 2 x 1024 in the
+   config's grad_accum micro-batches, 2 steps, float32 moments;
+   ``dense_train_reckon`` beside the peak): a finite loss and gradients
+   every step, the stash launched once a layer and micro-batch each way.
+   Each model is deleted and the cache emptied before the next.  The phase
+   stays under PHASE18_LIMIT_S;
+19. a JSON line of per-kernel numbers (phase 13's shapes under
    ``moe_shapes``, phase 14's under ``family_shapes``, phase 15's under
-   ``example_shapes``), then ``{"ok": true, "device": ...}``.
+   ``example_shapes``, phase 18's under ``dense_shapes``), then
+   ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX; without a CUDA device, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
@@ -1410,20 +1435,22 @@ KV_PAGE_TOKENS = 2 * 4 * 16          # one decode read: K and V of a page
 
 
 def check_kv_quant(torch, qk, ref, flush, gen, nbt: int = KV_NBT,
-                   prefix: str = "") -> dict:
+                   prefix: str = "", prompt: int = 1008,
+                   slots: int = 4) -> dict:
     """The KV cache's use of the quant kernels at ``nbt`` blocks a token:
     quant_pack with one seed per token (counters restarting per token) at
-    a prefill group's and a decode step's rows, bit-equal to the plain
-    version; dequant_unpack of a page of K and V of 4 slots, bit-equal to
+    a prefill group's rows (``slots`` prompts of ``prompt`` page-aligned
+    tokens) and a decode step's, bit-equal to the plain version;
+    dequant_unpack of a page of K and V of ``slots`` slots, bit-equal to
     the plain version.  Timed; rows tagged with ``prefix``."""
     from repro_torch.engine.seeds import kv_seed
 
     rows = {}
-    for tag, n_tok in (("kv prefill", KV_PREFILL_TOKENS), ("kv decode", 4)):
+    for tag, n_tok in (("kv prefill", slots * prompt), ("kv decode", slots)):
         x = torch.randn((n_tok * nbt, KV_G), device="cuda",
                         generator=gen) * 1.3
-        seeds = kv_seed(torch.arange(n_tok, device="cuda") % 1008,
-                        torch.arange(n_tok, device="cuda") // 1008, 7, 1)
+        seeds = kv_seed(torch.arange(n_tok, device="cuda") % prompt,
+                        torch.arange(n_tok, device="cuda") // prompt, 7, 1)
         got = qk.quant_pack(x, KV_BITS, seeds, rows_per_seed=nbt)
         want = ref.quantize_packed(x, KV_BITS, seeds, rows_per_seed=nbt)
         torch.cuda.synchronize()
@@ -1440,7 +1467,7 @@ def check_kv_quant(torch, qk, ref, flush, gen, nbt: int = KV_NBT,
                    library_ms=None, bytes=nbytes)
         log(f"quant_pack (seeded) {prefix}{tag} {n}x{KV_G}: bit-equal; {row}")
         rows[("quant_pack", f"{prefix}{tag} {n}x{KV_G}")] = row
-    n = KV_PAGE_TOKENS * nbt
+    n = 2 * slots * 16 * nbt
     x = torch.randn((n, KV_G), device="cuda", generator=gen)
     pk, zk, rk = qk.quant_pack(x, KV_BITS, 5)
     got = qk.dequant_unpack(pk, zk, rk, KV_BITS, KV_G)
@@ -3216,6 +3243,61 @@ def check_moe_layer(torch, model) -> dict:
     return {"dropped": dropped, **times}
 
 
+def rerun_with_logits(args, model, requests, out, what: str) -> None:
+    """The requests of ``out`` again through an engine collecting logits:
+    the same tokens, finite logits."""
+    from repro_torch.launch import serve
+
+    eng, _ = serve.build_engine(args, model, collect_logits=True)
+    again = eng.run(requests)
+    for a, b in zip(out["results"], again["results"]):
+        if not np.array_equal(a.tokens, b.tokens):
+            raise AssertionError(f"[{what}] request {a.rid}: tokens "
+                                 "differ in the run collecting logits")
+    if not all(np.isfinite(again["logits"][r.rid]).all()
+               for r in out["results"] if r.status == "done"):
+        raise AssertionError(f"[{what}] non-finite logits")
+    log(f"[{what}] a run collecting logits: the same tokens, finite logits")
+
+
+def two_layer_checks(torch, model, args, requests, ref, what: str) -> None:
+    """2 layers of ``model``'s weights: prefill logits of the first
+    ``--max-batch`` prompts with the kernel against the plain attention,
+    and a paged decode step against decode_attend over the
+    plain-dequantized window (phase 8's bands)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+
+    two = Model(dataclasses.replace(model.cfg, n_layers=2), dict(
+        embed=model.embed.data, final_norm=model.final_norm.data,
+        lm_head=model.lm_head.data,
+        layers=[layer_tree(lp) for lp in model.layers[:2]]))
+    prompts = torch.as_tensor(
+        np.stack([r.prompt for r in requests[:args.max_batch]]),
+        device="cuda")
+    with_kernel, _ = two.prefill(prompts)
+    two.impl = "torch"
+    with_plain, _ = two.prefill(prompts)
+    two.impl = "auto"
+    err = float((with_kernel - with_plain).abs().max())
+    log(f"[{what}] 2 layers: prefill logits kernel vs plain attention: "
+        f"max abs err {err} (logits up to {float(with_plain.abs().max())});"
+        f" argmax equal "
+        f"{torch.equal(with_kernel.argmax(-1), with_plain.argmax(-1))}")
+    if err > 0.1:
+        raise AssertionError(f"[{what}] 2-layer logits differ by {err}")
+    eng2 = serve.build_engine(args, two, collect_logits=True)[0]
+    state, table, _ = admit_group(eng2, requests)
+    err, scale, same = paged_against_window(
+        torch, eng2, torch.as_tensor(table, device="cuda"), state, ref)
+    log(f"[{what}] 2 layers: a decode step's logits through the paged "
+        f"read against the plain-dequantized window: max abs err {err} "
+        f"(logits up to {scale}); argmax equal {same}")
+    if err > 0.1:
+        raise AssertionError(f"[{what}] 2-layer decode logits differ by "
+                             f"{err}")
+
+
 def slice_moe_serve(torch, wrappers, qk, ref) -> tuple:
     """Phase 13 (a) and (b): qwen3-moe-235b-a22b at full width and
     MOE_SERVE_LAYERS layers served through the launcher's engine on phase
@@ -3272,17 +3354,7 @@ def slice_moe_serve(torch, wrappers, qk, ref) -> tuple:
     log(f"[moe serve] first request's tokens {done[0].tokens.tolist()}")
     del engine
 
-    eng, _ = serve.build_engine(args, model, collect_logits=True)
-    again = eng.run(requests)
-    for a, b in zip(out["results"], again["results"]):
-        if not np.array_equal(a.tokens, b.tokens):
-            raise AssertionError(f"[moe serve] request {a.rid}: tokens "
-                                 "differ in the run collecting logits")
-    if not all(np.isfinite(again["logits"][r.rid]).all() for r in done):
-        raise AssertionError("[moe serve] non-finite logits")
-    log("[moe serve] a run collecting logits: the same tokens, finite "
-        "logits")
-    del again
+    rerun_with_logits(args, model, requests, out, "moe serve")
 
     # where a prefill group and a decode step go
     eng, _ = serve.build_engine(args, model, collect_logits=True)
@@ -3307,37 +3379,7 @@ def slice_moe_serve(torch, wrappers, qk, ref) -> tuple:
         f"{prefill_ms:.3f} ms; decode steps {steps} ms")
     del eng, state
 
-    # 2 layers of the same weights: prefill logits with the kernel against
-    # the plain attention, and a paged decode step against decode_attend
-    # over the plain-dequantized window (phase 8's bands)
-    two = Model(dataclasses.replace(cfg, n_layers=2), dict(
-        embed=model.embed.data, final_norm=model.final_norm.data,
-        lm_head=model.lm_head.data,
-        layers=[layer_tree(lp) for lp in model.layers[:2]]))
-    prompts = torch.as_tensor(np.stack([r.prompt for r in requests[:4]]),
-                              device="cuda")
-    with_kernel, _ = two.prefill(prompts)
-    two.impl = "torch"
-    with_plain, _ = two.prefill(prompts)
-    two.impl = "auto"
-    err = float((with_kernel - with_plain).abs().max())
-    log(f"[moe serve] 2 layers: prefill logits kernel vs plain attention: "
-        f"max abs err {err} (logits up to {float(with_plain.abs().max())});"
-        f" argmax equal "
-        f"{torch.equal(with_kernel.argmax(-1), with_plain.argmax(-1))}")
-    if err > 0.1:
-        raise AssertionError(f"[moe serve] 2-layer logits differ by {err}")
-    eng2 = serve.build_engine(args, two, collect_logits=True)[0]
-    state, table, _ = admit_group(eng2, requests)
-    err, scale, same = paged_against_window(
-        torch, eng2, torch.as_tensor(table, device="cuda"), state, ref)
-    log(f"[moe serve] 2 layers: a decode step's logits through the paged "
-        f"read against the plain-dequantized window: max abs err {err} "
-        f"(logits up to {scale}); argmax equal {same}")
-    if err > 0.1:
-        raise AssertionError(f"[moe serve] 2-layer decode logits differ by "
-                             f"{err}")
-    del two, eng2, state
+    two_layer_checks(torch, model, args, requests, ref, "moe serve")
 
     layer = check_moe_layer(torch, model)
     share = cfg.n_layers * layer["decode_ms"]
@@ -4028,6 +4070,11 @@ def smoke_launches() -> list:
                                           MOE_MOMENT_BLOCKS)]
     quant += [(n, 256, 2, None) for _, n in FAMILY_STASH]
     quant += [(n, G, 2, None) for n, G in EXAMPLE_QUANT]
+    for nbt in DENSE_KV_NBT:
+        quant += [(n_tok * nbt, KV_G, KV_BITS, None)
+                  for n_tok in (DENSE_SLOTS * DENSE_PROMPT, DENSE_SLOTS,
+                                2 * DENSE_SLOTS * 16)]
+    quant += [(DENSE_STASH_BLOCKS, 256, 2, None)]
     out = [Launch("quant", n, G, G, bits, G, lv) for n, G, bits, lv in quant]
     out += [Launch("fused", rows, d, n, 2, 256, vm256)
             for rows in (N_NODES, BATCH_NODES) for d, n in FUSED_LAYERS]
@@ -5431,6 +5478,273 @@ def slice_families_sharded(torch) -> collections.Counter:
     return total
 
 
+# ------------------------------------ phase 18: the dense trio on the card
+#: Seconds phase 18 may take in all.
+PHASE18_LIMIT_S = 150.0
+#: The dense archs no earlier phase runs: GQA 32 / 8 with n_heads x d_head
+#: (4,096) below d_model (5,120), GQA 64 / 8 with qk-norm and 8,192 query
+#: columns, and 40 KV heads with QKV bias (the widest KV row: 5,120
+#: elements, 80 blocks of G = 64 a token).
+DENSE = ("mistral-nemo-12b", "qwen3-32b", "qwen1.5-32b")
+#: ARCTIC_ARGV's traffic on each: 2 requests through 2 slots, 256 + 8
+#: tokens, 4-bit KV, G 64, 16-token pages; one prefill group of both
+#: prompts, then 7 decode steps over 17 pages a slot.
+DENSE_SERVE_ARGV = ARCTIC_ARGV[2:]
+DENSE_PROMPT, DENSE_SLOTS, DENSE_STEPS = 256, 2, 7
+DENSE_PAGES = -(-(256 + 8 - 1) // 16)
+#: Serving depths: every arch whole.  The reckoning (``dense_reckon``) for
+#: the largest, qwen1.5-32b at 64 layers: 70,390,906,880 bytes of bf16
+#: weights (2 x 35,195,453,440 parameters), 6,574,080 of float32 norms and
+#: biases, a 222,822,400-byte pool and DENSE_TRANSIENT: 71.7 GB, which
+#: leaves ~13 GB of the card's 85.0 GB (more than DENSE_HEADROOM).
+DENSE_SERVE_LAYERS = {"mistral-nemo-12b": 40, "qwen3-32b": 64,
+                      "qwen1.5-32b": 64}
+#: What a serving run holds beside the weights and the pool, at most: the
+#: prefill's activations of a layer (2 x 256 tokens), its bf16 K and V of
+#: every layer before they are written to the pool (671 MB at qwen1.5-32b)
+#: and the logits.
+DENSE_TRANSIENT = 2 ** 30
+#: Bytes the reckoned serving peak must leave free on the card.
+DENSE_HEADROOM = 3 * 10 ** 9
+#: Training depths at full width: the reckoning (``dense_train_reckon``)
+#: at these depths is 55.7 GB (mistral-nemo-12b), 64.6 GB (qwen3-32b) and
+#: 66.8 GB (qwen1.5-32b: 3.66 G parameters, most of them its 2 x 152,064 x
+#: 5,120 embedding and head, in 2 micro-batches whose float32 gradient
+#: sums and quotient take 8 bytes a parameter), of the card's 85.0 GB.
+DENSE_LM_LAYERS = {"mistral-nemo-12b": 8, "qwen3-32b": 4, "qwen1.5-32b": 4}
+DENSE_LM_ARGV = ["--batch", "2", "--seq", "1024", "--lr", str(LM_LR),
+                 "--act-mode", "act", "--steps", "2", "--device", "cuda"]
+#: The kernels at the trio's shapes: the prefill's flash (2 prompts x the
+#: query heads, 256 rows, Dh 128), the KV cache's blocks a token (K or V
+#: at 8 and at 40 KV heads x 128 / G 64), and the INT2 stash of a step's
+#: B 2 x 1024 tokens x d_model 5,120 / G 256.
+DENSE_FLASH = (("mistral-nemo-12b", 64), ("qwen3-32b", 128),
+               ("qwen1.5-32b", 80))
+DENSE_KV_NBT = (8 * 128 // KV_G, 40 * 128 // KV_G)
+DENSE_STASH_BLOCKS = 2 * 1024 * 5120 // 256
+
+
+def dense_reckon(cfg, page_bytes: int) -> dict:
+    """The bytes a served dense model holds: bf16 weights (2 x
+    ``param_count``), float32 norms and biases, the pool (K and V of
+    DENSE_SLOTS x DENSE_PAGES pages a layer) and DENSE_TRANSIENT."""
+    d, hd = cfg.d_model, cfg.d_head
+    f32 = d + cfg.n_layers * (2 * d + (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+                              * cfg.qkv_bias + 2 * hd * cfg.qk_norm)
+    out = {"weights": 2 * cfg.param_count(), "f32": 4 * f32,
+           "pool": cfg.n_layers * DENSE_SLOTS * DENSE_PAGES * page_bytes}
+    out["peak"] = sum(out.values()) + DENSE_TRANSIENT
+    return out
+
+
+def dense_train_reckon(cfg, batch: int, seq: int) -> dict:
+    """The bytes a dense ``act`` training step holds: bf16 weights and
+    float32 AdamW moments throughout, and the gradients at their largest
+    in each part of the step: in a micro-batch's backward its bf16
+    gradients (beside the float32 sums when grad_accum > 1), its INT2
+    stash (codes and a float32 zero and range a block of 256) every layer
+    and a loss chunk's float32 logits and their gradient; the float32
+    sums beside their quotient; in the update, the gradients beside five
+    float32 temporaries of the largest parameter (the embedding or the
+    head: the update's float32 gradient, moments' terms and update)."""
+    n, a = cfg.param_count(), cfg.grad_accum
+    toks = batch * seq // a
+    out = {"weights": 2 * n, "moments": 8 * n}
+    parts = {"backward": 2 * n + (4 * n if a > 1 else 0)
+             + cfg.n_layers * (toks * cfg.d_model // 4
+                               + toks * cfg.d_model // 256 * 8)
+             + 2 * batch // a * min(cfg.vocab_chunk, seq) * cfg.vocab * 4,
+             "quotient": 8 * n if a > 1 else 0,
+             "update": (4 * n if a > 1 else 2 * n)
+             + 5 * 4 * cfg.vocab * cfg.d_model}
+    out.update(parts, peak=out["weights"] + out["moments"]
+               + max(parts.values()))
+    return out
+
+
+def check_dense_shapes(torch, fa, qk, ref) -> dict:
+    """Phase 18's kernels at the trio's shapes against their plain
+    versions, timed: DENSE_FLASH's bf16 causal prefill beside SDPA, the
+    seeded quant_pack of a 2 x 256-token prompt and a decode step and the
+    page dequant_unpack of 2 slots at DENSE_KV_NBT blocks a token, and
+    the INT2 stash at DENSE_STASH_BLOCKS."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    rows = {}
+    for name, bh in DENSE_FLASH:
+        row = check_flash_case(torch, fa, ref, flush, gen, bh, DENSE_PROMPT,
+                               DENSE_PROMPT, 128, True)
+        tag = f"{name} prefill ({bh}, {DENSE_PROMPT}, 128) causal"
+        log(f"flash_attention {tag} bf16: {row}")
+        rows[("flash_attention", tag)] = row
+    for nbt in DENSE_KV_NBT:
+        rows.update(check_kv_quant(
+            torch, qk, ref, flush, gen, nbt, f"dense {nbt * KV_G // 128} kv "
+            "heads ", prompt=DENSE_PROMPT, slots=DENSE_SLOTS))
+    shape, q, d = quant_case(torch, qk, ref, DENSE_STASH_BLOCKS, 256, 2,
+                             None, flush, gen)
+    rows[("quant_pack", f"dense stash {shape}")] = q
+    rows[("dequant_unpack", f"dense stash {shape}")] = d
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def slice_dense_serve(torch, wrappers, ref, name: str) -> dict:
+    """Phase 18 (a) for one arch: the model at full width and
+    DENSE_SERVE_LAYERS layers, seed-0 weights drawn on the card (the
+    reckoning beside the bytes allocated and the peak), served through the
+    launcher's engine on DENSE_SERVE_ARGV: launches by phase 8's formula,
+    no plain attention on the card, the pool's bytes the layout's, TTFT /
+    TPOT / tokens/s / the peak; a run collecting logits with the same
+    tokens and finite logits; at 2 layers of the same weights the prefill
+    logits with the kernel against the plain attention and a paged decode
+    step against the plain-dequantized window (phase 8's bands).  Returns
+    the serving run's launch counts."""
+    from repro_torch.configs import get
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.serving.kvcache import pool_nbytes
+
+    smi = card()
+    layers = DENSE_SERVE_LAYERS[name]
+    cfg = dataclasses.replace(get(name), n_layers=layers, act_mode="none")
+    args = serve.parser().parse_args(["--arch", name] + DENSE_SERVE_ARGV)
+    page_bytes = 2 * args.page_tokens * (
+        cfg.n_kv_heads * cfg.d_head * args.kv_bits // 8
+        + -(-cfg.n_kv_heads * cfg.d_head // args.kv_group) * 8)
+    reckon = dense_reckon(cfg, page_bytes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[{name} serve] {layers} of {get(name).n_layers} layers: reckoned "
+        f"{reckon}; the card has {free} of {total} bytes free ({smi})")
+    if reckon["peak"] + DENSE_HEADROOM > free:
+        raise AssertionError(f"[{name} serve] the reckoned peak leaves under "
+                             f"{DENSE_HEADROOM} bytes free")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    log(f"[{name} serve] the model holds {model_bytes(model)} bytes "
+        f"({held} allocated after init, reckoned "
+        f"{reckon['weights'] + reckon['f32']}; init peak "
+        f"{torch.cuda.max_memory_allocated() - base} above the "
+        f"{base} before), built in {time.perf_counter() - t0:.1f} s")
+    # the allocator rounds a block up by under 2 MB; a float32 copy of
+    # any weight kept past init would show here
+    want_bytes = reckon["weights"] + reckon["f32"]
+    if model_bytes(model) != want_bytes or held > want_bytes * 1.01:
+        raise AssertionError(f"[{name} serve] init left {held} bytes, the "
+                             f"model {model_bytes(model)}: not the weights' "
+                             f"reckoning {want_bytes}")
+
+    engine, requests = serve.build_engine(args, model)
+    pool_bytes = pool_nbytes(engine.pool)
+    want = dict(planned(0, 0, 0), flash_attention=layers,
+                quant_pack=(1 + DENSE_STEPS) * 2 * layers,
+                dequant_unpack=DENSE_STEPS * layers * DENSE_PAGES)
+    plain_calls = [0]
+    with plain_attention_on_card(ref, plain_calls):
+        out, launches, peak = counted_run(torch, wrappers, want,
+                                          f"{name} serve",
+                                          lambda: engine.run(requests))
+    serve.report(args, engine, out)
+    if plain_calls[0]:
+        raise AssertionError(f"[{name} serve] plain attention ran on the "
+                             "card")
+    done = [r for r in out["results"] if r.status == "done"]
+    if len(done) != 2 or any(r.tokens.shape != (8,) for r in done):
+        raise AssertionError(f"[{name} serve] {len(done)}/2 requests served")
+    log(f"[{name} serve] pool bytes {pool_bytes} layout "
+        f"{engine.layout.pool_bytes} reckoned {reckon['pool']}")
+    if not pool_bytes == engine.layout.pool_bytes == reckon["pool"]:
+        raise AssertionError(f"[{name} serve] pool bytes differ from the "
+                             "layout")
+    log(f"[{name} serve] TTFT mean {out['ttft_mean_ms']!r} ms, TPOT mean "
+        f"{out['tpot_mean_ms']!r} ms, {out['tokens_per_sec']!r} tokens/s, "
+        f"wall {out['wall_s']!r} s, {out['decode_steps']} decode steps, "
+        f"max_memory_allocated {peak} bytes (reckoned {reckon['peak']}) "
+        f"({smi})")
+    del engine
+
+    log(f"[{name} serve] tokens {[r.tokens.tolist() for r in done]}")
+    rerun_with_logits(args, model, requests, out, f"{name} serve")
+    two_layer_checks(torch, model, args, requests, ref, f"{name} serve")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def slice_dense_train(torch, wrappers, name: str) -> dict:
+    """Phase 18 (b) for one arch: ``launch.train`` at full width cut to
+    DENSE_LM_LAYERS layers, ``act`` (INT2, G 256), float32 moments, B 2 x
+    1024 in the config's grad_accum micro-batches, 2 steps: a finite loss
+    and finite gradients every step, the stash launched once a layer and
+    micro-batch each way, the reckoning beside the peak.  Returns the
+    launch counts."""
+    from repro_torch.configs import get
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    depth = DENSE_LM_LAYERS[name]
+    cfg = dataclasses.replace(get(name), n_layers=depth)
+    argv = ["--arch", name] + DENSE_LM_ARGV
+    args = train.parser().parse_args(argv)
+    reckon = dense_train_reckon(cfg, args.batch, args.seq)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    log(f"[{name} lm] {depth} of {get(name).n_layers} layers, "
+        f"{cfg.param_count()} parameters, grad_accum {cfg.grad_accum}: "
+        f"reckoned {reckon}; {free} bytes free")
+    if reckon["peak"] + DENSE_HEADROOM > free:
+        raise AssertionError(f"[{name} lm] the reckoned peak leaves under "
+                             f"{DENSE_HEADROOM} bytes free")
+    n_stash = depth * args.steps * cfg.grad_accum
+    want = dict(planned(0, 0, 0), quant_pack=n_stash, dequant_unpack=n_stash)
+    finite = []
+    with grad_taps(lsteps, finite), lm_depth(train, depth):
+        (res, _), counts, peak = counted_run(
+            torch, wrappers, want, f"{name} lm",
+            lambda: launcher(train, argv, train.lm_main))
+    losses = [h["loss"] for h in res["history"]]
+    grads_ok = [bool(f) for f in finite]
+    log(f"[{name} lm] act B {args.batch} x {args.seq}: losses {losses}; "
+        f"gradients finite {grads_ok}; step s "
+        f"{[h['dt'] for h in res['history']]}; max_memory_allocated {peak} "
+        f"(reckoned {reckon['peak']}); {time.perf_counter() - t0:.1f} s "
+        f"({card()})")
+    if not (all(map(math.isfinite, losses)) and all(grads_ok)
+            and len(grads_ok) == args.steps):
+        raise AssertionError(f"[{name} lm] losses {losses}, gradients "
+                             f"finite {grads_ok}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def slice_dense(torch, wrappers, fa, qk, ref) -> tuple:
+    """Phase 18: the kernels at the trio's shapes, then (a) each arch
+    served and (b) each trained.  Returns (kernel rows, launch counts of
+    the phase's runs)."""
+    t0 = time.perf_counter()
+    rows = check_dense_shapes(torch, fa, qk, ref)
+    log(f"phase 18 kernels: {time.perf_counter() - t0:.1f} s")
+    total = collections.Counter()
+    for name in DENSE:
+        total.update(slice_dense_serve(torch, wrappers, ref, name))
+        log(f"phase 18 (a) {name}: {time.perf_counter() - t0:.1f} s")
+    for name in DENSE:
+        total.update(slice_dense_train(torch, wrappers, name))
+        log(f"phase 18 (b) {name}: {time.perf_counter() - t0:.1f} s")
+    return rows, total
+
 T_START = time.perf_counter()
 
 
@@ -5699,6 +6013,19 @@ def main() -> int:
     log(f"[memory] {torch.cuda.memory_allocated()} bytes allocated after "
         f"phase 14")
 
+    # 18. the dense trio at full width, before phase 15
+    t0 = time.perf_counter()
+    dense_rows, launches18 = slice_dense(torch, wrappers, fa, qk, ref)
+    dense_s = time.perf_counter() - t0
+    log(f"phase 18: {dense_s:.1f} s; launches {dict(launches18)}")
+    for name, n in launches18.items():
+        launches[name] += n
+    if not dense_s < PHASE18_LIMIT_S:
+        raise AssertionError(f"phase 18 took {dense_s:.1f} s, over "
+                             f"{PHASE18_LIMIT_S} s")
+    log(f"[memory] {torch.cuda.memory_allocated()} bytes allocated after "
+        f"phase 18")
+
     # 15. the static checker and the examples
     t0 = time.perf_counter()
     launches15, example_rows = slice_check(torch, wrappers, qk, ref)
@@ -5730,7 +6057,7 @@ def main() -> int:
         f"phase 16")
     log(f"[memory] after phase 16: {live_cuda(torch)}")
 
-    # 18. results
+    # 19. results
     sources = {"quant_pack": ("src/repro_torch/csrc/quant_blockwise.cu",
                               "src/repro/kernels/quant_blockwise.py:62"),
                "dequant_unpack": ("src/repro_torch/csrc/quant_blockwise.cu",
@@ -5768,6 +6095,11 @@ def main() -> int:
     example_shapes = collections.defaultdict(dict)
     for (name, tag), row in example_rows.items():
         example_shapes[name][tag] = {k: row[k] for k in moe_keys if k in row}
+    # and phase 18's (the dense trio)
+    rows.update(dense_rows)
+    dense_shapes = collections.defaultdict(dict)
+    for (name, tag), row in dense_rows.items():
+        dense_shapes[name][tag] = {k: row[k] for k in moe_keys if k in row}
     kernels = []
     for name, (source, replaces) in sources.items():
         row = rows[(name, main_tag[name])]
@@ -5792,7 +6124,10 @@ def main() -> int:
                if name in family_shapes else {}),
             **({"example_shapes": example_shapes[name],
                 "phase15_launches": launches15[name]}
-               if name in example_shapes else {})})
+               if name in example_shapes else {}),
+            **({"dense_shapes": dense_shapes[name],
+                "dense_launches": launches18[name]}
+               if name in dense_shapes else {})})
     log(f"[moe] decode experts {moe_layer}")
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

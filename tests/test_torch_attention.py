@@ -30,6 +30,7 @@ from repro_torch.kernels import ref as t_ref
 from repro_torch.models import attention as t_attn
 from repro_torch.models import layers as t_layers
 from repro_torch.models.convert import params_from_jax
+from torch_threads import one_thread  # noqa: F401
 
 
 def _normal(shape, seed, scale=1.0):

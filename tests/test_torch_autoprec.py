@@ -36,6 +36,7 @@ from repro_torch.graph.models import device_graph, params_from_numpy
 from repro_torch.graph.train import activation_memory_report as t_report
 from repro_torch.graph.train import train_gnn as t_train_gnn
 from repro_torch.optim import AdamWConfig as TAdam
+from torch_threads import one_thread  # noqa: F401
 
 GRAPH_ARGS = ("autoprec", 768, 4000, 64, 6)
 GRAPH_KW = dict(homophily=0.6, feature_noise=1.0, seed=2)

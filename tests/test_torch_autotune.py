@@ -24,6 +24,7 @@ from repro_torch.kernels import autotune
 from repro_torch.kernels import fused_matmul as fk
 from repro_torch.obs.metrics import MetricsRegistry, set_metrics
 from repro_torch.staticcheck import kernel_contracts as kc
+from torch_threads import one_thread  # noqa: F401
 
 BACKEND = "cuda:NVIDIA_H100_80GB_HBM3"
 FUSED = [e for e in chip_smoke.smoke_launches() if e.kind == "fused"]

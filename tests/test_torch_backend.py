@@ -12,6 +12,7 @@ from repro.core import backend as j_backend
 from repro.core import compressor as j_comp
 from repro_torch.core import backend as t_backend
 from repro_torch.core import compressor as t_comp
+from torch_threads import one_thread  # noqa: F401
 
 LEVEL_CASES = [None, (0.0, 1.0, 2.0, 3.0), tuple(float(i) for i in range(16)),
                tuple(float(i) for i in range(17))]

@@ -44,6 +44,7 @@ from repro_torch.graph.models import device_graph, params_from_numpy
 from repro_torch.graph.train import activation_memory_report as t_report
 from repro_torch.graph.train import train_gnn as t_train_gnn
 from repro_torch.graph.train import train_gnn_batched as t_train_batched
+from torch_threads import one_thread  # noqa: F401
 
 GRAPH_ARGS = ("t", 700, 3500, 32, 5)
 GRAPH_KW = dict(homophily=0.5, feature_noise=1.5, seed=1)

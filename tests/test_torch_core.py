@@ -18,6 +18,7 @@ from repro_torch.core import quant as t_quant
 from repro_torch.core import random_projection as t_rp
 from repro_torch.core.variance import optimize_levels as t_optimize_levels
 from repro_torch.engine import seeds as t_seeds
+from torch_threads import one_thread  # noqa: F401
 
 
 def _counters(n=4096, seed=0):

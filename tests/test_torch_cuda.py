@@ -1054,6 +1054,43 @@ def test_cuda_moe_serving_matches_cpu(cuda):
                                    outs["cpu"]["logits"][rid], atol=2e-3)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mistral-nemo-12b", "qwen3-32b",
+                                  "qwen1.5-32b"])
+def test_cuda_dense_trio_serve_launcher_matches_cpu(cuda, name):
+    """The serve launcher's engine (``launch.serve.build_engine``) over the
+    4-bit paged cache, on the smoke-size dense trio (float32 activations,
+    the same weights) on the card against the CPU: the same tokens, with
+    the flash kernel launched once a layer and prefill group on the card
+    only."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduce_for_smoke
+    from repro_torch.kernels import flash_attention as t_fa
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(reduce_for_smoke(ARCHS[name]),
+                              act_mode="none", act_dtype="float32")
+    model = Model(cfg, device="cpu",
+                  generator=torch.Generator().manual_seed(0))
+    argv = ["--arch", name, "--requests", "3", "--max-batch", "2",
+            "--prompt-len", "32", "--gen-len", "6", "--kv-bits", "4"]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        args = serve.parser().parse_args(argv + ["--device", dev])
+        eng, reqs = serve.build_engine(args, copy.deepcopy(model).to(dev))
+        before = t_fa.flash_attention.launches
+        outs[dev] = eng.run(reqs)
+        launched = t_fa.flash_attention.launches - before
+        # 2 prefill groups: the third request takes a freed slot
+        assert launched == (2 * cfg.n_layers if dev == "cuda" else 0)
+    for a, b in zip(outs["cuda"]["results"], outs["cpu"]["results"]):
+        assert a.status == b.status == "done"
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
 def _small_batched_setup(rp):
     from repro_torch.core.compressor import CompressionConfig
     from repro_torch.graph.data import synthetic_graph

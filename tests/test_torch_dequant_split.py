@@ -46,6 +46,7 @@ from repro_torch.core.compressor import CompressionConfig
 from repro_torch.kernels import fused_matmul as t_fk
 from repro_torch.kernels import ref as t_ref
 from tf32_split import split_bf16
+from torch_threads import one_thread  # noqa: F401
 
 G, BITS = 256, 2
 SHAPES = [(256, 256, 256), (256, 512, 256), (256, 512, 40)]   # (m, d, n)

@@ -37,6 +37,7 @@ from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.models import Model
 from repro_torch.models.transformer import init_params
 from repro_torch.parallel import sharding
+from torch_threads import one_thread  # noqa: F401
 
 
 class FakeMesh:

@@ -9,6 +9,7 @@ import pathlib
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

@@ -48,6 +48,7 @@ from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.convert import params_from_jax
 from repro_torch.optim.adamw import _q_state, moment_offset
 from repro_torch.parallel import run_ranks, sharding
+from torch_threads import one_thread  # noqa: F401
 
 BAND = dict(rtol=2e-4, atol=2e-5)
 F32 = dict(atol=2e-5, rtol=1e-5)

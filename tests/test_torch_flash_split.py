@@ -22,6 +22,7 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention_call
 from repro.models.attention import online_attention
+from torch_threads import one_thread  # noqa: F401
 
 BAND = 3e-5
 NEG_INF = -1e30

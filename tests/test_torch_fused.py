@@ -38,6 +38,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import fused_matmul as t_fk
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import ref as t_ref
+from torch_threads import one_thread  # noqa: F401
 
 SHAPES = [(96, 64, 64), (9, 64, 64), (10, 32, 64), (100, 64, 32)]
 N_OUT = 24

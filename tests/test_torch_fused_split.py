@@ -26,6 +26,7 @@ import torch
 
 from repro.kernels.fused_matmul import matmul_quant_call
 from tf32_split import split
+from torch_threads import one_thread  # noqa: F401
 
 SHAPES = [(256, 256, 256), (256, 512, 256), (256, 512, 40)]   # (m, d, n)
 SCALES = [1e-3, 1.0, 1e3]

@@ -44,6 +44,7 @@ from repro_torch.graph.train import train_gnn as t_train_gnn
 from repro_torch.optim import AdamWConfig as TAdam
 from repro_torch.optim import adamw_init as t_adamw_init
 from repro_torch.optim import adamw_update as t_adamw_update
+from torch_threads import one_thread  # noqa: F401
 
 ARCHS = ["sage", "gcn"]
 

@@ -20,6 +20,7 @@ from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import quant_blockwise as t_qk
 from repro_torch.kernels import ref as t_ref
 from repro_torch.kernels import rp_matmul as t_rk
+from torch_threads import one_thread  # noqa: F401
 
 VM2 = optimize_levels(32, 2)
 

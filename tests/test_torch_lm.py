@@ -2,8 +2,9 @@
 the synthetic prompt source (exact), then ``Model.prefill`` logits and KV
 cache and several ``decode_step``s from the same weights
 (``params_from_jax``) for qwen1.5-4b (QKV bias, MHA), mistral-nemo-12b
-(GQA, H*Dh != d_model) and qwen3-32b (qk-norm), the training forward
-(``hidden_states`` and ``loss``), and the launcher.
+(GQA, H*Dh != d_model), qwen3-32b (qk-norm) and qwen1.5-32b (QKV bias,
+40 KV heads), the training forward (``hidden_states`` and ``loss``), the
+legacy loop's greedy decode, and the launcher.
 
 Tolerances: float32 activations 2e-5 absolute + 1e-5 relative (the
 matmuls sum in other orders); bf16 activations 0.1 absolute on logits of
@@ -34,8 +35,9 @@ from repro_torch.launch import serve as t_serve
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import Model
 from repro_torch.models.convert import params_from_jax, to_tensor
+from torch_threads import one_thread  # noqa: F401
 
-LM_ARCHS = ["qwen1.5-4b", "mistral-nemo-12b", "qwen3-32b"]
+LM_ARCHS = ["qwen1.5-4b", "mistral-nemo-12b", "qwen3-32b", "qwen1.5-32b"]
 TOL = {"float32": dict(atol=2e-5, rtol=1e-5),
        "bfloat16": dict(atol=0.1, rtol=0.0)}
 
@@ -232,10 +234,11 @@ def test_hidden_states_and_loss_match_reference(name):
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
 
 
-def test_serve_step_greedy_decode_matches_reference():
+@pytest.mark.parametrize("name", LM_ARCHS)
+def test_serve_step_greedy_decode_matches_reference(name):
     """The legacy loop's step: prefill, then 6 greedy tokens, equal to the
     reference's at float32 activations (and the same on a rerun)."""
-    jm, params, tm = _pair("qwen3-32b", "float32")
+    jm, params, tm = _pair(name, "float32")
     prompt = np.random.default_rng(4).integers(0, jm.cfg.vocab, (2, 16))
     _, cj = jm.prefill(params, jnp.asarray(prompt, jnp.int32), max_seq=32)
     jstep = jax.jit(j_make_serve_step(jm))

@@ -72,6 +72,7 @@ from repro_torch.offload.gnn import plan_gnn_stashes
 from repro_torch.offload.pager import FeaturePager
 from repro_torch.parallel import halo as t_halo
 from repro_torch.parallel import run_ranks
+from torch_threads import one_thread  # noqa: F401
 
 GRAPH_ARGS = ranks.GRAPH_ARGS
 GRAPH_KW = ranks.GRAPH_KW

@@ -39,6 +39,7 @@ from repro_torch.models import moe as t_moe
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.layers import swiglu
 from repro_torch.serving import KVCacheConfig, Request, ServeEngine
+from torch_threads import one_thread  # noqa: F401
 
 MOE_ARCHS = ["qwen3-moe-235b-a22b", "arctic-480b"]
 F32 = dict(atol=2e-5, rtol=1e-5)

@@ -53,6 +53,7 @@ from repro_torch.obs.session import NULL_SESSION, ObsSession
 from repro_torch.obs.trace import Tracer, set_tracer, stopwatch
 from repro_torch.offload.pager import FeaturePager
 from repro_torch.parallel import run_ranks
+from torch_threads import one_thread  # noqa: F401
 
 COMP = dict(bits=2, group_size=64, rp_ratio=8)
 

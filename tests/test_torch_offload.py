@@ -52,6 +52,7 @@ from repro_torch.offload import arena as t_ar
 from repro_torch.offload import engine as t_engine
 from repro_torch.offload.gnn import plan_gnn_stashes as t_plan_gnn
 from repro_torch.optim import AdamWConfig
+from torch_threads import one_thread  # noqa: F401
 
 GRAPH_ARGS = ("t", 700, 3500, 32, 5)
 GRAPH_KW = dict(homophily=0.5, feature_noise=1.5, seed=1)

@@ -30,6 +30,7 @@ from repro.kernels.quant_blockwise import dequant_unpack_call, quant_pack_call
 from repro_torch.core.variance import optimize_levels
 from repro_torch.kernels import quant_blockwise as t_qk
 from repro_torch.kernels import ref as t_ref
+from torch_threads import one_thread  # noqa: F401
 
 WARP = 32
 

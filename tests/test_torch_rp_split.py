@@ -24,6 +24,7 @@ from repro.core import random_projection as j_rp
 from repro.kernels.rp_matmul import irp_project_call, rp_project_call
 from repro_torch.core.random_projection import rp_matrix, rp_scale
 from tf32_split import split, tf32_rna
+from torch_threads import one_thread  # noqa: F401
 
 SHAPES = [(677, 256, 32), (130, 512, 64), (33, 40, 5)]
 SCALES = [1e-3, 1.0, 1e3]

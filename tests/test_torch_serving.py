@@ -38,8 +38,12 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.serving import (KVCacheConfig, PageAllocator, Request,
                                  Scheduler, ServeEngine, kvcache,
                                  plan_kv_layout)
+from torch_threads import one_thread  # noqa: F401
 
 S, GEN, T = 8, 6, 4                    # prompt len, gen budget, page tokens
+#: The dense archs beside qwen1.5-4b (GQA with n_heads x d_head !=
+#: d_model, qk-norm, 40 KV heads with QKV bias).
+DENSE_TRIO = ["mistral-nemo-12b", "qwen3-32b", "qwen1.5-32b"]
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -132,6 +136,30 @@ def test_served_layout_is_the_one_chip_smoke_checks():
                          d_head=cfg.d_head)
     assert (n_pages, lay.page_bytes, lay.pool_bytes, lay.f32_pool_bytes) == (
         260, 51_200, 532_480_000, 3_407_872_000)
+
+
+@pytest.mark.parametrize("name", DENSE_TRIO)
+def test_dense_trio_layouts_are_the_ones_chip_smoke_checks(name):
+    """Each of the trio's full-size KV layouts at phase 18's traffic and
+    depth (2 slots of 17 pages, 4-bit, G = 64, 16-token pages) equals the
+    reference's, and its pool the reckoning ``chip_smoke.py`` holds the
+    card's to; qwen1.5-32b's K (or V) rows are 80 blocks a token (1,280 a
+    16-token page), the others' 16."""
+    import chip_smoke
+
+    cfg = dataclasses.replace(T_ARCHS[name],
+                              n_layers=chip_smoke.DENSE_SERVE_LAYERS[name])
+    kw = dict(bits=4, group_size=64, page_tokens=16,
+              n_pages=2 * chip_smoke.DENSE_PAGES)
+    geo = dict(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+               d_head=cfg.d_head)
+    t, j = plan_kv_layout(KVCacheConfig(**kw), **geo), j_plan(JKV(**kw),
+                                                               **geo)
+    for prop in LAYOUT_PROPS:
+        assert getattr(t, prop) == getattr(j, prop), prop
+    assert t.pool_bytes == chip_smoke.dense_reckon(cfg, t.page_bytes)["pool"]
+    assert cfg.n_layers == J_ARCHS[name].n_layers     # served whole
+    assert t.blocks_per_token == (80 if name == "qwen1.5-32b" else 16)
 
 
 def test_plan_kv_layout_validates():
@@ -287,19 +315,25 @@ def test_scheduler_admission_matches_reference(mode):
 
 
 # ---------------------------------------------------------------- engine
-@pytest.fixture(scope="module")
-def served():
-    cfg = dataclasses.replace(j_reduce(J_ARCHS["qwen1.5-4b"]),
-                              act_mode="none", act_dtype="float32")
+def _serve_pair(name):
+    """The smoke-size ``name`` at float32 activations: the reference's
+    model and weights, the port's model of the same weights, 3 prompts."""
+    cfg = dataclasses.replace(j_reduce(J_ARCHS[name]), act_mode="none",
+                              act_dtype="float32")
     jm = JModel(cfg)
     params = jm.init(jax.random.PRNGKey(0))
-    tcfg = dataclasses.replace(t_reduce(T_ARCHS["qwen1.5-4b"]),
-                               act_mode="none", act_dtype="float32")
+    tcfg = dataclasses.replace(t_reduce(T_ARCHS[name]), act_mode="none",
+                               act_dtype="float32")
     tm = params_from_jax(jax.tree.map(np.asarray, params), tcfg,
                          device="cpu")
     prompts = np.random.default_rng(1).integers(0, cfg.vocab, (3, S)).astype(
         np.int32)
     return jm, params, tm, prompts
+
+
+@pytest.fixture(scope="module")
+def served():
+    return _serve_pair("qwen1.5-4b")
 
 
 def _engine(tm, prompts, *, bits, n_pages, max_batch, mode, **kw):
@@ -341,12 +375,10 @@ def test_engine_bits16_token_identical_to_legacy_loop(served, mode):
     assert single["decode_steps"] == 3 * (GEN - 1)
 
 
-@pytest.mark.parametrize("bits", [16, 8, 4])
-def test_engine_matches_reference_engine(served, bits):
+def _engine_parity(jm, params, tm, prompts, bits):
     """Three requests through two slots (the third reuses a freed slot's
-    pages): greedy tokens equal, every step's logits within 1e-4, the same
-    summary keys and byte counts."""
-    jm, params, tm, prompts = served
+    pages) on both engines: greedy tokens equal, every step's logits
+    within 1e-4, the same summary keys and byte counts."""
     maxp = -(-(S + GEN - 1) // T)
     jkv = JKV(bits=bits, group_size=64, page_tokens=T, n_pages=2 * maxp)
     jout = JEngine(jm, params, kv=jkv, max_batch=2, max_prompt=S,
@@ -364,6 +396,17 @@ def test_engine_matches_reference_engine(served, bits):
     for key in ("gen_tokens", "decode_steps", "rejected", "kv_pool_bytes",
                 "kv_f32_pool_bytes", "kv_bits", "kv_mechanism", "mode"):
         assert tout[key] == jout[key], key
+
+
+@pytest.mark.parametrize("bits", [16, 8, 4])
+def test_engine_matches_reference_engine(served, bits):
+    _engine_parity(*served, bits)
+
+
+@pytest.mark.parametrize("name", DENSE_TRIO)
+def test_engine_4bit_matches_reference_engine_dense_trio(name):
+    """The paged engine over the 4-bit cache for each of the trio."""
+    _engine_parity(*_serve_pair(name), 4)
 
 
 def test_engine_rejection_reasons(served):

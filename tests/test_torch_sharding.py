@@ -53,6 +53,7 @@ from repro_torch.kernels import ref as t_ref
 from repro_torch.launch.mesh import make_local_mesh, make_mesh
 from repro_torch.models.transformer import init_cache, init_params
 from repro_torch.parallel import annotate, run_ranks, sharding
+from torch_threads import one_thread  # noqa: F401
 
 
 class FakeMesh:

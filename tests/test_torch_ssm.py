@@ -48,22 +48,13 @@ from repro_torch.models import Model
 from repro_torch.models import attention as t_attn
 from repro_torch.models import ssm as t_ssm
 from repro_torch.models.convert import params_from_jax, to_tensor
+from torch_threads import one_thread  # noqa: F401
 
 NAMES = ["mamba2-780m", "zamba2-1.2b", "seamless-m4t-large-v2"]
 F32 = dict(atol=2e-5, rtol=1e-5)
 SSD = dict(atol=1e-4, rtol=1e-4)
 BF16 = dict(atol=2.0 ** -5, rtol=2.0 ** -6)
 BF16_GRAD = dict(rtol=2.0 ** -7, atol=1e-5)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread a test: the shapes are tiny, and the suite runs
-    several workers at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _f32(a):

@@ -20,6 +20,7 @@ from repro_torch.staticcheck import (deadcode, kernel_contracts,
                                      plan_verify, saved_audit, seed_lint)
 from repro_torch.staticcheck.findings import Finding, new_findings
 from repro_torch.staticcheck.matrix import _FIXED, audit_matrix, gnn_cfg
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

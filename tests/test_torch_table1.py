@@ -49,6 +49,7 @@ from repro_torch.kernels import quant_blockwise as t_qk
 from repro_torch.optim import AdamWConfig as TAdam
 from repro_torch.optim import adamw_init as t_adamw_init
 from repro_torch.optim import adamw_update as t_adamw_update
+from torch_threads import one_thread  # noqa: F401
 
 SCALE = 0.006
 HIDDEN = (32, 32)

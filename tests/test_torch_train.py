@@ -47,18 +47,9 @@ from repro_torch.launch import train as t_train
 from repro_torch.models.convert import params_from_jax
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.runtime import StragglerMonitor, TrainRunner
+from torch_threads import one_thread  # noqa: F401
 
 BF16 = dict(rtol=2.0 ** -7, atol=1e-6)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread a test: the shapes are tiny, and the suite runs
-    several workers at once, whose idle threads would spin on each other."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _normal(shape, seed, scale=1.0):
