@@ -28,6 +28,7 @@ from repro_torch.graph.sampling import make_subgraph_batches
 from repro_torch.kernels.autotune import StepTiles
 from repro_torch.obs.metrics import get_metrics
 from repro_torch.obs.session import NULL_SESSION
+from repro_torch.obs.trace import span
 from repro_torch.offload.engine import ArenaStore
 from repro_torch.offload.gnn import plan_gnn_stashes
 from repro_torch.offload.pager import FeaturePager
@@ -79,7 +80,9 @@ def _arena_store(stash: StashPolicy, cfg: GNNConfig, graph: DeviceGraph):
 
 class CompiledFull:
     """Full-graph step: ``step(epoch)`` runs forward, the manual backward
-    and AdamW in place, and returns the loss (a device scalar).  ``fused``
+    and AdamW in place, and returns the loss (a device scalar), inside a
+    ``step`` span holding ``step/forward``, ``step/loss`` and
+    ``step/backward`` (:mod:`repro_torch.obs.trace`).  ``fused``
     is the reference's ``KernelPolicy.fused`` knob ("auto" | "on" | "off")
     for the matmul-quant pair; an arena ``stash`` policy plans its
     :class:`~repro_torch.offload.arena.StashPlan` once, over the graph."""
@@ -103,17 +106,21 @@ class CompiledFull:
         return self
 
     def step(self, epoch: int) -> torch.Tensor:
-        params = self.model.flat_params()
-        with self.tiles:
-            logits = stash_gnn_forward(self.model, self.graph, self.cfg,
-                                       seeds.sr_seed(epoch), self.fused,
-                                       self.store)
-            self.stash_bytes = stash_nbytes(logits)
-            loss = masked_nll(logits, self.graph.labels,
-                              self.graph.train_mask)
-            grads = torch.autograd.grad(loss, params)
-        adamw_update(grads, self.state, params, self.opt)
-        return loss.detach()
+        with span("step", epoch=epoch):
+            params = self.model.flat_params()
+            with self.tiles:
+                with span("step/forward"):
+                    logits = stash_gnn_forward(self.model, self.graph,
+                                               self.cfg, seeds.sr_seed(epoch),
+                                               self.fused, self.store)
+                    self.stash_bytes = stash_nbytes(logits)
+                with span("step/loss"):
+                    loss = masked_nll(logits, self.graph.labels,
+                                      self.graph.train_mask)
+                with span("step/backward"):
+                    grads = torch.autograd.grad(loss, params)
+            adamw_update(grads, self.state, params, self.opt)
+            return loss.detach()
 
     def epoch_data(self, order_rng) -> tuple:
         """What :meth:`step` takes after the epoch: nothing."""

@@ -33,6 +33,7 @@ from repro_torch.engine import seeds
 from repro_torch.graph.models import (DeviceGraph, GNNConfig, aggregate,
                                       relu_1bit, relu_mask, spmm,
                                       unpack_relu_mask)
+from repro_torch.obs.trace import span
 from repro_torch.offload import engine as stash_engine
 from repro_torch.offload.engine import ArenaStore
 from repro_torch.parallel.halo import halo_exchange
@@ -57,12 +58,15 @@ class _StashGNN(torch.autograd.Function):
             comp = per_layer[li]
             if comp is None:
                 writer.put_raw(li, x)
-                z = x @ w + b
+                with span("gnn/linear", layer=li, dir="fwd"):
+                    z = x @ w + b
             else:
                 # fused: x is quantized beside its product (one read of
                 # x); route_fused falls back to two passes per layer
-                y, ct = compress_matmul(x, w, comp, seeds.layer_seed(seed, li),
-                                        fused=fused)
+                with span("gnn/linear", layer=li, dir="fwd"):
+                    y, ct = compress_matmul(x, w, comp,
+                                            seeds.layer_seed(seed, li),
+                                            fused=fused)
                 writer.put_ct(li, ct)
                 z = y + b
             if not sage:
@@ -103,16 +107,20 @@ class _StashGNN(torch.autograd.Function):
             # transpose of the output-side A-product (GCN applies it after
             # the linear)
             gz = g if sage else spmm(g, adj_t)
-            if per_layer[li] is not None:
-                # fused: the stash is dequantized in the product's prologue
-                dw = decompress_matmul(reader.get_ct(li), gz, fused=ctx.fused)
-            else:
-                dw = reader.get_raw(li).T @ gz
+            with span("gnn/linear", layer=li, dir="bwd"):
+                if per_layer[li] is not None:
+                    # fused: the stash is dequantized in the product's
+                    # prologue
+                    dw = decompress_matmul(reader.get_ct(li), gz,
+                                           fused=ctx.fused)
+                else:
+                    dw = reader.get_raw(li).T @ gz
+                # the features take no gradient
+                gx = gz @ w.T if li > 0 else None
             grads[2 * li] = dw.to(w.dtype)
             grads[2 * li + 1] = gz.sum(dim=0)
             if li == 0:
-                break   # the features take no gradient
-            gx = gz @ w.T
+                break
             if sage:
                 d = gx.shape[1] // 2
                 gh = gx[:, :d] + spmm(gx[:, d:], adj_t)

@@ -22,6 +22,7 @@ from torch import nn
 from repro_torch.core import pack as packmod
 from repro_torch.core.compressor import CompressionConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.obs.trace import span
 
 
 # ------------------------------------------------------------- 1-bit ReLU
@@ -107,14 +108,17 @@ def spmm(h: torch.Tensor, a: CSR) -> torch.Tensor:
     (``a.parts``) at a time so the gathered (edges, F) rows stay bounded.
     Deterministic on CUDA: each output element is summed in edge order by
     one thread (the cuSPARSE CSR and COO products, and an atomic
-    ``index_add_``, vary from run to run in the last bits)."""
-    out = h.new_empty((a.offsets.shape[0] - 1, h.shape[1]))
-    for r0, r1, e0, e1, offsets in a.parts:
-        m = h.index_select(0, a.cols[e0:e1])
-        m.mul_(a.vals[e0:e1, None])
-        out[r0:r1] = torch.segment_reduce(m, "sum", offsets=offsets, axis=0)
-        del m  # else the next run's gather is allocated while this one lives
-    return out
+    ``index_add_``, vary from run to run in the last bits).  One
+    ``gnn/spmm`` span a call."""
+    with span("gnn/spmm"):
+        out = h.new_empty((a.offsets.shape[0] - 1, h.shape[1]))
+        for r0, r1, e0, e1, offsets in a.parts:
+            m = h.index_select(0, a.cols[e0:e1])
+            m.mul_(a.vals[e0:e1, None])
+            out[r0:r1] = torch.segment_reduce(m, "sum", offsets=offsets,
+                                              axis=0)
+            del m  # else the next run's gather is allocated while this lives
+        return out
 
 
 class _Aggregate(torch.autograd.Function):

@@ -23,8 +23,6 @@ from repro_torch.obs.metrics import (NULL_COUNTER, NULL_GAUGE, NULL_HISTOGRAM,
 from repro_torch.obs.policy import ObsPolicy
 from repro_torch.obs.trace import Tracer
 
-_NULL_CM = contextlib.nullcontext()
-
 
 class ObsSession:
     def __init__(self, policy: ObsPolicy):
@@ -60,8 +58,7 @@ class ObsSession:
 
     # --------------------------------------------------------------- spans
     def span(self, name: str, **args):
-        return (self.tracer.span(name, **args) if self.tracer is not None
-                else _NULL_CM)
+        return tracemod.open_span(self.tracer, name, args)
 
     # ------------------------------------------------------------- metrics
     def counter(self, name: str):

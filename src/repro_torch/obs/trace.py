@@ -1,23 +1,37 @@
 """Host-side span tracer: nested wall-clock spans, exported as JSONL and
 Chrome ``trace_event`` JSON (the reference's ``repro.obs.trace``; a trace
-from either package loads alike at https://ui.perfetto.dev, and beside a
-``torch.profiler`` device trace in the same timeline format).
+from either package loads alike at https://ui.perfetto.dev).
 
-**Spans are host time.**  Everything here is ``time.perf_counter``
-bookkeeping on the host.  On the card a span measures the host's enqueueing
-of the work up to the span's end, not the device's execution of it: PyTorch
-returns before the device finishes.  Only a span whose body reads a result
-back waits for the device: the engine's ``epoch`` span (the loss), its
-``obs/quant_probe`` span (the probe's one copy to the host) and serving's
-``serve/prefill``.  No span calls ``torch.cuda.synchronize``: that would
-stall the side streams' copies (the feature pager's, the stash arena's) and
-change what is measured.
+**Spans are host time.**  A :class:`Tracer` records ``time.perf_counter``
+bookkeeping on the host, on its own clock from 0.  On the card a span
+measures the host's enqueueing of the work up to the span's end, not the
+device's execution of it: PyTorch returns before the device finishes.  Only
+a span whose body reads a result back waits for the device: the engine's
+``epoch`` span (the loss), its ``obs/quant_probe`` span (the probe's one
+copy to the host) and serving's ``serve/prefill``.  No span calls
+``torch.cuda.synchronize``: that would stall the side streams' copies (the
+feature pager's, the stash arena's) and change what is measured.
+
+**Spans on the profiler's clock.**  While a ``torch.profiler`` records,
+every span is also a profiler range of the same name (a ``cpu_op`` event
+in its chrome trace, on the clock of the kernel launches inside it),
+whether or not a tracer is installed; the profiler is the only switch.
+Ranges carry the name alone, a tracer also the arguments.  The training
+step's spans: ``step`` around
+:meth:`~repro_torch.engine.compile.CompiledFull.step`, holding
+``step/forward``, ``step/loss`` and ``step/backward``; ``optim/adamw``
+around each AdamW update; ``gnn/spmm`` around each aggregation;
+``gnn/linear`` around each layer's product with its compression, forward
+and backward (``layer``, ``dir``).  The backward's spans open on
+autograd's thread while the caller waits in ``torch.autograd.grad``, so
+they nest under ``step/backward``.
 
 The module keeps one *active* tracer (:func:`set_tracer` /
 :func:`get_tracer`): producers call the module-level :func:`span` /
-:func:`stopwatch` and emit spans only when a tracer is installed; with none
-installed both are shared no-op objects, so instrumented code costs an
-attribute check when observability is off.
+:func:`stopwatch` and emit spans only when a tracer is installed or a
+profiler records; with neither, :func:`span` returns one shared no-op
+object after a flag check, so instrumented code costs well under a
+microsecond a span when observability is off.
 """
 from __future__ import annotations
 
@@ -26,6 +40,8 @@ import dataclasses
 import json
 import pathlib
 import time
+
+import torch
 
 
 @dataclasses.dataclass
@@ -48,8 +64,6 @@ class Tracer:
 
     def __init__(self):
         self._origin = time.perf_counter()
-        #: wall-clock epoch of the origin, for aligning with external traces
-        self.origin_unix_s = time.time()
         self.spans: list[Span] = []
         self._stack: list[int] = []
 
@@ -92,6 +106,10 @@ class Tracer:
 
 _ACTIVE: Tracer | None = None
 _NULL_CM = contextlib.nullcontext()
+#: ``_is_profiler_enabled`` is read on each span: a module attribute that
+#: every ``torch.profiler`` sets while it records
+_PROFILER = torch.autograd.profiler
+_RANGE = torch._C._profiler._RecordFunctionFast
 
 
 def set_tracer(tracer: Tracer | None) -> Tracer | None:
@@ -106,9 +124,41 @@ def get_tracer() -> Tracer | None:
     return _ACTIVE
 
 
+class _ProfiledSpan:
+    """A span while a profiler records: a profiler range named ``name``
+    around the tracer's span, when there is a tracer."""
+
+    __slots__ = ("_range", "_span")
+
+    def __init__(self, tracer: Tracer | None, name: str, args: dict):
+        self._range = _RANGE(name)
+        self._span = None if tracer is None else tracer.span(name, **args)
+
+    def __enter__(self):
+        self._range.__enter__()
+        return None if self._span is None else self._span.__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            if self._span is not None:
+                self._span.__exit__(*exc)
+        finally:
+            self._range.__exit__(*exc)
+        return False
+
+
+def open_span(tracer: Tracer | None, name: str, args: dict):
+    """Span ``name`` with ``args`` on ``tracer`` (when not None) and, while
+    a profiler records, a profiler range of that name; with neither, the
+    shared no-op context."""
+    if _PROFILER._is_profiler_enabled:
+        return _ProfiledSpan(tracer, name, args)
+    return _NULL_CM if tracer is None else tracer.span(name, **args)
+
+
 def span(name: str, **args):
-    """Span on the active tracer; a shared no-op when none is installed."""
-    return _ACTIVE.span(name, **args) if _ACTIVE is not None else _NULL_CM
+    """:func:`open_span` on the active tracer."""
+    return open_span(_ACTIVE, name, args)
 
 
 class stopwatch:

@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.core import backend
 from repro_torch.core.prng import MASK32
+from repro_torch.obs.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,44 +238,48 @@ def adamw_init(params, cfg: AdamWConfig | None = None, names=None) -> dict:
 @torch.no_grad()
 def adamw_update(grads, state: dict, params, cfg: AdamWConfig) -> None:
     """One AdamW step over matching lists of grads and params, in place
-    (quantized moment leaves are replaced by their new quantization)."""
-    step = state["step"]
-    lr = float(schedule(cfg, step))
-    t = np.float32(step + 1)
-    grads = [placed(g, p) for g, p in zip(grads, params)]
-    gnorm = torch.sqrt(sum(_sq_norm(g) for g in grads)) \
-        if cfg.grad_clip else None
-    grads = [_local(g) for g in grads]
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
-                        max=1.0) if cfg.grad_clip else None
-    bc1 = float(np.float32(1) - np.float32(cfg.b1) ** t)
-    bc2 = float(np.float32(1) - np.float32(cfg.b2) ** t)
-    bits, group = cfg.state_bits, cfg.state_group
-    seed = (step + 1) & MASK32
-    for i, (g, m, v, p) in enumerate(zip(grads, state["m"], state["v"],
-                                         params)):
-        # each gradient scaled as it is read: scaled copies of every
-        # gradient at once would double their memory
-        off = shard_offset(p, group) if bits else None
-        g, p = (g if scale is None else g * scale).float(), _local(p)
-        if bits:
-            m_f = _dq_state(m, bits, group, g.shape)
-            v_f = torch.clamp_min(_dq_state(v, bits, group, g.shape), 0.0)
-            m_f = cfg.b1 * m_f + (1 - cfg.b1) * g
-            v_f = cfg.b2 * v_f + (1 - cfg.b2) * g * g
-        elif m.dtype == torch.float32:
-            m_f = m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-            v_f = v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-        else:   # a narrower float state: the update in float32, stored rounded
-            m_f = cfg.b1 * m.float() + (1 - cfg.b1) * g
-            v_f = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
-            m.copy_(m_f)
-            v.copy_(v_f)
-        upd = (m_f / bc1) / (torch.sqrt(v_f / bc2) + cfg.eps)
-        if cfg.weight_decay:
-            upd = upd + cfg.weight_decay * p.float()
-        p.sub_((lr * upd).to(p.dtype))
-        if bits:
-            state["m"][i] = _q_state(m_f, bits, group, seed, off)
-            state["v"][i] = _q_state(v_f, bits, group, seed + 1, off)
-    state["step"] = step + 1
+    (quantized moment leaves are replaced by their new quantization),
+    inside an ``optim/adamw`` span."""
+    with span("optim/adamw"):
+        step = state["step"]
+        lr = float(schedule(cfg, step))
+        t = np.float32(step + 1)
+        grads = [placed(g, p) for g, p in zip(grads, params)]
+        gnorm = torch.sqrt(sum(_sq_norm(g) for g in grads)) \
+            if cfg.grad_clip else None
+        grads = [_local(g) for g in grads]
+        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
+                            max=1.0) if cfg.grad_clip else None
+        bc1 = float(np.float32(1) - np.float32(cfg.b1) ** t)
+        bc2 = float(np.float32(1) - np.float32(cfg.b2) ** t)
+        bits, group = cfg.state_bits, cfg.state_group
+        seed = (step + 1) & MASK32
+        for i, (g, m, v, p) in enumerate(zip(grads, state["m"], state["v"],
+                                             params)):
+            # each gradient scaled as it is read: scaled copies of every
+            # gradient at once would double their memory
+            off = shard_offset(p, group) if bits else None
+            g, p = (g if scale is None else g * scale).float(), _local(p)
+            if bits:
+                m_f = _dq_state(m, bits, group, g.shape)
+                v_f = torch.clamp_min(_dq_state(v, bits, group, g.shape), 0.0)
+                m_f = cfg.b1 * m_f + (1 - cfg.b1) * g
+                v_f = cfg.b2 * v_f + (1 - cfg.b2) * g * g
+            elif m.dtype == torch.float32:
+                m_f = m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+                v_f = v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+            else:
+                # a narrower float state: the update in float32, stored
+                # rounded
+                m_f = cfg.b1 * m.float() + (1 - cfg.b1) * g
+                v_f = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
+                m.copy_(m_f)
+                v.copy_(v_f)
+            upd = (m_f / bc1) / (torch.sqrt(v_f / bc2) + cfg.eps)
+            if cfg.weight_decay:
+                upd = upd + cfg.weight_decay * p.float()
+            p.sub_((lr * upd).to(p.dtype))
+            if bits:
+                state["m"][i] = _q_state(m_f, bits, group, seed, off)
+                state["v"][i] = _q_state(v_f, bits, group, seed + 1, off)
+        state["step"] = step + 1

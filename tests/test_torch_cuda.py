@@ -1480,6 +1480,48 @@ def test_cuda_obs_on_is_bit_identical(cuda, kind):
     assert len(rows) == cfg.n_layers and rows[0]["epoch"] == 2
 
 
+@pytest.mark.gpu
+def test_cuda_step_spans_nest_across_autograd_thread(cuda, tmp_path):
+    """On the card the backward runs on autograd's device thread: its
+    ``gnn/*`` spans still nest under ``step/backward`` in a tracer, and under
+    a profiler every span of the step is a ``cpu_op`` range, the backward's
+    on that other thread."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine.compile import compile_plan
+    from repro_torch.engine.plan import ExecutionPlan
+    from repro_torch.obs.trace import Tracer, set_tracer
+    from repro_torch.optim import AdamWConfig
+
+    g, cfg, model = _small_batched_setup(8)
+    compiled = compile_plan(g, cfg, ExecutionPlan(), model.cuda(),
+                            AdamWConfig(lr=5e-3), "cuda")
+    compiled.step(0)
+    tracer = Tracer()
+    prev = set_tracer(tracer)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            compiled.step(1)
+            torch.cuda.synchronize()
+    finally:
+        set_tracer(prev)
+    spans = tracer.spans
+    [bwd] = [i for i, s in enumerate(spans) if s.name == "step/backward"]
+    assert sorted(s.name for s in spans if s.parent == bwd) == \
+        ["gnn/linear"] * 3 + ["gnn/spmm"] * 2
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    ranges = [(e["name"], e.get("tid")) for e in events
+              if e.get("cat") == "cpu_op" and e.get("name") in
+              {s.name for s in spans}]
+    assert sorted(n for n, _ in ranges) == sorted(s.name for s in spans)
+    [main] = {t for n, t in ranges if n == "step"}
+    assert sum(t != main for _, t in ranges) == 5
+
+
 # --------------------------------------------- LM training and the decode
 def _block_params(d: int, seed: int) -> dict:
     gen = torch.Generator().manual_seed(seed)
